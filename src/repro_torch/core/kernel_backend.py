@@ -1,0 +1,44 @@
+"""Kernel-backed CPADMM step: the port of ``cpadmm_step_pallas``.
+
+Same step math as :func:`repro_torch.core.admm.cpadmm_step`; only the
+substrate changes (``repro/core/kernel_backend.py``):
+
+  * frequency-domain x-update -> kernels.spectral_pointwise (Triton),
+    between two rffts and one irfft (``torch.fft``, cuFFT on the card)
+  * C x                       -> kernels.circulant_matvec: the direct CUDA
+                                 kernel below n = 2^15 (n % 128 == 0), the
+                                 FFT path above, as the reference dispatches
+  * whole elementwise tail    -> kernels.cpadmm_tail (Triton)
+
+Routed from ``make_stepper`` by ``plan(op, tail="kernel")`` with the l1
+prior.  The CPADMM iteration of ``ista_step_pallas`` comes with the
+``soft_threshold`` kernels in a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.circulant_matvec.ops import circulant_matvec
+from ..kernels.cpadmm_tail.ops import fused_cpadmm_tail
+from ..kernels.spectral_pointwise.ops import spectral_update
+from .admm import CpadmmConst, CpadmmParams, CpadmmState
+from .circulant import PartialCirculant
+
+
+def cpadmm_step_kernel(
+    op: PartialCirculant, const: CpadmmConst, state: CpadmmState, p: CpadmmParams
+) -> CpadmmState:
+    """CPADMM iteration: spectral_pointwise x-update + matvec + one fused tail."""
+    n = op.n
+    vm = torch.fft.rfft(state.v + state.mu, dim=-1)
+    zn = torch.fft.rfft(state.z - state.nu, dim=-1)
+    x_spec = spectral_update(op.circ.spec, const.b_spec, vm, zn, p.rho, p.sigma)
+    x = torch.fft.irfft(x_spec, n=n, dim=-1)
+
+    cx = circulant_matvec(op.circ.col, x)
+    v, z, mu, nu = fused_cpadmm_tail(
+        x, cx, const.d_diag, const.Pty, state.mu, state.nu,
+        p.rho, p.alpha / p.sigma, p.tau1, p.tau2,
+    )
+    return CpadmmState(x=x, v=v, z=z, mu=mu, nu=nu)

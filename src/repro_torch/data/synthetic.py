@@ -1,0 +1,69 @@
+"""Deterministic synthetic data: k-sparse signals and starfield images.
+
+Port of the recovery half of ``repro/data/synthetic.py``.  Each function
+takes a ``torch.Generator`` in place of the reference's ``jax.random`` key
+and draws on the generator's device, then places the result on
+``device=`` (``None`` = the CUDA default).  The two packages give different
+numbers from the same seed; parity tests build their inputs once and hand
+them to both.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from ..device import resolve_device
+
+
+def sparse_signal(
+    gen: torch.Generator, n: int, k: int, batch: Tuple[int, ...] = (),
+    dtype=torch.float32, device=None,
+) -> torch.Tensor:
+    """x* with exactly k nonzeros per signal, values ~ N(0,1) (paper Sec. 6)."""
+    device = resolve_device(device)
+    vals = torch.randn(batch + (n,), generator=gen, dtype=dtype, device=gen.device)
+    masks = torch.zeros(math.prod(batch), n, dtype=dtype, device=gen.device)
+    for row in masks:
+        row[torch.randperm(n, generator=gen, device=gen.device)[:k]] = 1.0
+    return (vals * masks.reshape(batch + (n,))).to(device)
+
+
+def paper_regime(n: int) -> Tuple[int, int]:
+    """Paper Sec. 6: m = n/2 measurements, k ~= n/10 nonzeros."""
+    return n // 2, max(1, n // 10)
+
+
+def starfield(
+    gen: torch.Generator,
+    h: int = 256,
+    w: int = 256,
+    density: float = 0.10,
+    n_blobs: int = 12,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Sparse night-sky image (the paper's Abell-2744 stand-in): point
+    sources (~``density`` of pixels lit) plus a few soft elliptical blobs
+    standing in for cluster galaxies.  Intensities in [0, 1]."""
+    device = resolve_device(device)
+    draw = dict(generator=gen, dtype=dtype, device=gen.device)
+    lit = torch.rand(h, w, **draw) < density
+    intensity = 0.2 + 0.8 * torch.rand(h, w, **draw)
+    params = torch.rand(n_blobs, 5, **draw).tolist()  # cy cx sy sx amp
+    img = torch.where(lit, intensity, torch.zeros_like(intensity)).to(device)
+
+    yy = torch.arange(h, dtype=dtype, device=device)[:, None]
+    xx = torch.arange(w, dtype=dtype, device=device)[None, :]
+    for p_cy, p_cx, p_sy, p_sx, p_amp in params:
+        cy, cx = p_cy * h, p_cx * w
+        sy = 1.5 + p_sy * (h / 40.0)
+        sx = 1.5 + p_sx * (w / 40.0)
+        amp = 0.3 + 0.7 * p_amp
+        img = img + amp * torch.exp(-(((yy - cy) / sy) ** 2 + ((xx - cx) / sx) ** 2))
+    img = img.clamp(0.0, 1.0)
+    # Kill sub-perceptual blob tails so the image stays genuinely sparse
+    # (the paper's premise: most night-sky pixels are black).
+    return torch.where(img < 0.02, torch.zeros_like(img), img)

@@ -1,0 +1,49 @@
+"""Carry the reference's parameters across: numpy arrays -> port objects.
+
+Each function takes numpy arrays (what ``np.asarray`` gives of the
+reference's JAX arrays) and a ``device=`` (``None`` = the CUDA default).
+Stored spectra are taken as given and never recomputed, so a composed
+operator (``spec(C) * spec(B)``, whose column is derived from the product)
+is the same operator on both sides.  This module imports neither JAX nor
+the reference package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.admm import CpadmmState
+from .core.circulant import Circulant, PartialCirculant
+from .core.deblur import DeblurProblem
+from .device import resolve_device
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    # a copy: the reference's arrays come back read-only, which torch cannot wrap
+    return torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))
+
+
+def circulant_from_numpy(col, spec, device=None) -> Circulant:
+    return Circulant(col=_tensor(col, device), spec=_tensor(spec, device))
+
+
+def partial_circulant_from_numpy(col, spec, omega, device=None) -> PartialCirculant:
+    return PartialCirculant(
+        circulant_from_numpy(col, spec, device), _tensor(omega, device, torch.int64)
+    )
+
+
+def cpadmm_state_from_numpy(x, v, z, mu, nu, device=None) -> CpadmmState:
+    return CpadmmState(*(_tensor(a, device) for a in (x, v, z, mu, nu)))
+
+
+def deblur_problem_from_numpy(
+    col, spec, omega, blur_col, blur_spec, y, image, device=None
+) -> DeblurProblem:
+    return DeblurProblem(
+        op=partial_circulant_from_numpy(col, spec, omega, device),
+        blur=circulant_from_numpy(blur_col, blur_spec, device),
+        y=_tensor(y, device),
+        image=_tensor(image, device),
+    )

@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels for the CPADMM main path.
+
+Each subpackage mirrors ``repro/kernels/<name>``: ``ref.py`` holds the
+plain PyTorch version, ``ops.py`` the public wrapper with its integer
+``launches`` counter, and the kernel itself is Triton (``kernel.py``) or
+CUDA C++ (``repro_torch/csrc/*.cu``, built by :mod:`.build`).  A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+the kernel or raises — it never falls back.
+
+    spectral_pointwise   Triton   <- repro/kernels/spectral_pointwise
+    cpadmm_tail          Triton   <- repro/kernels/cpadmm_tail
+    circulant_matvec     CUDA C++ <- repro/kernels/circulant_matvec
+"""
+
+
+def require_cuda_operands(kernel: str, operands: dict, dtypes: dict) -> None:
+    """Raise ``ValueError`` unless every operand is a contiguous CUDA tensor of
+    its dtype (``dtypes[name]``) and all lie on one device — what a kernel
+    launch takes; the wrappers check before they launch."""
+    for name, t in operands.items():
+        if t.device.type != "cuda" or t.dtype != dtypes[name] or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel} kernel takes contiguous {dtypes[name]} CUDA tensors; {name} is "
+                f"{t.dtype} on {t.device}{'' if t.is_contiguous() else ', not contiguous'}"
+            )
+    if len({t.device for t in operands.values()}) != 1:
+        raise ValueError(f"{kernel} operands lie on different devices")

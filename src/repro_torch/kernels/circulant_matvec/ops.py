@@ -1,0 +1,73 @@
+"""Public wrappers for the direct circulant matvec and its dispatch.
+
+Dispatch policy kept from the reference (``repro/kernels/circulant_matvec/
+ops.py``): the direct kernel when ``n < FFT_CROSSOVER`` and ``n % 128 == 0``,
+the FFT path otherwise.  ``FFT_CROSSOVER = 2^15`` was chosen for the TPU;
+its H100 times stand in PERF.md for a later change to re-choose it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import require_cuda_operands
+from .ref import circulant_matvec_fft, circulant_matvec_ref
+
+FFT_CROSSOVER = 1 << 15
+BLOCK = 128  # rows per block of the CUDA kernel (csrc/circulant_matvec.cu)
+
+
+def _library() -> ctypes.CDLL:
+    from .. import build
+
+    lib = build.load("circulant_matvec")
+    lib.circulant_matvec_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p
+    ]
+    lib.circulant_matvec_f32.restype = ctypes.c_int
+    return lib
+
+
+def circulant_matvec_direct(col: torch.Tensor, x: torch.Tensor, *, transpose: bool = False):
+    """y = C @ x (or C^T @ x), C[i, j] = col[(i - j) mod n], in the time domain.
+
+    ``col`` is (n,), ``x`` is (..., n).  CPU tensors take the plain dense
+    version; CUDA tensors launch the CUDA kernel, which needs fp32,
+    contiguous inputs and ``n % 128 == 0``, and raises otherwise.
+    """
+    n = col.shape[-1]
+    if col.ndim != 1 or x.shape[-1] != n:
+        raise ValueError(f"col must be (n,) and x (..., n); got {tuple(col.shape)}, "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu" and col.device.type == "cpu":
+        return circulant_matvec_ref(col, x, transpose=transpose)
+    require_cuda_operands("circulant_matvec", {"col": col, "x": x},
+                          {"col": torch.float32, "x": torch.float32})
+    if n % BLOCK:
+        raise ValueError(f"circulant_matvec kernel needs n % {BLOCK} == 0; got n={n}")
+    batch = x.numel() // n
+    if not 0 < batch <= 65535:
+        raise ValueError(f"circulant_matvec kernel takes 1..65535 signals; got {batch}")
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().circulant_matvec_f32(
+            col.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch, int(transpose), stream
+        )
+    if err != 0:
+        raise RuntimeError(f"circulant_matvec kernel launch failed: cudaError {err}")
+    circulant_matvec_direct.launches += 1
+    return y
+
+
+circulant_matvec_direct.launches = 0
+
+
+def circulant_matvec(col: torch.Tensor, x: torch.Tensor, *, transpose: bool = False):
+    """y = C @ x (or C^T @ x) by the reference's dispatch on n."""
+    n = col.shape[-1]
+    if n < FFT_CROSSOVER and n % BLOCK == 0:
+        return circulant_matvec_direct(col, x, transpose=transpose)
+    return circulant_matvec_fft(col, x, transpose=transpose)

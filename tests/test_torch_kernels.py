@@ -1,0 +1,235 @@
+"""Each kernel's plain version against the reference's oracle and Pallas kernel.
+
+The reference's Pallas kernels run in interpret mode on the CPU, as
+``tests/test_kernels.py`` runs them.  The port's wrappers, given CPU
+tensors, run their plain versions and leave their launch counters at 0.
+The hand-written kernels themselves run only on a CUDA card: the ``gpu``
+test at the end holds them against the plain versions there and skips here.
+
+Tolerance: 1e-5 relative to the largest reference magnitude (fp32 on both
+sides; the direct matvec sums up to 640 products, still far inside it).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.circulant_matvec import ops as matvec_ops
+from repro_torch.kernels.circulant_matvec.ref import circulant_matvec_fft, circulant_matvec_ref
+from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
+from repro_torch.kernels.cpadmm_tail.ref import cpadmm_tail_ref
+from repro_torch.kernels.spectral_pointwise.ops import spectral_update
+from repro_torch.kernels.spectral_pointwise.ref import cpadmm_spectral_update_ref
+
+REL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's kernels and oracles.  Loaded here rather than at the top
+    so the ``gpu`` test also runs on a card machine that has no JAX."""
+    pytest.importorskip("jax")
+    from repro.kernels.circulant_matvec import kernel as mv_kernel
+    from repro.kernels.circulant_matvec import ops as mv_ops
+    from repro.kernels.circulant_matvec import ref as mv_ref
+    from repro.kernels.cpadmm_tail import ops as tail_ops
+    from repro.kernels.cpadmm_tail import ref as tail_ref
+    from repro.kernels.spectral_pointwise import ops as spec_ops
+    from repro.kernels.spectral_pointwise import ref as spec_ref
+
+    return types.SimpleNamespace(
+        jnp=pytest.importorskip("jax.numpy"),
+        matvec_pallas=mv_kernel.circulant_matvec_pallas,
+        FFT_CROSSOVER=mv_ops.FFT_CROSSOVER,
+        matvec_dense=mv_ref.circulant_matvec_ref,
+        fused_tail=tail_ops.fused_cpadmm_tail,
+        tail=tail_ref.cpadmm_tail_ref,
+        spectral=spec_ops.spectral_update,
+        spectral_ref=spec_ref.cpadmm_spectral_update_ref,
+    )
+
+
+def close(got, want, rel=REL):
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = float(np.max(np.abs(got - want))) / max(float(np.max(np.abs(want))), 1e-30)
+    assert err <= rel, f"norm-relative error {err:.3e} > {rel:.0e}"
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _complex(rng, shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+@pytest.fixture
+def counters():
+    """Zero every wrapper's launch counter; hand back a reader."""
+    wrappers = (spectral_update, fused_cpadmm_tail, matvec_ops.circulant_matvec_direct)
+    for w in wrappers:
+        w.launches = 0
+    return lambda: [w.launches for w in wrappers]
+
+
+# ---------------------------------------------------------------------------
+# spectral_pointwise
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nf", [128, 129, 513, 1000])  # n = 255, 256, 1024; ragged
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_spectral_update_matches_reference(nf, batch, counters, ref):
+    rng = np.random.default_rng(nf)
+    c, vm, zn = _complex(rng, nf), _complex(rng, batch + (nf,)), _complex(rng, batch + (nf,))
+    b = rng.uniform(0.5, 2.0, nf).astype(np.float32)
+    got = spectral_update(t(c), t(b), t(vm), t(zn), 0.01, 0.02)
+    args = tuple(ref.jnp.asarray(a) for a in (c, b, vm, zn))
+    close(got, ref.spectral(*args, 0.01, 0.02, interpret=True))  # the Pallas kernel
+    close(got, ref.spectral_ref(*args, 0.01, 0.02))
+    close(cpadmm_spectral_update_ref(t(c), t(b), t(vm), t(zn), 0.01, 0.02), got, rel=0)
+    assert counters() == [0, 0, 0]
+
+
+def test_spectral_update_rejects_bad_operands():
+    c = torch.zeros(9, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="real spectrum"):
+        spectral_update(c, c, c, c, 0.1, 0.1)
+    with pytest.raises(ValueError, match="shapes"):
+        spectral_update(c, torch.zeros(9), torch.zeros(2, 8, dtype=torch.complex64),
+                        torch.zeros(2, 8, dtype=torch.complex64), 0.1, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# cpadmm_tail
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L", [1000, 4096])
+@pytest.mark.parametrize("batch,pty_batched", [((), False), ((3,), False), ((3,), True)])
+def test_cpadmm_tail_matches_reference(L, batch, pty_batched, counters, ref):
+    rng = np.random.default_rng(L)
+    d = rng.uniform(0.5, 2.0, L).astype(np.float32)
+    pty = rng.standard_normal(batch + (L,) if pty_batched else (L,)).astype(np.float32)
+    x, cx, mu, nu = (rng.standard_normal(batch + (L,)).astype(np.float32) for _ in range(4))
+    x[..., :16] = 0.0  # exercise sign(0) and the threshold edge
+    nu[..., :16] = 0.0
+    scal = (0.01, 0.3, 1.0, 0.9)
+    got = fused_cpadmm_tail(t(x), t(cx), t(d), t(pty), t(mu), t(nu), *scal)
+    args = tuple(ref.jnp.asarray(a) for a in (x, cx, d, pty, mu, nu))
+    want_kernel = ref.fused_tail(*args, *scal, interpret=True)  # the Pallas kernel
+    want_ref = ref.tail(*args, *scal)
+    plain = cpadmm_tail_ref(t(x), t(cx), t(d), t(pty), t(mu), t(nu), *scal)
+    for g, wk, wr, p in zip(got, want_kernel, want_ref, plain):
+        close(g, wk)
+        close(g, wr)
+        close(p, g, rel=0)
+    assert counters() == [0, 0, 0]
+
+
+def test_cpadmm_tail_rejects_bad_shapes():
+    a = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="shapes"):
+        fused_cpadmm_tail(a, a, torch.zeros(8), torch.zeros(3, 8), a, a, 0.1, 0.1, 1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# circulant_matvec
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [128, 256, 640])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_circulant_matvec_matches_reference(n, transpose, counters, ref):
+    rng = np.random.default_rng(n)
+    col = rng.standard_normal(n).astype(np.float32)
+    x = rng.standard_normal((3, n)).astype(np.float32)
+    got = matvec_ops.circulant_matvec_direct(t(col), t(x), transpose=transpose)
+    for row in range(3):  # the reference kernel takes 1-D x only
+        col_j, x_j = ref.jnp.asarray(col), ref.jnp.asarray(x[row])
+        close(got[row], ref.matvec_pallas(col_j, x_j, transpose=transpose, block=128))
+        close(got[row], ref.matvec_dense(col_j, x_j, transpose=transpose))
+    close(circulant_matvec_fft(t(col), t(x), transpose=transpose), got)
+    close(circulant_matvec_ref(t(col), t(x[0]), transpose=transpose), got[0])
+    assert counters() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("n,direct", [(256, True), (1000, False), (1 << 15, False)])
+def test_circulant_matvec_dispatch(n, direct, monkeypatch, ref):
+    """Direct below FFT_CROSSOVER with n % 128 == 0, the FFT path otherwise."""
+    assert matvec_ops.FFT_CROSSOVER == ref.FFT_CROSSOVER
+    calls = []
+    direct_fn = matvec_ops.circulant_matvec_direct
+
+    def spy(col, x, *, transpose=False):
+        calls.append(n)
+        return direct_fn(col, x, transpose=transpose)
+
+    monkeypatch.setattr(matvec_ops, "circulant_matvec_direct", spy)
+    col = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(n).astype(np.float32))
+    y = matvec_ops.circulant_matvec(col, x)
+    assert bool(calls) == direct
+    close(y, circulant_matvec_fft(col, x))
+
+
+def test_circulant_matvec_rejects_bad_shapes():
+    with pytest.raises(ValueError, match=r"\(n,\)"):
+        matvec_ops.circulant_matvec_direct(torch.zeros(128), torch.zeros(2, 256))
+
+
+@pytest.mark.parametrize("kernel", ["spectral_pointwise", "cpadmm_tail", "circulant_matvec"])
+def test_wrappers_raise_on_tensors_they_cannot_launch(kernel, counters):
+    """Off the CPU a wrapper launches its kernel or raises: a tensor that is
+    neither CPU nor CUDA (here on the meta device) gets an error, never the
+    plain version."""
+    meta = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if kernel == "spectral_pointwise":
+            c = meta(9, dtype=torch.complex64)
+            spectral_update(c, meta(9), c, c, 0.1, 0.1)
+        elif kernel == "cpadmm_tail":
+            a = meta(2, 8)
+            fused_cpadmm_tail(a, a, meta(8), meta(8), a, a, 0.1, 0.1, 1.0, 1.0)
+        else:
+            matvec_ops.circulant_matvec_direct(meta(128), meta(2, 128))
+    assert counters() == [0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version (skips without CUDA)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_card(cuda_device, counters):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    rnd = lambda *s, dtype=torch.float32: torch.randn(*s, generator=g, device=cuda_device,
+                                                      dtype=dtype)
+    nf, L, n, B = 1025, 4096, 1024, 3
+    c, vm, zn = (rnd(*s, dtype=torch.complex64) for s in ((nf,), (B, nf), (B, nf)))
+    b = torch.rand(nf, generator=g, device=cuda_device)
+    close(spectral_update(c, b, vm, zn, 0.01, 0.02),
+          cpadmm_spectral_update_ref(c, b, vm, zn, 0.01, 0.02).cpu(), rel=1e-6)
+    d = torch.rand(L, generator=g, device=cuda_device)
+    x, cx, mu, nu = (rnd(B, L) for _ in range(4))
+    for pty in (rnd(L), rnd(B, L)):
+        args = (x, cx, d, pty, mu, nu, 0.01, 0.3, 1.0, 1.0)
+        for got, want in zip(fused_cpadmm_tail(*args), cpadmm_tail_ref(*args)):
+            close(got, want.cpu(), rel=1e-6)
+    col, xs = rnd(n), rnd(B, n)
+    for transpose in (False, True):
+        close(matvec_ops.circulant_matvec_direct(col, xs, transpose=transpose),
+              circulant_matvec_ref(col, xs, transpose=transpose).cpu(), rel=2e-5)
+    assert counters() == [1, 2, 2]
