@@ -1,7 +1,14 @@
-"""Kernel-backed CPADMM step: the port of ``cpadmm_step_pallas``.
+"""Kernel-backed solver steps: the ports of ``ista_step_pallas`` and
+``cpadmm_step_pallas`` (``repro/core/kernel_backend.py``).
 
-Same step math as :func:`repro_torch.core.admm.cpadmm_step`; only the
-substrate changes (``repro/core/kernel_backend.py``):
+Same step math as :func:`repro_torch.core.ista.ista_step` and
+:func:`repro_torch.core.admm.cpadmm_step`; only the substrate changes.
+CPISTA (paper Alg. 1 with Algs. 7-8):
+
+  * C x and C^T r             -> kernels.circulant_matvec, dispatched on n
+  * threshold + state update  -> kernels.soft_threshold (Triton)
+
+CPADMM:
 
   * frequency-domain x-update -> kernels.spectral_pointwise (Triton),
     between two rffts and one irfft (``torch.fft``, cuFFT on the card)
@@ -10,9 +17,8 @@ substrate changes (``repro/core/kernel_backend.py``):
                                  FFT path above, as the reference dispatches
   * whole elementwise tail    -> kernels.cpadmm_tail (Triton)
 
-Routed from ``make_stepper`` by ``plan(op, tail="kernel")`` with the l1
-prior.  The CPADMM iteration of ``ista_step_pallas`` comes with the
-``soft_threshold`` kernels in a later slice.
+Both are routed from ``make_stepper`` by ``plan(op, tail="kernel")`` with
+the l1 prior.
 """
 
 from __future__ import annotations
@@ -21,9 +27,23 @@ import torch
 
 from ..kernels.circulant_matvec.ops import circulant_matvec
 from ..kernels.cpadmm_tail.ops import fused_cpadmm_tail
+from ..kernels.soft_threshold.ops import fused_ista_update
 from ..kernels.spectral_pointwise.ops import spectral_update
 from .admm import CpadmmConst, CpadmmParams, CpadmmState
 from .circulant import PartialCirculant
+from .ista import IstaParams, IstaState
+
+
+def ista_step_kernel(
+    op: PartialCirculant, y: torch.Tensor, state: IstaState, p: IstaParams
+) -> IstaState:
+    """CPISTA iteration on the kernel substrate (Algs. 7-8)."""
+    col = op.circ.col
+    cx = circulant_matvec(col, state.x)
+    rt = op.project_back(y - cx[..., op.omega])  # P^T (y - P C x)
+    grad = circulant_matvec(col, rt, transpose=True)
+    x_new = fused_ista_update(state.x, p.tau * grad, p.alpha * p.tau)
+    return IstaState(x=x_new, x_prev=state.x, t_mom=state.t_mom)
 
 
 def cpadmm_step_kernel(

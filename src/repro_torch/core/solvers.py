@@ -13,9 +13,11 @@ Drivers: ``solve`` (fixed iteration count, metric traces), ``solve_until``
 eager steps.  Every driver takes a leading batch axis on ``y`` / ``x_true``
 (B signals through one operator); batch-of-1 equals the unbatched run.
 
-``plan=`` (:func:`repro_torch.ops.plan.plan`) selects the CPADMM step's
-substrate: ``tail='kernel'`` with the l1 prior runs the hand-written
-kernels (:mod:`repro_torch.core.kernel_backend`).  Dense ADMM (Alg. 2)
+``plan=`` (:func:`repro_torch.ops.plan.plan`) selects the step's
+substrate: ``tail='kernel'`` with the l1 prior runs CPADMM and ISTA/CPISTA
+on the hand-written kernels (:mod:`repro_torch.core.kernel_backend`).
+FISTA keeps the plain step on either tail: the reference has no kernel
+FISTA step.  Dense ADMM (Alg. 2)
 is ROADMAP Queue 1 item 2 and not ported yet.
 
 Recovery success follows the paper: MSE = ||x* - x||^2 / n <= 1e-4 (Sec. 6).
@@ -33,7 +35,7 @@ from ..ops.prox import is_l1
 from . import admm as admm_mod
 from . import ista as ista_mod
 from .circulant import PartialCirculant
-from .kernel_backend import cpadmm_step_kernel
+from .kernel_backend import cpadmm_step_kernel, ista_step_kernel
 
 PAPER_TARGET_MSE = 1e-4  # paper Sec. 6 recovery threshold
 
@@ -86,8 +88,10 @@ def make_stepper(
     """Lower (problem, method) to a Stepper.
 
     ``prox=None`` defaults to the plan's ``prox`` and then to the paper's
-    soft threshold, which keeps the fused kernel tail eligible; a non-l1
-    prox takes the plain CPADMM step.
+    soft threshold, which keeps the fused kernel steps eligible; a non-l1
+    prox takes the plain step.  ``tail='kernel'`` swaps in the kernel
+    steps for 'cpadmm' and 'ista'/'cpista' (a PartialCirculant operator);
+    'fista' has no kernel step and keeps the plain one.
     """
     if prox is None and plan is not None:
         prox = plan.prox
@@ -96,10 +100,18 @@ def make_stepper(
     if method in ("ista", "fista", "cpista"):
         tau_v = tau if tau is not None else ista_mod.default_tau(op)
         p = ista_mod.IstaParams(alpha=float(alpha), tau=tau_v)
-        step_fn = ista_mod.fista_step if method == "fista" else ista_mod.ista_step
+        if method != "fista" and tail == "kernel" and is_l1(prox):
+            if not isinstance(op, PartialCirculant):
+                raise TypeError("the kernel ISTA step needs a PartialCirculant operator")
+            # the fused threshold kernel bakes in the soft threshold, so it
+            # serves the l1 prior only; other priors take the plain step
+            step = lambda s: ista_step_kernel(op, y, s, p)
+        else:
+            step_fn = ista_mod.fista_step if method == "fista" else ista_mod.ista_step
+            step = lambda s: step_fn(op, y, s, p, prox=prox)
         return Stepper(
             init=lambda: ista_mod.ista_init(op, y),
-            step=lambda s: step_fn(op, y, s, p, prox=prox),
+            step=step,
             extract=lambda s: s.x,
         )
     if method in ("admm", "padmm"):

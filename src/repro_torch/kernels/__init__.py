@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the CPADMM main path.
+"""Hand-written Hopper kernels for the CPADMM and CPISTA paths.
 
 Each subpackage mirrors ``repro/kernels/<name>``: ``ref.py`` holds the
 plain PyTorch version, ``ops.py`` the public wrapper with its integer
@@ -10,6 +10,8 @@ the kernel or raises — it never falls back.
     spectral_pointwise   Triton   <- repro/kernels/spectral_pointwise
     cpadmm_tail          Triton   <- repro/kernels/cpadmm_tail
     circulant_matvec     CUDA C++ <- repro/kernels/circulant_matvec
+    soft_threshold       Triton   <- repro/kernels/soft_threshold
+    banded_conv          CUDA C++ <- repro/kernels/banded_conv
 """
 
 

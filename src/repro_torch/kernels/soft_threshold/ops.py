@@ -1,0 +1,73 @@
+"""Public wrappers of the fused soft-threshold kernels, with launch counts."""
+
+from __future__ import annotations
+
+import torch
+
+from .. import require_cuda_operands
+from .ref import admm_threshold_dual_update_ref, ista_threshold_update_ref
+
+
+def _scalar_operand(name: str, value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 1-element float32 tensor on ``like``'s device.
+
+    A Python number becomes a device fill (no host sync); a one-element
+    tensor already on the card is only reshaped, so a threshold computed
+    there (``alpha * tau``) is read by the kernel where it lies.
+    """
+    if isinstance(value, torch.Tensor):
+        if value.numel() != 1:
+            raise ValueError(f"{name} must be a scalar or a 1-element tensor; got shape "
+                             f"{tuple(value.shape)}")
+        return value.to(device=like.device, dtype=torch.float32).reshape(1)
+    return torch.full((1,), float(value), dtype=torch.float32, device=like.device)
+
+
+def fused_ista_update(x: torch.Tensor, delta: torch.Tensor, gamma) -> torch.Tensor:
+    """eta_gamma(x + delta), fused; any shape, leading axes being signals.
+
+    ``gamma`` is a number or a 1-element tensor.  CPU tensors take the plain
+    version; CUDA tensors launch the Triton kernel, which needs contiguous
+    float32 operands and raises otherwise.
+    """
+    if x.shape != delta.shape:
+        raise ValueError(f"fused_ista_update shapes: x {tuple(x.shape)}, "
+                         f"delta {tuple(delta.shape)}")
+    if x.device.type == "cpu" and delta.device.type == "cpu":
+        return ista_threshold_update_ref(x, delta, gamma)
+    require_cuda_operands("soft_threshold", {"x": x, "delta": delta},
+                          {"x": torch.float32, "delta": torch.float32})
+    from .kernel import ista_update
+
+    with torch.cuda.device(x.device):
+        out = ista_update(x, delta, _scalar_operand("gamma", gamma, x))
+    fused_ista_update.launches += 1
+    return out
+
+
+fused_ista_update.launches = 0
+
+
+def fused_admm_update(x: torch.Tensor, nu: torch.Tensor, gamma, tau2):
+    """(z, nu') = (eta_gamma(x + nu), nu + tau2 (x - z)), fused; any shape.
+
+    ``gamma`` and ``tau2`` are numbers or 1-element tensors.  CPU tensors
+    take the plain version; CUDA tensors launch the Triton kernel, which
+    needs contiguous float32 operands and raises otherwise.
+    """
+    if x.shape != nu.shape:
+        raise ValueError(f"fused_admm_update shapes: x {tuple(x.shape)}, nu {tuple(nu.shape)}")
+    if x.device.type == "cpu" and nu.device.type == "cpu":
+        return admm_threshold_dual_update_ref(x, nu, gamma, tau2)
+    require_cuda_operands("soft_threshold", {"x": x, "nu": nu},
+                          {"x": torch.float32, "nu": torch.float32})
+    from .kernel import admm_update
+
+    with torch.cuda.device(x.device):
+        out = admm_update(x, nu, _scalar_operand("gamma", gamma, x),
+                          _scalar_operand("tau2", tau2, x))
+    fused_admm_update.launches += 1
+    return out
+
+
+fused_admm_update.launches = 0

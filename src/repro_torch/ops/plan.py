@@ -5,8 +5,8 @@ returns an :class:`ExecutionPlan` whose operator *is* ``op``; the drivers
 of :mod:`repro_torch.core.solvers` read two knobs from it:
 
     tail   'plain' (default; the reference's 'jnp') or 'kernel' (the
-           reference's 'pallas'): the CPADMM step on the hand-written
-           kernels of :mod:`repro_torch.core.kernel_backend`
+           reference's 'pallas'): the CPADMM and ISTA/CPISTA steps on the
+           hand-written kernels of :mod:`repro_torch.core.kernel_backend`
     prox   the prior (:mod:`repro_torch.ops.prox`); None = l1 threshold
 
 Distributed lowering (``mesh=``) is ROADMAP Queue 1 item 9 and raises here.

@@ -32,7 +32,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_importing_the_port_leaves_jax_unloaded():
     code = (
         "import sys; import repro_torch, repro_torch.core, repro_torch.core.deblur, "
-        "repro_torch.interop, repro_torch.kernels.build; "
+        "repro_torch.interop, repro_torch.kernels.build, repro_torch.launch.recover, "
+        "repro_torch.kernels.soft_threshold.kernel; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'triton')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -7,7 +7,9 @@ The hand-written kernels themselves run only on a CUDA card: the ``gpu``
 test at the end holds them against the plain versions there and skips here.
 
 Tolerance: 1e-5 relative to the largest reference magnitude (fp32 on both
-sides; the direct matvec sums up to 640 products, still far inside it).
+sides; the direct matvec sums up to 640 products, still far inside it);
+the soft-threshold and banded-blur kernels are held at the reference's own
+absolute tolerances (``tests/test_kernels.py``: 1e-6 and 1e-5).
 """
 
 import types
@@ -16,10 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.circulant import moving_average_blur
+from repro_torch.kernels.banded_conv.ops import blur_apply
+from repro_torch.kernels.banded_conv.ref import banded_circulant_matvec_ref
 from repro_torch.kernels.circulant_matvec import ops as matvec_ops
 from repro_torch.kernels.circulant_matvec.ref import circulant_matvec_fft, circulant_matvec_ref
 from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
 from repro_torch.kernels.cpadmm_tail.ref import cpadmm_tail_ref
+from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
+from repro_torch.kernels.soft_threshold.ref import (
+    admm_threshold_dual_update_ref,
+    ista_threshold_update_ref,
+)
 from repro_torch.kernels.spectral_pointwise.ops import spectral_update
 from repro_torch.kernels.spectral_pointwise.ref import cpadmm_spectral_update_ref
 
@@ -31,11 +41,15 @@ def ref():
     """The reference's kernels and oracles.  Loaded here rather than at the top
     so the ``gpu`` test also runs on a card machine that has no JAX."""
     pytest.importorskip("jax")
+    from repro.kernels.banded_conv import ops as blur_ops
+    from repro.kernels.banded_conv import ref as blur_ref
     from repro.kernels.circulant_matvec import kernel as mv_kernel
     from repro.kernels.circulant_matvec import ops as mv_ops
     from repro.kernels.circulant_matvec import ref as mv_ref
     from repro.kernels.cpadmm_tail import ops as tail_ops
     from repro.kernels.cpadmm_tail import ref as tail_ref
+    from repro.kernels.soft_threshold import ops as st_ops
+    from repro.kernels.soft_threshold import ref as st_ref
     from repro.kernels.spectral_pointwise import ops as spec_ops
     from repro.kernels.spectral_pointwise import ref as spec_ref
 
@@ -48,6 +62,12 @@ def ref():
         tail=tail_ref.cpadmm_tail_ref,
         spectral=spec_ops.spectral_update,
         spectral_ref=spec_ref.cpadmm_spectral_update_ref,
+        ista_update=st_ops.fused_ista_update,
+        ista_update_ref=st_ref.ista_threshold_update_ref,
+        admm_update=st_ops.fused_admm_update,
+        admm_update_ref=st_ref.admm_threshold_dual_update_ref,
+        blur_apply=blur_ops.blur_apply,
+        blur_ref=blur_ref.banded_circulant_matvec_ref,
     )
 
 
@@ -70,7 +90,8 @@ def _complex(rng, shape):
 @pytest.fixture
 def counters():
     """Zero every wrapper's launch counter; hand back a reader."""
-    wrappers = (spectral_update, fused_cpadmm_tail, matvec_ops.circulant_matvec_direct)
+    wrappers = (spectral_update, fused_cpadmm_tail, matvec_ops.circulant_matvec_direct,
+                fused_ista_update, fused_admm_update, blur_apply)
     for w in wrappers:
         w.launches = 0
     return lambda: [w.launches for w in wrappers]
@@ -92,7 +113,7 @@ def test_spectral_update_matches_reference(nf, batch, counters, ref):
     close(got, ref.spectral(*args, 0.01, 0.02, interpret=True))  # the Pallas kernel
     close(got, ref.spectral_ref(*args, 0.01, 0.02))
     close(cpadmm_spectral_update_ref(t(c), t(b), t(vm), t(zn), 0.01, 0.02), got, rel=0)
-    assert counters() == [0, 0, 0]
+    assert counters() == [0] * 6
 
 
 def test_spectral_update_rejects_bad_operands():
@@ -128,7 +149,7 @@ def test_cpadmm_tail_matches_reference(L, batch, pty_batched, counters, ref):
         close(g, wk)
         close(g, wr)
         close(p, g, rel=0)
-    assert counters() == [0, 0, 0]
+    assert counters() == [0] * 6
 
 
 def test_cpadmm_tail_rejects_bad_shapes():
@@ -155,7 +176,7 @@ def test_circulant_matvec_matches_reference(n, transpose, counters, ref):
         close(got[row], ref.matvec_dense(col_j, x_j, transpose=transpose))
     close(circulant_matvec_fft(t(col), t(x), transpose=transpose), got)
     close(circulant_matvec_ref(t(col), t(x[0]), transpose=transpose), got[0])
-    assert counters() == [0, 0, 0]
+    assert counters() == [0] * 6
 
 
 @pytest.mark.parametrize("n,direct", [(256, True), (1000, False), (1 << 15, False)])
@@ -182,7 +203,117 @@ def test_circulant_matvec_rejects_bad_shapes():
         matvec_ops.circulant_matvec_direct(torch.zeros(128), torch.zeros(2, 256))
 
 
-@pytest.mark.parametrize("kernel", ["spectral_pointwise", "cpadmm_tail", "circulant_matvec"])
+# ---------------------------------------------------------------------------
+# soft_threshold (the fused CPISTA update and the ADMM threshold + dual)
+# ---------------------------------------------------------------------------
+
+GAMMAS = [0.0, 1e-3, 0.5]
+THRESHOLD_NS = [1024, 4096, 1000, 7]  # block multiples, ragged, shorter than a block
+
+
+def _threshold_operands(n, batch=()):
+    rng = np.random.default_rng(n)
+    x, other = (rng.standard_normal(batch + (n,)).astype(np.float32) for _ in range(2))
+    x[..., :3] = 0.0  # exercise sign(0) and the threshold edge
+    other[..., :3] = 0.0
+    return x, other
+
+
+@pytest.mark.parametrize("n", THRESHOLD_NS)
+@pytest.mark.parametrize("gamma", GAMMAS)
+def test_fused_ista_update_matches_reference(n, gamma, counters, ref):
+    x, delta = _threshold_operands(n)
+    got = fused_ista_update(t(x), t(delta), gamma).numpy()
+    xj, dj = ref.jnp.asarray(x), ref.jnp.asarray(delta)
+    np.testing.assert_allclose(got, np.asarray(ref.ista_update(xj, dj, gamma, interpret=True)),
+                               atol=1e-6)  # the Pallas kernel
+    np.testing.assert_allclose(got, np.asarray(ref.ista_update_ref(xj, dj, gamma)), atol=1e-6)
+    assert counters() == [0] * 6
+
+
+@pytest.mark.parametrize("n", THRESHOLD_NS)
+@pytest.mark.parametrize("gamma", GAMMAS)
+@pytest.mark.parametrize("tau2", [0.1, 1.0, 1.6])
+def test_fused_admm_update_matches_reference(n, gamma, tau2, counters, ref):
+    x, nu = _threshold_operands(n)
+    z, nu_new = fused_admm_update(t(x), t(nu), gamma, tau2)
+    xj, nj = ref.jnp.asarray(x), ref.jnp.asarray(nu)
+    for want in (ref.admm_update(xj, nj, gamma, tau2, interpret=True),  # the Pallas kernel
+                 ref.admm_update_ref(xj, nj, gamma, tau2)):
+        np.testing.assert_allclose(z.numpy(), np.asarray(want[0]), atol=1e-6)
+        np.testing.assert_allclose(nu_new.numpy(), np.asarray(want[1]), atol=1e-6)
+    assert counters() == [0] * 6
+
+
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_soft_threshold_batched_rows_match_reference(n, counters, ref):
+    """The port takes a leading batch (the reference's kernels are 1-D), and
+    a threshold given as a one-element tensor, as CPISTA computes it."""
+    x, other = _threshold_operands(n, batch=(3,))
+    gamma, tau2 = 0.5, 1.6
+    got = fused_ista_update(t(x), t(other), torch.tensor(gamma))
+    z, nu_new = fused_admm_update(t(x), t(other), torch.tensor(gamma), tau2)
+    for row in range(3):
+        xj, oj = ref.jnp.asarray(x[row]), ref.jnp.asarray(other[row])
+        np.testing.assert_allclose(got[row].numpy(),
+                                   np.asarray(ref.ista_update_ref(xj, oj, gamma)), atol=1e-6)
+        want_z, want_nu = ref.admm_update_ref(xj, oj, gamma, tau2)
+        np.testing.assert_allclose(z[row].numpy(), np.asarray(want_z), atol=1e-6)
+        np.testing.assert_allclose(nu_new[row].numpy(), np.asarray(want_nu), atol=1e-6)
+    close(ista_threshold_update_ref(t(x), t(other), gamma), got, rel=0)
+    for g, w in zip(admm_threshold_dual_update_ref(t(x), t(other), gamma, tau2), (z, nu_new)):
+        close(g, w, rel=0)
+    assert counters() == [0] * 6
+
+
+def test_soft_threshold_rejects_bad_operands():
+    with pytest.raises(ValueError, match="shapes"):
+        fused_ista_update(torch.zeros(2, 8), torch.zeros(8), 0.1)
+    with pytest.raises(ValueError, match="shapes"):
+        fused_admm_update(torch.zeros(8), torch.zeros(9), 0.1, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# banded_conv (the Sec. 7 blur stencil)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,order", [(1024, 5), (2048, 3), (4096, 17), (1000, 5)])
+def test_blur_apply_matches_reference(n, order, counters, ref):
+    rng = np.random.default_rng(n + order)
+    taps = rng.standard_normal(order).astype(np.float32)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    got = blur_apply(t(taps), t(x), order=order).numpy()
+    tj = ref.jnp.asarray(taps)
+    for row in range(2):  # the reference's kernel takes 1-D x only
+        xj = ref.jnp.asarray(x[row])
+        np.testing.assert_allclose(got[row], np.asarray(ref.blur_apply(tj, xj, order=order)),
+                                   atol=1e-5)
+        np.testing.assert_allclose(got[row], np.asarray(ref.blur_ref(tj, xj, order=order)),
+                                   atol=1e-5)
+    assert counters() == [0] * 6
+
+
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_blur_apply_is_the_moving_average_blur(n, counters):
+    """First-row taps [1/L] * L == the order-L moving-average circulant."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((3, n)).astype(np.float32))
+    got = blur_apply(torch.full((5,), 1.0 / 5), x, order=5)
+    np.testing.assert_allclose(got.numpy(), moving_average_blur(n, 5, device="cpu").matvec(x)
+                               .numpy(), atol=1e-5)
+    close(banded_circulant_matvec_ref(torch.full((5,), 0.2), x, order=5), got, rel=0)
+    assert counters() == [0] * 6
+
+
+def test_blur_apply_rejects_bad_operands():
+    with pytest.raises(ValueError, match="order"):
+        blur_apply(torch.ones(3), torch.zeros(2, 16), order=4)
+    with pytest.raises(ValueError, match="order"):
+        blur_apply(torch.ones(3, 1), torch.zeros(16), order=1)
+
+
+@pytest.mark.parametrize("kernel", ["spectral_pointwise", "cpadmm_tail", "circulant_matvec",
+                                    "soft_threshold", "banded_conv"])
 def test_wrappers_raise_on_tensors_they_cannot_launch(kernel, counters):
     """Off the CPU a wrapper launches its kernel or raises: a tensor that is
     neither CPU nor CUDA (here on the meta device) gets an error, never the
@@ -195,9 +326,16 @@ def test_wrappers_raise_on_tensors_they_cannot_launch(kernel, counters):
         elif kernel == "cpadmm_tail":
             a = meta(2, 8)
             fused_cpadmm_tail(a, a, meta(8), meta(8), a, a, 0.1, 0.1, 1.0, 1.0)
-        else:
+        elif kernel == "circulant_matvec":
             matvec_ops.circulant_matvec_direct(meta(128), meta(2, 128))
-    assert counters() == [0, 0, 0]
+        elif kernel == "soft_threshold":
+            fused_ista_update(meta(2, 7), meta(2, 7), 0.1)
+        else:
+            blur_apply(meta(5), meta(2, 1000), order=5)
+    if kernel == "soft_threshold":
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fused_admm_update(meta(2, 7), meta(2, 7), 0.1, 1.0)
+    assert counters() == [0] * 6
 
 
 # ---------------------------------------------------------------------------
@@ -232,4 +370,26 @@ def test_kernels_match_plain_versions_on_card(cuda_device, counters):
     for transpose in (False, True):
         close(matvec_ops.circulant_matvec_direct(col, xs, transpose=transpose),
               circulant_matvec_ref(col, xs, transpose=transpose).cpu(), rel=2e-5)
-    assert counters() == [1, 2, 2]
+    assert counters() == [1, 2, 2, 0, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["soft_threshold", "banded_conv"])
+@pytest.mark.parametrize("n", [16384, 16383, 1000])  # a block multiple and ragged lengths
+def test_slice2_kernels_match_plain_versions_on_card(kernel, n, cuda_device, counters):
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x, other = (torch.randn(3, n, generator=g, device=cuda_device) for _ in range(2))
+    if kernel == "soft_threshold":
+        gamma = torch.tensor(0.5, device=cuda_device)  # read on the card, as CPISTA passes it
+        close(fused_ista_update(x, other, gamma),
+              ista_threshold_update_ref(x, other, gamma).cpu(), rel=1e-6)
+        for got, want in zip(fused_admm_update(x, other, gamma, 1.6),
+                             admm_threshold_dual_update_ref(x, other, gamma, 1.6)):
+            close(got, want.cpu(), rel=1e-6)
+        assert counters() == [0, 0, 0, 1, 1, 0]
+    else:
+        for order in (5, 17):
+            taps = torch.randn(order, generator=g, device=cuda_device)
+            close(blur_apply(taps, x, order=order),
+                  banded_circulant_matvec_ref(taps, x, order=order).cpu(), rel=1e-5)
+        assert counters() == [0, 0, 0, 0, 0, 2]

@@ -1,0 +1,119 @@
+"""The port's recovery launcher (``python -m repro_torch.launch.recover``).
+
+In-process calls of ``main`` at tiny sizes on the CPU (``--device cpu``),
+mirroring the local cases of ``tests/test_recover_cli.py``: the
+checkpointed resume, the tolerance mode, the deblur workload, the prior
+and method errors.  The reference's distributed and tuning flags are not
+ported yet and must exit naming the ROADMAP item that brings them.
+"""
+
+import pytest
+import torch
+
+from repro_torch.launch import recover
+
+
+def test_checkpointed_mode_resumes(tmp_path, capsys):
+    args = [
+        "--n", "512", "--batch", "2", "--method", "cpadmm", "--iters", "60",
+        "--chunk", "30", "--ckpt-dir", str(tmp_path / "ck"), "--device", "cpu",
+    ]
+    recover.main(args)
+    first = capsys.readouterr().out
+    assert "per-signal MSE" in first and "resumed" not in first
+    assert "device=cpu" in first
+    recover.main(args)  # latest checkpoint (iter 60) is picked up
+    assert "resumed from iteration 60" in capsys.readouterr().out
+
+
+def test_resume_continues_to_the_same_result(tmp_path, capsys):
+    """An ISTA run stopped at 40 iterations and resumed to 80 ends where an
+    uninterrupted 80-iteration run ends."""
+    base = ["--n", "512", "--batch", "2", "--method", "ista", "--chunk", "20",
+            "--device", "cpu"]
+    recover.main(base + ["--iters", "40", "--ckpt-dir", str(tmp_path / "a")])
+    recover.main(base + ["--iters", "80", "--ckpt-dir", str(tmp_path / "a")])
+    resumed = capsys.readouterr().out.splitlines()
+    recover.main(base + ["--iters", "80", "--ckpt-dir", str(tmp_path / "b")])
+    whole = capsys.readouterr().out.splitlines()
+    assert "resumed from iteration 40" in resumed
+    mse_line = lambda lines: [ln for ln in lines if "per-signal MSE" in ln][-1].split(";")[1]
+    assert mse_line(resumed) == mse_line(whole)
+
+
+def test_default_checkpoint_dir_is_the_ports_own(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    recover.main(["--n", "256", "--batch", "1", "--iters", "20", "--chunk", "20",
+                  "--device", "cpu"])
+    assert (tmp_path / "artifacts" / "torch_recover_ckpt" / "step_0000000020").is_dir()
+    assert not (tmp_path / "artifacts" / "recover_ckpt").exists()
+
+
+def test_local_tol_mode(capsys):
+    recover.main([
+        "--n", "512", "--batch", "1", "--method", "ista", "--iters", "40",
+        "--tol", "1e-2", "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "plan API" not in out and "per-signal iterations" in out
+    assert "per-signal MSE" in out
+
+
+def test_deblur_workload_tol_mode_local(capsys):
+    recover.main([
+        "--deblur", "--batch", "1", "--size", "16", "--iters", "40",
+        "--tol", "1e-2", "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "per-signal iterations" in out and "PSNR" in out
+
+
+def test_deblur_workload_checkpointed(tmp_path, capsys):
+    recover.main([
+        "--deblur", "--batch", "2", "--size", "16", "--blur-order", "3",
+        "--iters", "40", "--chunk", "20", "--ckpt-dir", str(tmp_path / "ck"),
+        "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "deblurring batch=2 frames of 16x16" in out
+    assert out.count("PSNR") == 2 and "normalized MSE" in out
+
+
+def test_make_prior():
+    assert recover.make_prior("l1") is None
+    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+        recover.make_prior("tv")
+
+
+def test_method_error_lists_valid_methods(capsys):
+    with pytest.raises(SystemExit):
+        recover.main(["--method", "newton", "--n", "512", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "cpadmm" in err and "ista" in err and "fista" in err
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--mesh", "1"], "Queue 1 item 9"),
+    (["--mesh", "2x4", "--rfft"], "Queue 1 item 9"),
+    (["--n1", "16"], "Queue 1 item 9"),
+    (["--rfft"], "Queue 1 item 9"),
+    (["--overlap", "2"], "Queue 1 item 9"),
+    (["--wire-dtype", "bf16"], "Queue 1 item 9"),
+    (["--fake-devices", "4"], "Queue 1 item 9"),
+    (["--tune"], "Queue 1 item 10"),
+    (["--tune", "measure"], "Queue 1 item 10"),
+    (["--prior", "tv"], "Queue 1 item 6"),
+    (["--prior", "wavelet"], "Queue 1 item 6"),
+    (["--prior", "nonneg-l1"], "Queue 1 item 6"),
+])
+def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
+    with pytest.raises(SystemExit, match=item):
+        recover.main(["--n", "256", "--iters", "10", "--device", "cpu",
+                      "--ckpt-dir", str(tmp_path / "ck"), *flags])
+    assert not (tmp_path / "ck").exists()
+
+
+def test_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recover.main(["--n", "256", "--iters", "10", "--ckpt-dir", str(tmp_path / "ck")])
