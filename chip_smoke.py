@@ -23,15 +23,27 @@ no result line):
    n = 16384, 8 signals, 400 ISTA iterations on the kernels (both direct
    matvecs and the fused soft threshold) and on the plain step; the two
    x-hats must agree and every signal's LASSO objective must fall;
-6. the recovery CLI (``python -m repro_torch.launch.recover``) as a user
+6. Path D1 — Path A's problem on a mesh of one rank (NCCL, world size 1):
+   ``build_deblur_plan(p, make_mesh((1,), ("model",)), rfft=True,
+   tail="kernel")``, 600 fused iterations with fp32 and with bf16 wires,
+   held against Path A's kernel-step x-hat (the bf16 wire runs both
+   ``wire_pack`` kernels around every transpose);
+7. Path D2 — four gloo ranks sharing the card
+   (``spawn_fake_devices(4, ..., device="cuda:0")``) on a 2x2 (data x
+   model) mesh, the same problem at 200 iterations with ``overlap=2``, fp32
+   and bf16 wires, held against a local kernel-step solve;
+8. the recovery CLI (``python -m repro_torch.launch.recover``) as a user
    runs it: a checkpointed CPADMM run at its default n = 65536, B = 4, run
-   a second time to resume from the checkpoint, then a Sec. 7 deblur run of
-   two 512x512 frames in tolerance mode;
-7. one JSON line with every kernel's launches, error and times, then the
+   a second time to resume from the checkpoint, a Sec. 7 deblur run of
+   two 512x512 frames in tolerance mode, and a 2x2-mesh deblur run of four
+   512x512 frames on four ranks sharing the card with bf16 wires, run twice
+   to resume;
+9. one JSON line with every kernel's launches, error and times, then the
    device line ``{"ok": true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
-after; the comparison launches of phase 2 do not count.  Two kernels have
+after (inside each rank for Path D2); the comparison launches of phase 2
+do not count.  Two kernels have
 no caller on any path (the reference calls them only from its tests): the
 ADMM soft threshold and the banded blur, held against their plain
 versions in phase 2 only.  Exits non-zero
@@ -68,6 +80,10 @@ TOL_MATVEC = 5e-5
 TOL_BLUR = 1e-5
 TOL_PATHS = 1e-4  # kernel-step vs plain-step solves, relative in x-hat
 PAPER_TARGET_MSE = 1e-4
+# a bf16-wire solve against its fp32 twin: the plan layer's own guard bound
+# (repro_torch.ops.plan.WIRE_ERROR_BOUND), as the reference's
+WIRE_ERROR_BOUND = 1e-2
+SEC7_KW = dict(alpha=1e-3, rho=0.01, sigma=0.01)  # examples/deblur_astronomy.py
 
 
 def fail(msg: str) -> None:
@@ -271,7 +287,91 @@ def check_kernels(dev, gen) -> dict:
                   f"{err[0]:.3e}, norm-rel {err[1]:.3e} (tol {TOL_BLUR:.0e})")
             if not err[1] <= TOL_BLUR:
                 fail(f"banded_conv disagrees with moving_average_blur at n={n}: {err}")
+    check_wire(dev, gen, results)
     return results
+
+
+def _special_values(z):
+    """Overwrite a few entries with values the casts must round alike: infinities,
+    fp16 overflow (65520 ties up to inf, 7e4, 1e30), fp16 subnormals, float32
+    subnormals, and an underflow to zero."""
+    import torch
+
+    flat = torch.view_as_real(z).reshape(-1)
+    vals = torch.tensor([float("inf"), -float("inf"), 65520.0, -7e4, 1e30, 6e-6, -3e-7,
+                         1e-40, -2.5e-39, 1e-9, 65504.0, 0.0], device=z.device)
+    flat[: vals.numel()] = vals
+    return z
+
+
+def check_wire(dev, gen, results) -> None:
+    """pack_wire / unpack_wire against their plain versions, bit-exact, for the
+    three wire dtypes, at the exchanges the mesh paths make and a ragged L =
+    1000 holding special values.
+
+    Path D1 (one rank) sends its stacked (2, 4, 1024, 513) payload whole.  A
+    Path D2 rank (2 frames, 512 of the 1024 rows, 514 padded half-spectrum
+    columns, model axis of 2, overlap 2) packs (2, 2, 256, 514) cut along its
+    columns and unpacks the received chunks joined along the rows (forward
+    transpose), and packs (2, 2, 1024, 129) cut along its rows, a ragged
+    129-column chunk of its 257, and unpacks them joined along the columns
+    (inverse transpose)."""
+    import torch
+
+    from repro_torch.kernels.wire_pack.ops import WIRE_DTYPES, pack_wire, unpack_wire
+    from repro_torch.kernels.wire_pack.ref import pack_wire_ref, unpack_wire_ref
+
+    # (label, payload shape, groups, pack axis, unpack axis)
+    cases = (("path D1: (2, 4, 1024, 513), 1 rank", (2, 4, 1024, 513), 1, -1, -2),
+             ("path D2 forward: (2, 2, 256, 514), 2 ranks", (2, 2, 256, 514), 2, -1, -2),
+             ("path D2 inverse: (2, 2, 1024, 129), 2 ranks", (2, 2, 1024, 129), 2, -2, -1),
+             ("ragged L=1000, special values", (1000,), None, -1, -1))
+    for label, shape, groups, p_axis, u_axis in cases:
+        z = torch.randn(*shape, generator=gen, device=dev, dtype=torch.complex64)
+        if shape == (1000,):
+            z = _special_values(z)
+        n = z.numel()
+        for wire in ("bf16", "fp16", "fp32"):  # the main path's wire first
+            dt = WIRE_DTYPES[wire]
+            pk = lambda z=z, w=wire: pack_wire(z, w, groups=groups, axis=p_axis)
+            pr = lambda z=z, w=wire: pack_wire_ref(z, w, groups=groups, axis=p_axis)
+            w_in = pr()
+            uk = lambda w=w_in: unpack_wire(w, grouped=groups is not None, axis=u_axis)
+            ur = lambda w=w_in: unpack_wire_ref(w, grouped=groups is not None, axis=u_axis)
+            wire_bytes = 2 * n * dt.itemsize
+            for name, kern, plain, lib in (
+                ("pack_wire", pk, pr, lambda z=z, d=dt: torch.view_as_real(z).movedim(-1, 0).to(
+                    d, memory_format=torch.contiguous_format, copy=True)),
+                # the same bytes in the ungrouped layout: planes last, then complex
+                ("unpack_wire", uk, ur, lambda w=w_in, a=int(groups is not None):
+                    torch.view_as_complex(w.movedim(a, -1).to(
+                        torch.float32, memory_format=torch.contiguous_format, copy=True))),
+            ):
+                got, want = kern(), plain()
+                exact = torch.equal(got, want)
+                r = dict(shape=f"{label}, {wire}", err=(0.0, 0.0) if exact else (math.inf,) * 2,
+                         tol=0.0, ms=timed(kern), plain_ms=timed(plain),
+                         library_ms=timed(lib),
+                         bound=bound(8 * n + wire_bytes, 0.0))
+                print(f"{name} [{r['shape']}]: bit-exact {exact}; device ms: kernel "
+                      f"{r['ms'][0]:.4f}, plain {r['plain_ms'][0]:.4f}, library {r['library_ms'][0]:.4f}, "
+                      f"bound {r['bound'][0]:.4f} ({r['bound'][1]}); host ms per call: kernel "
+                      f"{r['ms'][1]:.4f}")
+                if not exact:
+                    fail(f"{name} [{r['shape']}] is not bit-equal to its plain version")
+                results[name].append(r)
+
+
+def flash_attention_bound() -> None:
+    """The least time for the one unported TPU kernel, causal flash attention,
+    at the shapes of tests/test_flash_attention.py: BH = 4, S = 768, D = 64,
+    float32.  No run: the kernel waits for the LM substrate."""
+    bh, s_len, d = 4, 768, 64
+    nbytes = 4 * bh * s_len * d * 4  # q, k, v read once, o written once
+    flops = 2 * 2 * bh * s_len * s_len * d / 2  # QK^T and PV, half the tiles causal
+    t, by = bound(nbytes, flops)
+    print(f"flash_attention (not ported) bound at BH={bh} S={s_len} D={d} causal fp32: "
+          f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP -> {t:.4f} ms ({by})")
 
 
 def _wrappers() -> dict:
@@ -280,6 +380,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
     from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
     from repro_torch.kernels.spectral_pointwise.ops import spectral_update
+    from repro_torch.kernels.wire_pack.ops import pack_wire, unpack_wire
 
     return {
         "spectral_pointwise": spectral_update,
@@ -288,6 +389,8 @@ def _wrappers() -> dict:
         "soft_threshold_ista": fused_ista_update,
         "soft_threshold_admm": fused_admm_update,
         "banded_conv": blur_apply,
+        "pack_wire": pack_wire,
+        "unpack_wire": unpack_wire,
     }
 
 
@@ -327,23 +430,30 @@ def step_times(prob, plan, method="cpadmm", **kw) -> tuple[float, float]:
     return timed(one, iters=5)  # a plain step issues ~25 launches
 
 
-def path_a(dev, gen, size=1024, frames=4, iters=600) -> dict:
-    """Paper Sec. 7 deblurring at the Abell-2744 frame size."""
+def sec7_problem(dev, seed, size, frames):
+    """Paper Sec. 7 at ``frames`` starfield frames of ``size`` x ``size``: an
+    order-5 moving-average blur, romberg sensing, m = n/2; drawn from a CPU
+    generator seeded ``seed``, so every rank builds the same problem."""
     import torch
 
-    from repro_torch.core.deblur import (
-        blurred_observation,
-        build_deblur_plan,
-        build_multiframe_deblur_problem,
-        deblur_metrics,
-    )
+    from repro_torch.core.deblur import build_multiframe_deblur_problem
     from repro_torch.core.solvers import RecoveryProblem
     from repro_torch.data.synthetic import starfield
 
+    gen = torch.Generator().manual_seed(seed)
     images = torch.stack([starfield(gen, size, size, device=dev) for _ in range(frames)])
     p = build_multiframe_deblur_problem(gen, images, blur_order=5, sensing="romberg")
-    prob = RecoveryProblem(op=p.op, y=p.y, x_true=images.reshape(frames, -1))
-    kw = dict(alpha=1e-3, rho=0.01, sigma=0.01)
+    return RecoveryProblem(op=p.op, y=p.y, x_true=images.reshape(frames, -1)), p
+
+
+def path_a(dev, seed, size=1024, frames=4, iters=600) -> dict:
+    """Paper Sec. 7 deblurring at the Abell-2744 frame size."""
+    import torch
+
+    from repro_torch.core.deblur import blurred_observation, build_deblur_plan, deblur_metrics
+
+    prob, p = sec7_problem(dev, seed, size, frames)
+    kw = SEC7_KW
     out = {}
     for tail in ("kernel", "plain"):
         torch.cuda.reset_peak_memory_stats()
@@ -464,6 +574,148 @@ def path_c(dev, gen, n=16384, batch=8, iters=400) -> dict:
     return out
 
 
+def profile_steps(prob, plan, label, steps=5, **kw) -> None:
+    """``torch.profiler`` over a few steady solver steps: the device's busy
+    share of the window, device time by kernel name and the host ops that
+    cost most, per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.solvers import make_stepper
+
+    stepper = make_stepper(prob, "cpadmm", plan=plan, **kw)
+    state = stepper.init()
+    for _ in range(3):
+        state = stepper.step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = stepper.step(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # device time from the kernel and copy records alone (an operator's record
+    # repeats the time of the kernels it launched)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile {label}: {steps} steps in {wall_ms / steps:.4f} ms/step (host clock), device "
+          f"busy {busy / steps:.4f} ms/step ({100 * busy / wall_ms:.1f}% of the window)")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        print(f"  device {e.self_device_time_total / 1e3 / steps:.4f} ms/step  "
+              f"x{e.count / steps:g}  {e.key[:90]}")
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        print(f"  host {e.self_cpu_time_total / 1e3 / steps:.4f} ms/step  x{e.count / steps:g}  "
+              f"{e.key[:90]}")
+
+
+def path_d1(dev, seed, x_a, size=1024, frames=4, iters=600) -> dict:
+    """Path A's problem on a one-rank mesh over NCCL, fp32 and bf16 wires."""
+    import torch
+
+    from repro_torch.core.deblur import build_deblur_plan, deblur_metrics
+    from repro_torch.dist.compat import make_mesh
+
+    prob, p = sec7_problem(dev, seed, size, frames)
+    mesh = make_mesh((1,), ("model",), device=dev)
+    out = {}
+    for wire in ("fp32", "bf16"):
+        pl = build_deblur_plan(p, mesh, rfft=True, tail="kernel", wire_dtype=wire)
+        if pl.wire_dtype != wire:
+            fail(f"Path D1: the {wire} wire fell back to {pl.wire_dtype} in the plan's guard")
+        zero_counts()
+        x, _, ms_iter = timed_solve(prob, pl, iters, iters, **SEC7_KW)
+        counts = read_counts()
+        dev_ms, host_ms = step_times(prob, pl, **SEC7_KW)
+        profile_steps(prob, pl, f"Path D1 wire={wire}", **SEC7_KW)
+        diff = ((x - x_a).norm() / x_a.norm()).item()
+        psnr = deblur_metrics(p, x)["psnr_db"].tolist()
+        out[wire] = dict(x=x, ms_iter=ms_iter, counts=counts, diff=diff, psnr=psnr)
+        print(f"Path D1 wire={wire}: mesh 1 (NCCL), n1 x n2 = {pl.n1} x {pl.n2}, rfft, fused, "
+              f"{iters} iters, {ms_iter:.4f} ms/iter (solve, host clock), per step device "
+              f"{dev_ms:.4f} ms / host issue {host_ms:.4f} ms, launches {counts}, PSNR dB "
+              f"{psnr}, x-hat vs Path A kernel step norm-rel {diff:.3e}")
+        if x.shape != x_a.shape or not bool(torch.isfinite(x).all()):
+            fail(f"Path D1 ({wire}) result has shape {tuple(x.shape)} or non-finite values")
+        tol = TOL_PATHS if wire == "fp32" else WIRE_ERROR_BOUND
+        if not diff <= tol:
+            fail(f"Path D1 ({wire}) disagrees with Path A: {diff} > {tol}")
+        # 2 transposes per fused iteration, and 2 for the one metric record
+        n_pack = 2 * iters + 2 if wire != "fp32" else 0
+        want = dict.fromkeys(counts, 0)
+        want.update(cpadmm_tail=iters, pack_wire=n_pack, unpack_wire=n_pack)
+        if counts != want:
+            fail(f"Path D1 ({wire}) launch counts {counts}; expected {want}")
+    return out
+
+
+def _d2_rank(seed, size, frames, iters):
+    """One rank of Path D2: the 2x2 mesh solve at fp32 and bf16 wires; the
+    gathered x-hat, this rank's launch counts and host ms per iteration."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.deblur import build_deblur_plan
+    from repro_torch.dist.compat import make_mesh, rank_device
+
+    dev = rank_device()
+    prob, p = sec7_problem(dev, seed, size, frames)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {}
+    for wire in ("fp32", "bf16"):
+        pl = build_deblur_plan(p, mesh, rfft=True, overlap=2, tail="kernel", wire_dtype=wire)
+        zero_counts()
+        dist.barrier()
+        x, _, ms_iter = timed_solve(prob, pl, iters, iters, **SEC7_KW)
+        out[wire] = dict(x=pl.gather_batch(x), counts=read_counts(), ms_iter=ms_iter,
+                         wire=pl.wire_dtype, layout=(pl.n1, pl.n2, pl.batch_axis))
+    return out
+
+
+def path_d2(dev, seed, size=1024, frames=4, iters=200) -> dict:
+    """Four gloo ranks sharing the card, against a local kernel-step solve."""
+    import torch
+
+    from repro_torch.core.deblur import build_deblur_plan
+    from repro_torch.dist.compat import spawn_fake_devices
+
+    prob, p = sec7_problem(dev, seed, size, frames)
+    x_local, _, _ = timed_solve(prob, build_deblur_plan(p, tail="kernel"), iters, iters,
+                                **SEC7_KW)
+    t0 = time.perf_counter()
+    ranks = spawn_fake_devices(4, _d2_rank, seed, size, frames, iters, device=str(dev))
+    wall = time.perf_counter() - t0
+    out = {"counts": {}}
+    for wire in ("fp32", "bf16"):
+        r0 = ranks[0][wire]
+        x = r0["x"].to(dev)
+        counts = {k: sum(r[wire]["counts"][k] for r in ranks) for k in r0["counts"]}
+        diff = ((x - x_local).norm() / x_local.norm()).item()
+        print(f"Path D2 wire={wire}: 4 gloo ranks on one card, mesh 2x2 (n1, n2, batch axis "
+              f"{r0['layout']}), rfft, overlap 2, {iters} iters, {r0['ms_iter']:.4f} ms/iter on "
+              f"rank 0 (host clock; gloo stages every exchange through the host), launches "
+              f"summed over ranks {counts}, x-hat vs local kernel step norm-rel {diff:.3e}")
+        if r0["wire"] != wire:
+            fail(f"Path D2: the {wire} wire fell back to {r0['wire']} in the plan's guard")
+        if x.shape != x_local.shape or not bool(torch.isfinite(x).all()):
+            fail(f"Path D2 ({wire}) result has shape {tuple(x.shape)} or non-finite values")
+        tol = TOL_PATHS if wire == "fp32" else WIRE_ERROR_BOUND
+        if not diff <= tol:
+            fail(f"Path D2 ({wire}) disagrees with the local solve: {diff} > {tol}")
+        # per rank and iteration: 2 transposes of 2 overlap chunks; 4 more for the record
+        n_pack = 4 * (4 * iters + 4) if wire != "fp32" else 0
+        want = dict.fromkeys(counts, 0)
+        want.update(cpadmm_tail=4 * iters, pack_wire=n_pack, unpack_wire=n_pack)
+        if counts != want:
+            fail(f"Path D2 ({wire}) launch counts {counts}; expected {want}")
+        for k, v in counts.items():
+            out["counts"][k] = out["counts"].get(k, 0) + v
+    print(f"Path D2: four ranks started, ran both solves and stopped in {wall:.2f} s")
+    return out
+
+
 def run_cli(args: list) -> str:
     """``python -m repro_torch.launch.recover *args`` in this process; its
     standard output, echoed."""
@@ -477,6 +729,22 @@ def run_cli(args: list) -> str:
     print(f"$ python -m repro_torch.launch.recover {' '.join(args)}   "
           f"[{time.perf_counter() - t0:.2f} s]\n{out.rstrip()}")
     return out
+
+
+def run_cli_process(args: list) -> str:
+    """``python -m repro_torch.launch.recover *args`` as its own process (its
+    ranks print from child processes); its standard output, echoed."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.recover", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    print(f"$ python -m repro_torch.launch.recover {' '.join(args)}   "
+          f"[{time.perf_counter() - t0:.2f} s, exit {proc.returncode}]\n{proc.stdout.rstrip()}")
+    if proc.returncode != 0:
+        fail(f"CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
 
 
 def _floats(text: str) -> list:
@@ -496,6 +764,17 @@ def cli_phase() -> dict:
     deblur = run_cli(["--deblur", "--size", "512", "--batch", "2", "--tol", "1e-4",
                       "--iters", "400"])
     counts = read_counts()
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
+        args = ["--deblur", "--size", "512", "--batch", "4", "--mesh", "2x2", "--fake-devices",
+                "4", "--rfft", "--wire-dtype", "bf16", "--iters", "200", "--chunk", "100",
+                "--ckpt-dir", ckpt_dir]
+        mesh_first, mesh_second = run_cli_process(args), run_cli_process(args)
+    if "resumed" in mesh_first or "resumed from iteration 200" not in mesh_second:
+        fail("CLI: the second 2x2-mesh run did not resume from iteration 200")
+    mesh_psnr = [_floats(ln.split("PSNR")[1])[0] for ln in mesh_second.splitlines()
+                 if "PSNR" in ln]
+    if len(mesh_psnr) != 4 or not all(math.isfinite(v) and v > 0 for v in mesh_psnr):
+        fail(f"CLI: per-frame PSNR of the 2x2-mesh deblur run is {mesh_psnr}")
     if "resumed" in first or "resumed from iteration 200" not in second:
         fail("CLI: the second checkpointed run did not resume from iteration 200")
     mse = _floats(second.split("per-signal MSE:")[-1])
@@ -523,6 +802,10 @@ KERNEL_SOURCES = {
                             "src/repro/kernels/soft_threshold/kernel.py:68"),
     "banded_conv": ("cuda", "src/repro_torch/csrc/banded_conv.cu",
                     "src/repro/kernels/banded_conv/kernel.py:40"),
+    "pack_wire": ("triton", "src/repro_torch/kernels/wire_pack/kernel.py",
+                  "src/repro/kernels/wire_pack/kernel.py:45"),
+    "unpack_wire": ("triton", "src/repro_torch/kernels/wire_pack/kernel.py",
+                    "src/repro/kernels/wire_pack/kernel.py:73"),
 }
 # the PyTorch call timed as each kernel's library_ms (never used by the port)
 LIBRARY_CALLS = {
@@ -532,6 +815,8 @@ LIBRARY_CALLS = {
     "soft_threshold_ista": "F.softshrink(x + delta, gamma): two launches, no one call fuses it",
     "soft_threshold_admm": None,
     "banded_conv": "F.conv1d on a circular right pad (a correlation, like the kernel)",
+    "pack_wire": "view_as_real(z).movedim(-1, 0).to(wire dtype, contiguous, copy=True)",
+    "unpack_wire": "view_as_complex(w.movedim(0, -1).to(float32, contiguous, copy=True))",
 }
 
 
@@ -563,12 +848,17 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = check_kernels(dev, gen)
-    a = path_a(dev, torch.Generator().manual_seed(1))
+    flash_attention_bound()
+    a = path_a(dev, 1)
     b = path_b(dev, torch.Generator().manual_seed(2))
     c = path_c(dev, torch.Generator().manual_seed(3))
+    d1 = path_d1(dev, 1, a["kernel"]["x"])
+    d2 = path_d2(dev, 1)
     cli = cli_phase()
+    d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     by_path = {"A": a["kernel"]["counts"], "B": b["kernel"]["counts"],
-               "C": c["kernel"]["counts"], "CLI": cli["counts"]}
+               "C": c["kernel"]["counts"], "D1": d1_counts, "D2": d2["counts"],
+               "CLI": cli["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
@@ -592,6 +882,7 @@ def main() -> int:
             } for r in checks[name]],
         })
     print(json.dumps({"kernels": kernels}))
+    torch.distributed.destroy_process_group()  # Path D1's world of one
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,14 @@ checkpoint either package writes restores in the other:
     being published.
 
 Leaves are saved from any device (copied to the host) and restored onto
-the device of the matching leaf of ``like``, or onto ``device=``.  The
-mesh re-shard (``shardings=``) comes with the distributed slice.
+the device of the matching leaf of ``like``, or onto ``device=``.
+
+On a mesh (``plan=`` a distributed execution plan, the counterpart of the
+reference's ``restore(..., shardings=)``) the checkpoint holds the *global*
+state: every rank takes part in gathering its rows and signals, rank 0
+alone writes the file, and on restore every rank reads it and keeps its
+own blocks, so a checkpoint crosses between meshes and between the
+packages.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SEP = "|"  # path-key separator inside the npz
 
@@ -89,8 +96,24 @@ def _checksum(arrays: Dict[str, np.ndarray]) -> str:
     return h.hexdigest()[:16]
 
 
-def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None, keep: int = 3) -> str:
-    """Atomically persist ``tree`` for ``step``; returns the final path."""
+def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None, keep: int = 3,
+         plan=None) -> str:
+    """Atomically persist ``tree`` for ``step``; returns the final path.
+
+    With a distributed ``plan`` every rank must call this: the state is
+    gathered to its global arrays, rank 0 writes, and all ranks return once
+    the checkpoint is published.
+    """
+    if plan is not None and plan.is_distributed:
+        tree = plan.global_state(tree)
+        path = _save(ckpt_dir, step, tree, extra, keep) if dist.get_rank() == 0 else \
+            os.path.join(ckpt_dir, f"step_{step:010d}")
+        dist.barrier()
+        return path
+    return _save(ckpt_dir, step, tree, extra, keep)
+
+
+def _save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict], keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = _flatten(tree)
     meta = {
@@ -169,12 +192,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: Optional[int], like: Any, device=None) -> Tuple[int, Any]:
+def restore(ckpt_dir: str, step: Optional[int], like: Any, device=None,
+            plan=None) -> Tuple[int, Any]:
     """Restore ``step`` (``None`` = the latest) into the structure of ``like``.
 
     Each leaf keeps its saved dtype and goes to ``device``, or, when that is
     ``None``, to the device of the matching tensor leaf of ``like`` (the CPU
-    for a non-tensor leaf).  Raises ``IOError`` on a checksum mismatch.
+    for a non-tensor leaf).  With a distributed ``plan`` the file holds the
+    global state and each rank keeps its own blocks of it.  Raises
+    ``IOError`` on a checksum mismatch.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -195,13 +221,16 @@ def restore(ckpt_dir: str, step: Optional[int], like: Any, device=None) -> Tuple
         else:
             dev = leaf_like.device if isinstance(leaf_like, torch.Tensor) else torch.device("cpu")
         leaves[key] = torch.from_numpy(arrays[key]).to(dev)
-    return meta["step"], _rebuild(like, leaves)
+    tree = _rebuild(like, leaves)
+    if plan is not None and plan.is_distributed:
+        tree = plan.local_state(tree)
+    return meta["step"], tree
 
 
-def solver_checkpoint_cb(ckpt_dir: str):
+def solver_checkpoint_cb(ckpt_dir: str, plan=None):
     """save_cb for :func:`repro_torch.core.solvers.solve_checkpointed`."""
 
     def cb(step, state):
-        save(ckpt_dir, step, state)
+        save(ckpt_dir, step, state, plan=plan)
 
     return cb

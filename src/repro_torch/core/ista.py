@@ -57,7 +57,9 @@ def fista_step(op, y: torch.Tensor, state: IstaState, p: IstaParams, prox=None) 
     """Beyond-paper Nesterov-accelerated ISTA, same matvec cost; ``t_mom``
     is per signal and broadcasts over each signal's trailing axis."""
     t_next = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * state.t_mom**2))
-    beta = ((state.t_mom - 1.0) / t_next)[..., None]
+    beta = (state.t_mom - 1.0) / t_next
+    # align with the leading batch axes: a signal may be 1-D or a layout block
+    beta = beta.reshape(beta.shape + (1,) * (state.x.ndim - beta.ndim))
     v = state.x + beta * (state.x - state.x_prev)  # extrapolation point
     r = y - op.matvec(v)
     delta = p.tau * op.rmatvec(r)

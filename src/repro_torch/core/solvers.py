@@ -13,11 +13,14 @@ Drivers: ``solve`` (fixed iteration count, metric traces), ``solve_until``
 eager steps.  Every driver takes a leading batch axis on ``y`` / ``x_true``
 (B signals through one operator); batch-of-1 equals the unbatched run.
 
-``plan=`` (:func:`repro_torch.ops.plan.plan`) selects the step's
-substrate: ``tail='kernel'`` with the l1 prior runs CPADMM and ISTA/CPISTA
-on the hand-written kernels (:mod:`repro_torch.core.kernel_backend`).
-FISTA keeps the plain step on either tail: the reference has no kernel
-FISTA step.  Dense ADMM (Alg. 2)
+``plan=`` (:func:`repro_torch.ops.plan.plan`) selects the backend and the
+step's substrate: ``tail='kernel'`` with the l1 prior runs CPADMM and
+ISTA/CPISTA on the hand-written kernels
+(:mod:`repro_torch.core.kernel_backend`); FISTA keeps the plain step on
+either tail, as the reference has no kernel FISTA step.  A distributed
+plan (``plan(op, mesh)``) lowers every method to the four-step transforms
+of :mod:`repro_torch.dist`; the drivers run unchanged on this rank's
+signals (the local batch of the data axis), whole.  Dense ADMM (Alg. 2)
 is ROADMAP Queue 1 item 2 and not ported yet.
 
 Recovery success follows the paper: MSE = ||x* - x||^2 / n <= 1e-4 (Sec. 6).
@@ -50,6 +53,17 @@ class Trace(NamedTuple):
     objective: torch.Tensor  # (T, ...) LASSO objective per recorded step
     mse: torch.Tensor  # (T, ...) MSE vs x_true (nan if no truth)
     nnz: torch.Tensor  # (T, ...) support size of the iterate
+
+
+def _metric_view(problem: RecoveryProblem, plan) -> RecoveryProblem:
+    """The problem the metrics are computed against: on a distributed plan,
+    this rank's signals through the plan's mask-form operator, so metric
+    matvecs run on the mesh too."""
+    if plan is None or not plan.is_distributed:
+        return problem
+    x_true = None if problem.x_true is None else plan.local_batch(problem.x_true)
+    return RecoveryProblem(op=plan.operator, y=plan._scattered_measurements(problem),
+                           x_true=x_true)
 
 
 def _metrics(problem: RecoveryProblem, x: torch.Tensor, alpha):
@@ -85,16 +99,21 @@ def make_stepper(
     plan=None,
     prox=None,
 ) -> Stepper:
-    """Lower (problem, method) to a Stepper.
+    """Lower (problem, method) to a Stepper on the plan's backend.
 
     ``prox=None`` defaults to the plan's ``prox`` and then to the paper's
     soft threshold, which keeps the fused kernel steps eligible; a non-l1
     prox takes the plain step.  ``tail='kernel'`` swaps in the kernel
     steps for 'cpadmm' and 'ista'/'cpista' (a PartialCirculant operator);
-    'fista' has no kernel step and keeps the plain one.
+    'fista' has no kernel step and keeps the plain one.  A distributed
+    plan builds its own stepper (:meth:`ExecutionPlan.build_stepper`) with
+    the same init / step / extract-flat-x contract.
     """
     if prox is None and plan is not None:
         prox = plan.prox
+    if plan is not None and plan.is_distributed:
+        return plan.build_stepper(problem, method, alpha=alpha, rho=rho, sigma=sigma, tau=tau,
+                                  prox=prox)
     tail = plan.tail if plan is not None else "plain"
     op, y = problem.op, problem.y
     if method in ("ista", "fista", "cpista"):
@@ -149,17 +168,22 @@ def solve(
     plan=None,
     **kw,
 ) -> Tuple[torch.Tensor, Trace]:
-    """Run ``iters // record_every`` blocks of ``record_every`` iterations
-    (default 1), recording the metric traces after each block."""
+    """Run ``iters // record_every`` blocks of ``record_every`` iterations,
+    recording the metric traces after each block.  Each record costs one
+    operator application, so ``record_every`` defaults to 1 on one device
+    but to ``iters`` on a distributed plan (two more all-to-alls a record)."""
+    if record_every is None:
+        record_every = iters if plan is not None and plan.is_distributed else 1
     stepper = make_stepper(problem, method, alpha=alpha, plan=plan, **kw)
-    inner = max(1, 1 if record_every is None else record_every)
+    metric_problem = _metric_view(problem, plan)
+    inner = max(1, record_every)
     outer = max(1, iters // inner)
     state = stepper.init()
     records = []
     for _ in range(outer):
         for _ in range(inner):
             state = stepper.step(state)
-        records.append(_metrics(problem, stepper.extract(state), alpha))
+        records.append(_metrics(metric_problem, stepper.extract(state), alpha))
     obj, mse, nnz = (torch.stack(r) for r in zip(*records))
     return stepper.extract(state), Trace(objective=obj, mse=mse, nnz=nnz)
 
@@ -284,5 +308,5 @@ def solve_checkpointed(
         if save_cb is not None:
             save_cb(step, state)
     x = stepper.extract(state)
-    _, mse, _ = _metrics(problem, x, alpha)
+    _, mse, _ = _metrics(_metric_view(problem, plan), x, alpha)
     return x, mse

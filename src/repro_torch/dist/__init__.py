@@ -1,0 +1,61 @@
+"""repro_torch.dist — the multi-rank decomposition of the recovery stack.
+
+Port of ``repro/dist`` over ``torch.distributed`` (NCCL on the card, gloo
+on the CPU and for ranks that share one card).  Module map:
+
+    compat     ranks, meshes and process groups: ``Mesh``, ``make_mesh``,
+               ``init_distributed`` (torchrun, or a world of one),
+               ``spawn_fake_devices`` (gloo ranks in child processes).
+    fft        the four-step n = n1 x n2 FFT on each rank's blocks:
+               ``layout_2d`` / ``unlayout_2d`` / ``freq_flat`` define the
+               layout; a circulant matvec costs two transpose all-to-alls
+               (``make_distributed_fft``, ``make_distributed_rfft``,
+               ``make_distributed_matvec``); ``overlap=K`` chunks each
+               transpose, ``wire_dtype`` demotes its payload through the
+               ``wire_pack`` kernels.
+    recovery   the CPADMM step functions (paper Alg. 3) on that layout:
+               ``dist_cpadmm_step`` (six all-to-alls an iteration) and
+               ``dist_cpadmm_step_fused`` (two).  No driver here:
+               ``repro_torch.ops.plan.plan(op, mesh)`` lowers an operator
+               onto these steps and the ``repro_torch.core.solvers``
+               drivers run them.
+
+Not ported yet (ROADMAP Queue 1 item 9 step 7): the hierarchical two-stage
+exchange of the reference's ``(host, device)`` meshes.  The reference's
+``sharding`` module belongs to the LM substrate (item 11).
+"""
+
+_LAZY_MODULES = ("compat", "fft", "recovery")
+
+# package-level symbols, imported on first use (importing the package loads
+# neither torch.distributed's process groups nor any kernel)
+_LAZY_SYMBOLS = {
+    "Mesh": "compat",
+    "make_mesh": "compat",
+    "init_distributed": "compat",
+    "spawn_fake_devices": "compat",
+    "MODEL_AXIS": "compat",
+    "layout_2d": "fft",
+    "unlayout_2d": "fft",
+    "freq_flat": "fft",
+    "make_distributed_fft": "fft",
+    "make_distributed_rfft": "fft",
+    "make_distributed_matvec": "fft",
+    "DistCpadmmParams": "recovery",
+    "DistCpadmmState": "recovery",
+    "dist_cpadmm_step": "recovery",
+    "dist_cpadmm_step_fused": "recovery",
+    "make_dist_spectrum": "recovery",
+}
+
+__all__ = sorted(_LAZY_MODULES) + sorted(_LAZY_SYMBOLS)
+
+
+def __getattr__(name: str):
+    import importlib
+
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _LAZY_SYMBOLS:
+        return getattr(importlib.import_module(f".{_LAZY_SYMBOLS[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,242 @@
+"""Ranks, meshes and process groups for the distributed port.
+
+The reference holds global arrays and lets ``shard_map`` scatter them over a
+JAX mesh.  The port runs one process per rank, and each rank holds only its
+own blocks; a :class:`Mesh` names the axes (``("model",)`` or
+``("data", "model")``), gives this rank's coordinate on each and one
+process group per axis, over which the collectives of
+:mod:`repro_torch.dist.fft` run.  Ranks are laid out row-major over the
+axes: global rank ``r = d * M + m`` on a ``D x M`` mesh.
+
+Three ways to start the ranks:
+
+* under ``torchrun``: NCCL, each rank on ``cuda:LOCAL_RANK`` (gloo with
+  ``device="cpu"``);
+* :func:`spawn_fake_devices` ``(n, fn, *args, device=...)``: ``n`` gloo
+  ranks in child processes that all hold their tensors on the one
+  ``device`` (the CPU, or one card shared by every rank — NCCL refuses two
+  ranks on one GPU; gloo stages CUDA tensors through the host);
+* world size 1 needs no launcher: an in-process group over a ``HashStore``,
+  NCCL on the card.
+
+A world size that is not the product of the mesh shape raises; the mesh is
+never shrunk and never moved to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import os
+import pickle
+import shutil
+import tempfile
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+MODEL_AXIS = "model"  # the mesh axis a signal's rows and columns shard over
+DATA_AXIS = "data"  # the mesh axis a leading batch of signals shards over
+
+_RANK_DEVICE: Optional[torch.device] = None  # set when this process joins a group
+_MESHES: dict = {}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """This rank's view of a named device mesh."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    coords: Tuple[int, ...]  # this rank's coordinate on each axis
+    groups: tuple  # one process group per axis, ranks ordered by coordinate
+    device: torch.device  # where this rank's tensors live
+
+    def _axis(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise ValueError(f"mesh axis {name!r} not in {self.axis_names}")
+        return self.axis_names.index(name)
+
+    def size(self, name: str) -> int:
+        return self.axis_sizes[self._axis(name)]
+
+    def index(self, name: str) -> int:
+        """This rank's coordinate on axis ``name``."""
+        return self.coords[self._axis(name)]
+
+    def group(self, name: str):
+        return self.groups[self._axis(name)]
+
+
+def rank_device() -> torch.device:
+    """The device this rank's tensors live on, as its launcher set it."""
+    if _RANK_DEVICE is None:
+        raise RuntimeError("this process has not joined a process group; call make_mesh "
+                           "or init_distributed first")
+    return _RANK_DEVICE
+
+
+def init_distributed(device=None) -> torch.device:
+    """Join the default process group, once; -> this rank's device.
+
+    Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` set) each
+    rank takes ``cuda:LOCAL_RANK`` and NCCL, or the CPU and gloo when
+    ``device="cpu"``.  Otherwise this process is a world of one, over an
+    in-process ``HashStore``.  A CUDA device is required unless
+    ``device="cpu"`` is given: nothing falls back to the CPU.
+    """
+    global _RANK_DEVICE
+    if dist.is_initialized():
+        if _RANK_DEVICE is None:
+            raise RuntimeError("a process group was initialised outside repro_torch; "
+                               "start the ranks with init_distributed or spawn_fake_devices")
+        return _RANK_DEVICE
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if cpu:
+        dev = torch.device("cpu")
+    elif launched:  # raises without CUDA, as any CUDA device does
+        dev = resolve_device(torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
+    else:
+        dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "gloo" if cpu else "nccl"
+    if launched:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    _RANK_DEVICE = dev
+    return dev
+
+
+def make_mesh(shape, names, device=None) -> Mesh:
+    """A mesh of ``shape`` with axis ``names`` over the default group,
+    joining it first (:func:`init_distributed`) when this process has not.
+
+    Raises ``ValueError`` when the world size is not ``prod(shape)``.
+    """
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    if len(shape) != len(names) or any(s < 1 for s in shape):
+        raise ValueError(f"mesh shape {shape} does not match axis names {names}")
+    dev = init_distributed(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != math.prod(shape):
+        raise ValueError(
+            f"mesh {'x'.join(map(str, shape))} needs {math.prod(shape)} ranks, but the "
+            f"world has {world}: start that many ranks (torchrun --nproc-per-node, or "
+            f"--fake-devices) or pick a mesh of {world}"
+        )
+    key = (shape, names)
+    if key not in _MESHES:
+        coords = _coords(rank, shape)
+        groups = []
+        for a in range(len(shape)):
+            mine = None
+            others = [range(s) for i, s in enumerate(shape) if i != a]
+            for rest in itertools.product(*others):
+                members = []
+                for c in range(shape[a]):
+                    full = list(rest)
+                    full.insert(a, c)
+                    members.append(_rank_of(full, shape))
+                # every rank creates every group, in one order (torch requires it)
+                g = dist.group.WORLD if world == 1 else dist.new_group(members)
+                if rank in members:
+                    mine = g
+            groups.append(mine)
+        _MESHES[key] = Mesh(names, shape, coords, tuple(groups), dev)
+    return _MESHES[key]
+
+
+def _coords(rank: int, shape) -> Tuple[int, ...]:
+    out = []
+    for s in reversed(shape):
+        rank, c = divmod(rank, s)
+        out.append(c)
+    return tuple(reversed(out))
+
+
+def _rank_of(coords, shape) -> int:
+    r = 0
+    for c, s in zip(coords, shape):
+        r = r * s + c
+    return r
+
+
+def gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather ``t`` over ``group`` and concatenate along ``dim``, in
+    group-rank order (= mesh coordinate); a group of one returns ``t``."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def spawn_fake_devices(n: int, fn, *args, device="cpu") -> list:
+    """Run ``fn(*args)`` on ``n`` gloo ranks in child processes; -> the
+    ranks' return values, in rank order (tensors come back on the CPU).
+
+    Every rank holds its tensors on ``device``: the CPU, or one CUDA card
+    shared by all ranks (the counterpart of the reference's
+    ``--fake-devices N``).  The ranks meet through a ``file://`` store in a
+    fresh temporary directory, so concurrent runs never collide on a port;
+    each runs one intra-op thread.  The CUDA kernels are built
+    here first, so the ranks do not run ``nvcc`` at once.  A rank that
+    raises ends every rank and re-raises here.
+    """
+    dev = resolve_device(device)  # raises for a CUDA device when there is none
+    if dev.type == "cuda":
+        from ..kernels import build
+
+        build.build_all()
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    try:
+        mp.spawn(_fake_rank, args=(n, fn, args, tmp, str(dev)), nprocs=n,
+                 join=True, start_method="spawn")
+        out = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_cpu(o) for o in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def _fake_rank(rank: int, n: int, fn, args, tmp: str, device: str) -> None:
+    global _RANK_DEVICE
+    torch.set_num_threads(1)  # n ranks share this machine's cores
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=rank, world_size=n)
+    _RANK_DEVICE = dev
+    try:
+        out = _to_cpu(fn(*args))
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()

@@ -4,8 +4,9 @@ Each function takes numpy arrays (what ``np.asarray`` gives of the
 reference's JAX arrays) and a ``device=`` (``None`` = the CUDA default).
 Stored spectra are taken as given and never recomputed, so a composed
 operator (``spec(C) * spec(B)``, whose column is derived from the product)
-is the same operator on both sides.  This module imports neither JAX nor
-the reference package.
+is the same operator on both sides.  On a mesh, the carriers take the
+reference's *global* arrays and keep this rank's blocks of them.  This
+module imports neither JAX nor the reference package.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from .core.admm import CpadmmState
 from .core.circulant import Circulant, PartialCirculant
 from .core.deblur import DeblurProblem
 from .device import resolve_device
+from .dist.fft import col_block, row_block
+from .dist.recovery import DistCpadmmState
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -47,3 +50,17 @@ def deblur_problem_from_numpy(
         y=_tensor(y, device),
         image=_tensor(image, device),
     )
+
+
+def plan_parts_from_numpy(spec2d, mask2d, mesh, device=None):
+    """The reference's global four-step spectrum (n1, c) and mask (n1, n2)
+    -> this rank's (spectrum columns, mask rows), the operands of
+    :func:`repro_torch.ops.plan.plan_from_parts`."""
+    return (col_block(_tensor(spec2d, device), mesh), row_block(_tensor(mask2d, device), mesh))
+
+
+def dist_cpadmm_state_from_numpy(x, v, z, mu, nu, plan, device=None):
+    """A global (..., n1, n2) CPADMM state -> this rank's blocks under the
+    distributed ``plan``: its rows, and its signals when the plan splits
+    the batch."""
+    return plan.local_state(DistCpadmmState(*(_tensor(a, device) for a in (x, v, z, mu, nu))))

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the CPADMM and CPISTA paths.
+"""Hand-written Hopper kernels for the CPADMM, CPISTA and mesh paths.
 
 Each subpackage mirrors ``repro/kernels/<name>``: ``ref.py`` holds the
 plain PyTorch version, ``ops.py`` the public wrapper with its integer
@@ -12,6 +12,7 @@ the kernel or raises — it never falls back.
     circulant_matvec     CUDA C++ <- repro/kernels/circulant_matvec
     soft_threshold       Triton   <- repro/kernels/soft_threshold
     banded_conv          CUDA C++ <- repro/kernels/banded_conv
+    wire_pack            Triton   <- repro/kernels/wire_pack
 """
 
 

@@ -3,7 +3,7 @@
     python -m repro_torch.launch.recover --n 65536 --batch 4 \
         --method cpadmm --iters 600 --ckpt-dir artifacts/torch_recover_ckpt
 
-Port of the local paths of ``repro/launch/recover.py``.  A batch of
+Port of ``repro/launch/recover.py``.  A batch of
 compressively sensed signals (one shared sensing operator, ``--batch``
 independent signals) is recovered with the selected solver, checkpointing
 the solver state every ``--chunk`` iterations; a second run with the same
@@ -18,14 +18,24 @@ operator ``A = P (C B)`` (an order-``--blur-order`` blur composed with the
 ``--sensing`` circulant, m = n/2), recovered by one batched solve, with
 per-frame PSNR reported.
 
+``--mesh M`` (model axis) or ``--mesh DxM`` (data x model) routes the same
+job through the distributed plan layer (``repro_torch.ops.plan.plan(op,
+mesh)``): each signal is split over the model axis by the four-step FFT,
+the batch over the data axis, and the same drivers run; ``--n1``,
+``--rfft``, ``--overlap`` and ``--wire-dtype`` are the plan's knobs.  The
+ranks come from ``torchrun --nproc-per-node P ... --mesh P`` (NCCL, one
+card a rank), from ``--fake-devices N`` (N gloo ranks started here, all on
+``--device``: the CPU, or one card they share), or, for ``--mesh 1``, from
+this process alone.  Rank 0 alone prints and writes checkpoints, which
+hold the global state.
+
 Everything runs on the CUDA card unless ``--device cpu`` is given.  The
 data come from ``torch.Generator`` seeds (``--seed``), drawn on the CPU so
-that one seed gives the same problem on either device; they differ from
-the reference's ``jax.random`` draws, and the default checkpoint
-directories are the port's own so that neither package resumes the
-other's run.  The distributed flags (``--mesh`` and its companions),
-``--tune`` and the non-l1 priors are not ported yet and exit with the
-ROADMAP item that will bring them.
+that one seed gives the same problem on either device and on every rank;
+they differ from the reference's ``jax.random`` draws, and the default
+checkpoint directories are the port's own so that neither package resumes
+the other's run.  ``--tune`` and the non-l1 priors are not ported yet and
+exit with the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -38,21 +48,18 @@ import torch
 
 from ..ckpt import checkpoint as ckpt
 from ..core.circulant import partial_gaussian_circulant
-from ..core.deblur import build_multiframe_deblur_problem, deblur_metrics
+from ..core.deblur import build_deblur_plan, build_multiframe_deblur_problem, deblur_metrics
 from ..core.solvers import RecoveryProblem, make_stepper, solve_checkpointed, solve_until
 from ..data.synthetic import paper_regime, sparse_signal, starfield
 from ..device import resolve_device
+from ..dist import compat
+from ..kernels.wire_pack.ref import WIRE_DTYPES
 from ..ops.plan import plan
 
 METHODS = ("cpadmm", "ista", "fista")
-_DIST = "Queue 1 item 9 (distributed transforms and recovery)"
 # flags of the reference launcher that wait for a later slice: (flag, the
 # value that means "not given", the ROADMAP item that ports it)
-UNPORTED = (
-    ("mesh", None, _DIST), ("n1", None, _DIST), ("rfft", False, _DIST),
-    ("overlap", 1, _DIST), ("wire_dtype", "fp32", _DIST), ("fake_devices", 0, _DIST),
-    ("tune", None, "Queue 1 item 10 (tuner)"),
-)
+UNPORTED = (("tune", None, "Queue 1 item 10 (tuner)"),)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -95,13 +102,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' runs the plain PyTorch versions)")
-    # the reference launcher's distributed and tuning flags, not ported yet
-    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--n1", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--rfft", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--overlap", type=int, default=1, help=argparse.SUPPRESS)
-    ap.add_argument("--wire-dtype", default="fp32", help=argparse.SUPPRESS)
-    ap.add_argument("--fake-devices", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", default=None,
+                    help="distributed plan: 'M' (model axis size) or 'DxM' "
+                         "(data x model); e.g. --mesh 4 or --mesh 2x2")
+    ap.add_argument("--n1", type=int, default=None,
+                    help="four-step row count for --mesh (auto near sqrt(n))")
+    ap.add_argument("--rfft", action="store_true",
+                    help="half-spectrum distributed transforms (with --mesh)")
+    ap.add_argument("--overlap", type=int, default=1,
+                    help="chunked-transpose overlap factor K (with --mesh)")
+    ap.add_argument("--wire-dtype", default="fp32", choices=tuple(WIRE_DTYPES),
+                    help="transpose all-to-all payload precision (with --mesh): "
+                         "bf16/fp16 halve the wire bytes, guarded by an fp32 "
+                         "fallback past the plan layer's precision bound")
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help="start N gloo ranks here, all on --device (with --mesh)")
+    # the reference launcher's tuning flag, not ported yet
     ap.add_argument("--tune", nargs="?", const="model", default=None, help=argparse.SUPPRESS)
     return ap
 
@@ -119,6 +135,30 @@ def make_prior(prior: str):
 
 def _generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
+
+
+def mesh_axes(mesh_arg):
+    """CLI mesh spec 'M' or 'DxM' -> (shape, axis names, batch axis)."""
+    shape = tuple(int(t) for t in mesh_arg.lower().split("x"))
+    if len(shape) == 1:
+        return shape, ("model",), None
+    if len(shape) == 2:
+        return shape, ("data", "model"), "data"
+    raise ValueError(f"--mesh must be 'M' or 'DxM', got {mesh_arg!r}")
+
+
+def parse_mesh(mesh_arg, device):
+    """CLI mesh spec -> (mesh, batch_axis), or (None, None) without one.
+    Joins the process group first (torchrun's, or a world of one)."""
+    if mesh_arg is None:
+        return None, None
+    shape, names, batch_axis = mesh_axes(mesh_arg)
+    return compat.make_mesh(shape, names, device=device), batch_axis
+
+
+def plan_knobs(args) -> dict:
+    """The plan knobs the CLI flags set."""
+    return dict(rfft=args.rfft, overlap=args.overlap, wire_dtype=args.wire_dtype)
 
 
 def build_deblur_workload(args, device):
@@ -150,8 +190,25 @@ def main(argv=None):
             raise SystemExit(
                 f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}"
             )
+    make_prior(args.prior)
+    if args.fake_devices:
+        if args.mesh is None:
+            raise SystemExit("--fake-devices starts the ranks of a --mesh; pass --mesh too")
+        mesh_axes(args.mesh)  # a bad spec fails here, before any rank starts
+        device = resolve_device(args.device)  # raises without CUDA unless --device cpu
+        compat.spawn_fake_devices(args.fake_devices, run, args, device=str(device))
+        return
+    run(args)
+
+
+def run(args) -> None:
+    """The job on this rank: every rank of a mesh runs it, rank 0 reports."""
     prox = make_prior(args.prior)
-    device = resolve_device(args.device)
+    mesh, batch_axis = parse_mesh(args.mesh, args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    where = f", mesh={args.mesh}" if mesh is not None else ""
     if args.ckpt_dir is None:
         args.ckpt_dir = ("artifacts/torch_recover_deblur_ckpt" if args.deblur
                          else "artifacts/torch_recover_ckpt")
@@ -159,34 +216,43 @@ def main(argv=None):
     if args.deblur:
         n = args.size * args.size
         prob, dp = build_deblur_workload(args, device)
-        print(f"deblurring batch={args.batch} frames of "
-              f"{args.size}x{args.size} (n={n}), blur L={args.blur_order}, "
-              f"m={dp.op.m}, sensing={args.sensing}, method={args.method}, "
-              f"prior={args.prior}, device={device}")
+        say(f"deblurring batch={args.batch} frames of "
+            f"{args.size}x{args.size} (n={n}), blur L={args.blur_order}, "
+            f"m={dp.op.m}, sensing={args.sensing}, method={args.method}, "
+            f"prior={args.prior}, device={device}{where}")
+        pl = build_deblur_plan(dp, mesh, n1=args.n1, batch_axis=batch_axis, prox=prox,
+                               **plan_knobs(args))
     else:
         n = args.n
         m, k = paper_regime(n)
         dp = None
-        print(f"recovering batch={args.batch} signals, n={n}, m={m}, k={k}, "
-              f"method={args.method}, prior={args.prior}, device={device}")
+        say(f"recovering batch={args.batch} signals, n={n}, m={m}, k={k}, "
+            f"method={args.method}, prior={args.prior}, device={device}{where}")
         x_true = sparse_signal(_generator(args.seed), n, k, batch=(args.batch,),
                                device=device)
         op = partial_gaussian_circulant(_generator(args.seed + 1), n, m, normalize=True,
                                         device=device)
         prob = RecoveryProblem(op=op, y=op.matvec(x_true), x_true=x_true)
-    pl = plan(prob.op, prox=prox)
+        if mesh is None:
+            # the single validation site rejects --rfft/--overlap/--wire-dtype without --mesh
+            pl = plan(op, prox=prox, **plan_knobs(args))
+        else:
+            pl = plan(op, mesh, n1=args.n1, batch_axis=batch_axis, prox=prox,
+                      **plan_knobs(args))
     kw = dict(alpha=args.alpha, rho=0.01, sigma=0.01, plan=pl)
+    gather = pl.gather_batch if mesh is not None else (lambda t: t)
 
     if args.tol > 0:
         t0 = time.time()
         x_hat, iters_used = solve_until(prob, args.method, tol=args.tol,
                                         max_iters=args.iters, **kw)
+        x_hat, iters_used = gather(x_hat), gather(iters_used)
         d = prob.x_true - x_hat
         mse = torch.atleast_1d((d * d).mean(dim=-1)).tolist()
-        print(f"finished in {time.time()-t0:.1f}s; per-signal iterations: "
-              f"{torch.atleast_1d(iters_used).tolist()}")
-        print(f"per-signal MSE: {[f'{v:.2e}' for v in mse]}")
-        if dp is not None:
+        say(f"finished in {time.time()-t0:.1f}s; per-signal iterations: "
+            f"{torch.atleast_1d(iters_used).tolist()}")
+        say(f"per-signal MSE: {[f'{v:.2e}' for v in mse]}")
+        if dp is not None and lead:
             report_deblur(dp, x_hat)
         return
 
@@ -196,17 +262,18 @@ def main(argv=None):
         # the saved tree is the solver state; a fresh stepper's init state
         # gives its structure and the device to restore onto
         like = make_stepper(prob, args.method, **kw).init()
-        restore = ckpt.restore(args.ckpt_dir, latest, like)
-        print(f"resumed from iteration {restore[0]}")
+        restore = ckpt.restore(args.ckpt_dir, latest, like, plan=pl)
+        say(f"resumed from iteration {restore[0]}")
 
     t0 = time.time()
     x_hat, mse = solve_checkpointed(
         prob, args.method, iters=args.iters, chunk=args.chunk,
-        save_cb=lambda s, st: ckpt.save(args.ckpt_dir, s, st), restore=restore, **kw,
+        save_cb=lambda s, st: ckpt.save(args.ckpt_dir, s, st, plan=pl), restore=restore, **kw,
     )
-    print(f"finished in {time.time()-t0:.1f}s; per-signal MSE: "
-          f"{[f'{v:.2e}' for v in torch.atleast_1d(mse).tolist()]}")
-    if dp is not None:
+    x_hat, mse = gather(x_hat), gather(mse)
+    say(f"finished in {time.time()-t0:.1f}s; per-signal MSE: "
+        f"{[f'{v:.2e}' for v in torch.atleast_1d(mse).tolist()]}")
+    if dp is not None and lead:
         report_deblur(dp, x_hat)
 
 

@@ -1,33 +1,124 @@
-"""Execution plans, local subset: the identity lowering and its knobs.
+"""Execution plans: lower a recovery operator to one device or to a mesh.
 
-Port of the single-device half of ``repro/ops/plan.py``.  ``plan(op)``
-returns an :class:`ExecutionPlan` whose operator *is* ``op``; the drivers
-of :mod:`repro_torch.core.solvers` read two knobs from it:
+Port of ``repro/ops/plan.py``.  ``plan(op)`` is the identity lowering: the
+plan's operator *is* ``op``.  ``plan(op, mesh)`` lowers a (partial)
+circulant onto the four-step transforms of :mod:`repro_torch.dist.fft`:
+matvecs become two transpose all-to-alls each, and the CPADMM inner
+inverse stays a pointwise reciprocal on this rank's spectrum columns.
+Either way the *same* drivers of :mod:`repro_torch.core.solvers` run it.
 
-    tail   'plain' (default; the reference's 'jnp') or 'kernel' (the
-           reference's 'pallas'): the CPADMM and ISTA/CPISTA steps on the
-           hand-written kernels of :mod:`repro_torch.core.kernel_backend`
-    prox   the prior (:mod:`repro_torch.ops.prox`); None = l1 threshold
+Distributed measurement convention: on a mesh the plan works in the mask
+form ``M = diag(mask) C`` with measurements scattered full length
+(``P^T y``): ``M^T M = A^T A`` and ``M^T P^T y = A^T y``, so the iterates
+are those of the m-row operator.
 
-Distributed lowering (``mesh=``) is ROADMAP Queue 1 item 9 and raises here.
+Each rank holds its columns of the spectrum (``spec2d``) and its rows of
+the mask (``mask2d``); every rank builds the same problem from the same
+seed and keeps its blocks.  The solver state is this rank's rows; the
+batch of signals stays local to the data axis (``batch_axis``), and a
+stepper's ``extract`` all-gathers its signals' rows over the model axis,
+so the drivers see whole signals.
+
+Knobs (one frozen :class:`PlanConfig`):
+
+    tail        'plain' (the reference's 'jnp') or 'kernel' (its 'pallas'):
+                the hand-written kernels for the CPADMM tail (and, on one
+                device, the CPISTA and spectral steps)
+    prox        the prior; None = the l1 soft threshold
+    rfft        half-spectrum transforms (half the FFT flops and wire bytes)
+    overlap=K   chunked transposes overlapped with the first FFT stage
+    fused       the frequency-domain CPADMM x-update (2 all-to-alls per
+                iteration instead of 6)
+    batch_axis  the mesh axis a leading batch of signals is split over
+    n1, n2      the four-step factorization (auto near sqrt(n))
+    axis_name   the mesh axis the transforms split over
+    wire_dtype  'fp32' / 'bf16' / 'fp16': the transpose payload precision,
+                guarded by a one-matvec probe that falls back to 'fp32'
+                past :data:`WIRE_ERROR_BOUND`
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
+import os
+import warnings
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from ..dist.compat import MODEL_AXIS, Mesh, gather_cat
+from ..dist.fft import (
+    col_block,
+    gather_rows,
+    layout_2d,
+    matvec_local,
+    rmatvec_local,
+    row_block,
+    unlayout_2d,
+)
+from ..kernels.wire_pack.ref import WIRE_DTYPES
+from . import spectral
 
 TAILS = ("plain", "kernel")
+_ISTA_METHODS = ("ista", "fista", "cpista")
+
+# wire-precision guard: a plan with wire_dtype != 'fp32' probes one matvec
+# against its fp32-wire twin and falls back (RuntimeWarning) past this
+# relative error; REPRO_WIRE_ERROR_BOUND overrides it, as in the reference
+WIRE_ERROR_BOUND = float(os.environ.get("REPRO_WIRE_ERROR_BOUND", "1e-2"))
+
+
+def _factorize(n: int, n1: Optional[int], n2: Optional[int], p: int, rfft: bool):
+    """Pick or check the four-step n = n1 x n2 split for a p-rank axis: the
+    rows must split evenly over the axis, and so must the spectrum columns
+    unless the rfft path pads them."""
+    if n1 is not None and n2 is None:
+        n2 = n // n1
+    if n1 is None and n2 is not None:
+        n1 = n // n2
+    if n1 is None:
+        for cand in range(math.isqrt(n), 0, -1):
+            if n % cand:
+                continue
+            a, b = cand, n // cand
+            if a % p == 0 and (rfft or b % p == 0):
+                n1, n2 = a, b
+                break
+        else:
+            raise ValueError(
+                f"no n1 x n2 = {n} factorization shards over {p} devices; "
+                f"pass n1/n2 explicitly"
+            )
+    if n1 * n2 != n:
+        raise ValueError(f"n1 * n2 = {n1}*{n2} != n = {n}")
+    if n1 % p:
+        raise ValueError(f"n1 = {n1} must be divisible by the mesh axis size {p}")
+    if not rfft and n2 % p:
+        raise ValueError(
+            f"n2 = {n2} must be divisible by the mesh axis size {p} "
+            f"(or use rfft=True, which pads the kept columns)"
+        )
+    return n1, n2
 
 
 @dataclasses.dataclass(frozen=True)
 class PlanConfig:
-    """Every knob of a local execution plan, in one frozen hashable value."""
+    """Every knob of an execution plan, in one frozen hashable value."""
 
     tail: str = "plain"
-    prox: Any = None  # a Prox (apply(x, gamma) + tag); None = the l1 threshold
+    prox: Any = None  # a prox (apply(x, gamma) + tag); None = the l1 threshold
+    rfft: bool = False
+    overlap: int = 1
+    fused: bool = True
+    batch_axis: Any = None
+    n1: Optional[int] = None
+    n2: Optional[int] = None
+    axis_name: Any = MODEL_AXIS
+    wire_dtype: str = "fp32"
 
-    def validate(self) -> "PlanConfig":
+    def validate(self, distributed: bool = False) -> "PlanConfig":
         """THE validation site for plan knobs; returns self for chaining."""
         if self.tail not in TAILS:
             raise ValueError(f"tail must be one of {TAILS}, got {self.tail!r}")
@@ -38,39 +129,396 @@ class PlanConfig:
                 f"prox must be None (the l1 soft threshold) or a prox with "
                 f"apply(x, gamma) and tag; got {self.prox!r}"
             )
+        if not isinstance(self.overlap, int) or self.overlap < 1:
+            raise ValueError(f"overlap must be a positive int, got {self.overlap!r}")
+        if self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(
+                f"wire_dtype must be one of {sorted(WIRE_DTYPES)}, got {self.wire_dtype!r}"
+            )
+        if not isinstance(self.axis_name, str):
+            raise ValueError(
+                f"axis_name must be one mesh-axis name, got {self.axis_name!r} (the "
+                f"hierarchical (host, device) exchange is not ported yet: ROADMAP "
+                f"Queue 1 item 9 step 7)"
+            )
+        if not distributed and self.wire_dtype != "fp32":
+            raise ValueError(
+                f"wire_dtype={self.wire_dtype!r} compresses the transpose "
+                f"all-to-all payload of the *distributed* four-step "
+                f"transforms — a local (mesh=None) plan has no wire to "
+                f"compress and would silently ignore it; pass a mesh or "
+                f"leave wire_dtype='fp32' (valid values: "
+                f"{sorted(WIRE_DTYPES)})"
+            )
+        if not distributed and (self.rfft or self.overlap != 1 or self.batch_axis is not None):
+            raise ValueError(
+                "rfft/overlap are distributed-backend knobs (the sharded "
+                "four-step transforms), and batch_axis names a mesh axis; "
+                "pass a mesh to use them — a local plan would silently "
+                "ignore them"
+            )
+        if (self.n1 is not None and self.n1 < 1) or (self.n2 is not None and self.n2 < 1):
+            raise ValueError(f"n1/n2 must be positive, got {self.n1}/{self.n2}")
         return self
 
 
-@dataclasses.dataclass(frozen=True)
+class PlannedOperator:
+    """Mask form ``diag(mask) C`` on the plan's mesh, acting on flat signals.
+
+    ``matvec`` / ``rmatvec`` take whole flat (..., n) signals (the local
+    batch), run the four-step transforms on this rank's rows and gather the
+    result's rows, so the drivers' objective and metric code work
+    unchanged.  Measurements are scattered full length (``project_back``
+    is the identity).
+    """
+
+    def __init__(self, plan: "ExecutionPlan"):
+        self._plan = plan
+
+    @property
+    def n(self) -> int:
+        return self._plan.n1 * self._plan.n2
+
+    @property
+    def m(self) -> int:
+        return self.n  # mask form: measurements live scattered, length n
+
+    def _flat(self, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+        pl = self._plan
+        rows = row_block(layout_2d(x, pl.n1, pl.n2), pl.mesh, pl.axis_name)
+        on_rows = _RowsOperator(pl)
+        out = on_rows.rmatvec(rows) if transpose else on_rows.matvec(rows)
+        return unlayout_2d(gather_rows(out, pl.mesh, pl.axis_name))
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self._flat(x, transpose=False)
+
+    def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
+        return self._flat(r, transpose=True)
+
+    def operator_norm_bound(self) -> torch.Tensor:
+        return self._plan.norm_bound
+
+    def project_back(self, y: torch.Tensor) -> torch.Tensor:
+        return y  # already scattered full length
+
+
+class _RowsOperator:
+    """The plan's operator on this rank's rows of the (n1, n2) layout: what
+    the ISTA/FISTA step math consumes, so iterates stay in the layout."""
+
+    def __init__(self, plan: "ExecutionPlan"):
+        self._plan = plan
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self._plan.mask2d * self._plan._apply(x, transpose=False)
+
+    def rmatvec(self, r: torch.Tensor) -> torch.Tensor:
+        # the adjoint of diag(mask) C is C^T diag(mask)
+        return self._plan._apply(self._plan.mask2d * r, transpose=True)
+
+    def operator_norm_bound(self) -> torch.Tensor:
+        return self._plan.norm_bound
+
+
+def _map_state(fn, state):
+    return type(state)(*(fn(leaf) for leaf in state))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class ExecutionPlan:
-    """An operator lowered to one device: the operator and its knobs."""
+    """An operator lowered to a backend.  A local plan carries the operator
+    and its knobs; a distributed one also this rank's spectrum columns
+    ``spec2d`` and its mask rows ``mask2d``, and its config the
+    factorization n1 x n2."""
 
-    op: Any
+    op: Any = None
     config: PlanConfig = PlanConfig()
-
-    @property
-    def tail(self) -> str:
-        return self.config.tail
-
-    @property
-    def prox(self):
-        return self.config.prox
+    mesh: Any = None
+    spec2d: Any = None
+    mask2d: Any = None
+    norm_bound: Any = None
 
     @property
     def is_distributed(self) -> bool:
-        return False
+        return self.mesh is not None
 
     @property
     def operator(self):
-        """The RecoveryOperator view of this plan: ``op`` itself."""
-        return self.op
+        """The original operator on one device, the mask-form planned
+        operator on a mesh."""
+        return PlannedOperator(self) if self.is_distributed else self.op
 
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self.operator.matvec(x)
 
-def plan(op, mesh=None, *, tail: str = "plain", prox: Any = None) -> ExecutionPlan:
-    """Lower ``op`` to a local execution plan (the identity lowering)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "distributed plans (mesh=) are not ported yet: ROADMAP Queue 1 "
-            "item 9 (distributed transforms and recovery)"
+    def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
+        return self.operator.rmatvec(y)
+
+    # -- blocks and batches -------------------------------------------------
+    def _apply(self, rows: torch.Tensor, transpose: bool) -> torch.Tensor:
+        """One circulant application on this rank's rows (two transposes)."""
+        local = rmatvec_local if self.rfft else matvec_local
+        return local(self.spec2d, rows, self.mesh, self.axis_name, transpose, self.overlap,
+                     self.wire_dtype)
+
+    def local_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's signals of a flat (B, n) array: a slice over the data
+        axis when the plan has a ``batch_axis``; one signal (n,) is whole."""
+        return t if t.ndim < 2 else self._batch_slice(t)
+
+    def _batch_slice(self, t: torch.Tensor) -> torch.Tensor:
+        if self.batch_axis is None:
+            return t
+        d, idx = self.mesh.size(self.batch_axis), self.mesh.index(self.batch_axis)
+        if t.shape[0] % d:
+            raise ValueError(f"a batch of {t.shape[0]} signals does not split over the "
+                             f"{d}-way {self.batch_axis!r} axis")
+        b = t.shape[0] // d
+        return t[idx * b:(idx + 1) * b]
+
+    def gather_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """All ranks' signals of this rank's batched (B/d, ...) array, on
+        every rank (the array itself without a ``batch_axis``)."""
+        if self.batch_axis is None:
+            return t
+        return gather_cat(t, self.mesh.group(self.batch_axis), dim=0)
+
+    def _scattered_measurements(self, problem) -> torch.Tensor:
+        """problem.y -> this rank's signals of the full-length P^T y."""
+        y, n = problem.y, self.n1 * self.n2
+        if y.shape[-1] != n:
+            if not hasattr(problem.op, "project_back"):
+                raise ValueError(
+                    f"distributed plans need measurements of length n={n} (scattered "
+                    f"P^T y) or an operator with project_back; got length {y.shape[-1]}"
+                )
+            y = problem.op.project_back(y)
+        if y.ndim > 2:
+            raise ValueError("distributed plans support one leading batch axis")
+        return self.local_batch(y)
+
+    # State leaves are this rank's rows (..., n1/p, n2) — batched when 3-D —
+    # or a per-signal scalar (FISTA's t_mom, batched when 1-D).
+    def global_state(self, state):
+        """Gather a state to its global (B, n1, n2) arrays on every rank (the
+        checkpoint's layout, the reference's global arrays)."""
+
+        def gather(t):
+            if t.ndim >= 2:
+                t = gather_rows(t, self.mesh, self.axis_name)
+            return self.gather_batch(t) if t.ndim in (1, 3) else t
+
+        return _map_state(gather, state)
+
+    def local_state(self, state):
+        """This rank's blocks of a global state (:meth:`global_state`'s inverse)."""
+
+        def keep(t):
+            if t.ndim >= 2:
+                t = row_block(t, self.mesh, self.axis_name)
+            return self._batch_slice(t).contiguous() if t.ndim in (1, 3) else t
+
+        return _map_state(keep, state)
+
+    def _flat_extract(self, field: str):
+        """``extract``: this rank's signals whole, their rows all-gathered
+        over the model axis."""
+
+        def extract(state):
+            return unlayout_2d(gather_rows(getattr(state, field), self.mesh, self.axis_name))
+
+        return extract
+
+    # -- steppers (consumed by repro_torch.core.solvers) -------------------
+    def build_stepper(self, problem, method: str, alpha=1e-4, rho=0.1, sigma=0.1, tau=None,
+                      prox=None):
+        """Lower (problem, method) to a ``Stepper`` on this backend."""
+        from .prox import is_l1  # here: ops.prox imports core, whose drivers import this
+
+        prox = prox if prox is not None else self.prox
+        if not self.is_distributed:
+            from ..core.solvers import make_stepper
+
+            return make_stepper(problem, method, alpha=alpha, rho=rho, sigma=sigma, tau=tau,
+                                plan=self, prox=prox)
+        if not is_l1(prox):
+            raise NotImplementedError(
+                "only the l1 prior runs on a mesh yet: the other priors and the mesh's "
+                "hybrid prior step are ROADMAP Queue 1 item 6"
+            )
+        if method in _ISTA_METHODS:
+            return self._ista_stepper(problem, method, alpha, tau, prox)
+        if method == "cpadmm":
+            return self._cpadmm_stepper(problem, alpha, rho, sigma, tau, prox)
+        raise ValueError(
+            f"method {method!r} has no distributed lowering; valid "
+            f"distributed methods: ista, fista, cpista, cpadmm"
         )
-    return ExecutionPlan(op=op, config=PlanConfig(tail=tail, prox=prox).validate())
+
+    def _ista_stepper(self, problem, method: str, alpha, tau, prox=None):
+        """Distributed CPISTA/FISTA: the core step math verbatim, with the
+        matvecs on this rank's rows."""
+        from ..core import ista as ista_mod
+        from ..core.solvers import Stepper
+
+        y_full = self._scattered_measurements(problem)
+        y_rows = row_block(layout_2d(y_full, self.n1, self.n2), self.mesh, self.axis_name)
+        op_rows = _RowsOperator(self)
+        tau_v = tau if tau is not None else ista_mod.default_tau(op_rows)
+        p = ista_mod.IstaParams(alpha=float(alpha), tau=tau_v)
+        step_fn = ista_mod.fista_step if method == "fista" else ista_mod.ista_step
+        zeros = torch.zeros_like(y_rows)
+        # per-signal momentum, as ista_init: a frozen slot keeps a solo run's schedule
+        return Stepper(
+            init=lambda: ista_mod.IstaState(
+                x=zeros, x_prev=zeros, t_mom=y_full.new_ones(y_full.shape[:-1])
+            ),
+            step=lambda s: step_fn(op_rows, y_rows, s, p, prox=prox),
+            extract=self._flat_extract("x"),
+        )
+
+    def _cpadmm_stepper(self, problem, alpha, rho, sigma, tau, prox=None):
+        """Distributed CPADMM: the step functions of
+        :mod:`repro_torch.dist.recovery` on this rank's blocks."""
+        from ..core.solvers import Stepper
+        from ..dist.recovery import (
+            DistCpadmmParams,
+            DistCpadmmState,
+            dist_cpadmm_step,
+            dist_cpadmm_step_fused,
+        )
+
+        y_full = self._scattered_measurements(problem)
+        pty = row_block(layout_2d(y_full, self.n1, self.n2), self.mesh, self.axis_name)
+        t = 1.0 if tau is None else float(tau)
+        p = DistCpadmmParams(alpha=float(alpha), rho=float(rho), sigma=float(sigma),
+                             tau1=t, tau2=t)
+        # Alg. 3 line 2 on this rank's blocks: both inner inverses are pointwise
+        b_spec = spectral.gram_inverse_spectrum(self.spec2d, p.rho, p.sigma)
+        d_diag = torch.where(self.mask2d > 0, 1.0 / (1.0 + p.rho), 1.0 / p.rho).to(pty.dtype)
+        step_fn = dist_cpadmm_step_fused if self.fused else dist_cpadmm_step
+        zeros = torch.zeros_like(pty)
+        return Stepper(
+            init=lambda: DistCpadmmState(zeros, zeros, zeros, zeros, zeros),
+            step=lambda s: step_fn(self.spec2d, b_spec, d_diag, pty, s, p, self.mesh,
+                                   self.axis_name, self.rfft, self.overlap, self.tail,
+                                   self.wire_dtype, prox=prox),
+            extract=self._flat_extract("z"),
+        )
+
+
+# the knobs read as plan attributes, as the reference's plan fields do
+for _knob in ("tail", "prox", "rfft", "overlap", "fused", "batch_axis", "n1", "n2",
+              "axis_name", "wire_dtype"):
+    setattr(ExecutionPlan, _knob, property(lambda self, k=_knob: getattr(self.config, k)))
+
+
+def _wire_guard(wire_plan: ExecutionPlan) -> ExecutionPlan:
+    """Error-controlled wire precision: probe one matvec of the demoted-wire
+    plan against its fp32-wire twin on a seeded unit-norm signal, and fall
+    back to fp32 (``RuntimeWarning``) when the relative error exceeds
+    :data:`WIRE_ERROR_BOUND` or is not finite (fp16 overflow).  Every rank
+    takes the same decision."""
+    if wire_plan.wire_dtype == "fp32":
+        return wire_plan
+    ref_plan = dataclasses.replace(
+        wire_plan, config=dataclasses.replace(wire_plan.config, wire_dtype="fp32")
+    )
+    n = wire_plan.n1 * wire_plan.n2
+    x = torch.randn(n, generator=torch.Generator().manual_seed(0))
+    x = (x / x.norm()).to(wire_plan.mask2d.device)
+    got, ref = wire_plan.matvec(x), ref_plan.matvec(x)
+    denom = ref.norm()
+    err = float((got - ref).norm() / torch.where(denom > 0, denom, torch.ones_like(denom)))
+    bound = WIRE_ERROR_BOUND
+    ok = torch.tensor([1.0 if err <= bound else 0.0], device=wire_plan.mesh.device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    if ok.item() < 1.0:
+        warnings.warn(
+            f"wire_dtype={wire_plan.wire_dtype!r} failed the precision guard: relative "
+            f"matvec error {err:.3e} exceeds the bound {bound:.1e} "
+            f"(REPRO_WIRE_ERROR_BOUND) on some rank — falling back to fp32 wires",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        return ref_plan
+    return wire_plan
+
+
+def _check_mesh(mesh, cfg: PlanConfig) -> None:
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a repro_torch.dist.compat.Mesh (make_mesh), got {type(mesh).__name__}"
+        )
+    for name in (cfg.axis_name, cfg.batch_axis):
+        if name is not None and name not in mesh.axis_names:
+            raise ValueError(f"axis {name!r} not in mesh axes {mesh.axis_names}")
+
+
+def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail="plain",
+         fused=True, batch_axis=None, axis_name=MODEL_AXIS, wire_dtype="fp32",
+         prox=None) -> ExecutionPlan:
+    """Lower ``op`` to an execution plan (see module docstring).
+
+    With ``mesh=None`` the identity lowering; with a :class:`Mesh`, ``op``
+    must be a (partial) circulant, whose stored half spectrum is laid out
+    into this rank's four-step spectrum columns.
+    """
+    cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
+                     batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
+                     prox=prox).validate(distributed=mesh is not None)
+    if mesh is None:
+        return ExecutionPlan(op=op, config=cfg)
+    _check_mesh(mesh, cfg)
+    if hasattr(op, "circ"):  # PartialCirculant: mask = indicator of omega
+        circ, omega = op.circ, op.omega
+    elif hasattr(op, "spec") and hasattr(op, "col"):  # full Circulant
+        circ, omega = op, None
+    else:
+        raise TypeError(
+            f"distributed plans need a (partial) circulant operator, got {type(op).__name__}"
+        )
+    if circ.spec.device != mesh.device:
+        raise ValueError(f"the operator lies on {circ.spec.device}, this rank's mesh on "
+                         f"{mesh.device}")
+    n, p = circ.n, mesh.size(cfg.axis_name)
+    n1, n2 = _factorize(n, cfg.n1, cfg.n2, p, cfg.rfft)
+    mask = torch.ones((n,), dtype=circ.col.dtype, device=mesh.device)
+    if omega is not None:
+        mask = torch.zeros_like(mask).index_fill_(0, omega, 1.0)
+    # the operator's stored half spectrum, re-laid out: no transform runs, so
+    # a composed spectrum (deblur's spec(C)·spec(B)) never visits the time domain
+    spec2d = spectral.spectrum_layout_2d(circ.spec, n1, n2, rfft=cfg.rfft, p=p)
+    built = ExecutionPlan(
+        op=op, config=dataclasses.replace(cfg, n1=n1, n2=n2), mesh=mesh,
+        spec2d=col_block(spec2d, mesh, cfg.axis_name),
+        mask2d=row_block(layout_2d(mask, n1, n2), mesh, cfg.axis_name),
+        norm_bound=op.operator_norm_bound(),
+    )
+    return _wire_guard(built)
+
+
+def plan_from_parts(mesh, spec2d, mask2d, *, n1=None, n2=None, rfft=False, overlap=1,
+                    tail="plain", fused=True, batch_axis=None, axis_name=MODEL_AXIS,
+                    wire_dtype="fp32", prox=None) -> ExecutionPlan:
+    """A distributed plan from this rank's blocks instead of an operator:
+    ``spec2d`` its spectrum columns (in the ``rfft`` layout), ``mask2d`` its
+    rows of the 0/1 measurement mask (``repro_torch.interop.
+    plan_parts_from_numpy`` cuts them from global arrays).  With no operator
+    to read ``n`` from, ``n1 x n2`` must be given.  No precision guard:
+    :func:`plan` is the guarded route.
+    """
+    cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
+                     batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
+                     prox=prox).validate(distributed=True)
+    if cfg.n1 is None or cfg.n2 is None:
+        raise ValueError(
+            "plan_from_parts has no operator to infer n from: pass a "
+            "concrete n1 x n2 factorization"
+        )
+    _check_mesh(mesh, cfg)
+    norm = spec2d.abs().max().reshape(1)
+    dist.all_reduce(norm, op=dist.ReduceOp.MAX, group=mesh.group(cfg.axis_name))
+    return ExecutionPlan(config=cfg, mesh=mesh, spec2d=spec2d, mask2d=mask2d,
+                         norm_bound=norm[0])

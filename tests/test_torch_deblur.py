@@ -118,5 +118,5 @@ def test_port_builders_make_a_recoverable_problem():
         build_deblur_problem(g, images)
     with pytest.raises(ValueError, match="frame stack"):
         build_multiframe_deblur_problem(g, images[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="Mesh"):
         build_deblur_plan(p, mesh=object())

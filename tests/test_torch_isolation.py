@@ -33,7 +33,8 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = (
         "import sys; import repro_torch, repro_torch.core, repro_torch.core.deblur, "
         "repro_torch.interop, repro_torch.kernels.build, repro_torch.launch.recover, "
-        "repro_torch.kernels.soft_threshold.kernel; "
+        "repro_torch.kernels.soft_threshold.kernel, repro_torch.dist, repro_torch.dist.fft, "
+        "repro_torch.dist.recovery, repro_torch.kernels.wire_pack.kernel; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'triton')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -93,13 +93,6 @@ def test_method_error_lists_valid_methods(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "1"], "Queue 1 item 9"),
-    (["--mesh", "2x4", "--rfft"], "Queue 1 item 9"),
-    (["--n1", "16"], "Queue 1 item 9"),
-    (["--rfft"], "Queue 1 item 9"),
-    (["--overlap", "2"], "Queue 1 item 9"),
-    (["--wire-dtype", "bf16"], "Queue 1 item 9"),
-    (["--fake-devices", "4"], "Queue 1 item 9"),
     (["--tune"], "Queue 1 item 10"),
     (["--tune", "measure"], "Queue 1 item 10"),
     (["--prior", "tv"], "Queue 1 item 6"),
@@ -108,6 +101,22 @@ def test_method_error_lists_valid_methods(capsys):
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
     with pytest.raises(SystemExit, match=item):
+        recover.main(["--n", "256", "--iters", "10", "--device", "cpu",
+                      "--ckpt-dir", str(tmp_path / "ck"), *flags])
+    assert not (tmp_path / "ck").exists()
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--rfft"], ValueError, "distributed-backend knobs"),
+    (["--overlap", "2"], ValueError, "distributed-backend knobs"),
+    (["--wire-dtype", "bf16"], ValueError, "no wire to compress"),
+    (["--fake-devices", "4"], SystemExit, "--mesh"),
+    (["--mesh", "2x2x2", "--fake-devices", "8"], ValueError, "'M' or 'DxM'"),
+])
+def test_mesh_flags_without_a_mesh_raise(flags, error, match, tmp_path):
+    """The distributed knobs need a mesh (the plan layer's single validation
+    site, as in the reference); none of these starts a rank."""
+    with pytest.raises(error, match=match):
         recover.main(["--n", "256", "--iters", "10", "--device", "cpu",
                       "--ckpt-dir", str(tmp_path / "ck"), *flags])
     assert not (tmp_path / "ck").exists()

@@ -234,7 +234,7 @@ def test_plan_layer_validates_and_routes():
         plan(port.op, tail="pallas")
     with pytest.raises(ValueError, match="prox must be"):
         plan(port.op, prox=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="Mesh"):
         plan(port.op, mesh=object())
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         make_stepper(port, "admm")
