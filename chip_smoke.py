@@ -10,7 +10,8 @@ no result line):
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version, the
-   library yardstick where one exists, against the kernel's bound;
+   library yardstick where one exists, against the kernel's bound (flash
+   attention also at the reference tests' shapes, a ragged S and D = 256);
 3. Path A — paper Sec. 7 at the paper's frame size: 4 starfield frames of
    1024x1024 (n = 2^20), order-5 moving-average blur, romberg sensing,
    m = n/2, 600 CPADMM iterations, once on the kernels (tail='kernel') and
@@ -38,7 +39,21 @@ no result line):
    two 512x512 frames in tolerance mode, and a 2x2-mesh deblur run of four
    512x512 frames on four ranks sharing the card with bf16 wires, run twice
    to resume;
-9. one JSON line with every kernel's launches, error and times, then the
+9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
+   128, vocab 256000; float32 parameters, bf16 compute) initialised on the
+   card from a seed, prefilling 4 prompts of 2048 tokens through
+   ``make_prefill_step``: the flash attention kernel in every layer (32
+   launches); device and host ms, tokens/s, peak memory, the attention's
+   share of a profiled prefill;
+10. Path E2 — the same prompts cut to 512 tokens through
+   ``make_decode_step`` one token at a time (the reference's cache
+   attention, no kernel), the last steps profiled, held against a prefill
+   of the same prompts (5e-2 norm-relative);
+11. Path E4 — ``greedy_generate``: 4 prompts of 32 tokens, 32 new tokens;
+12. Path E3 — minitron-4b's width cut to 2 layers in float32, initialised
+   once on the CPU: a prefill on the CPU (plain attention) against the same
+   prefill on the card (the kernel), 1e-4 norm-relative;
+13. one JSON line with every kernel's launches, error and times, then the
    device line ``{"ok": true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
@@ -67,6 +82,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 # Tolerances, norm-relative (max |kernel - plain| / max |plain|):
 #  * elementwise kernels: fp32, same operations, but the compiler may fuse a
@@ -79,6 +95,26 @@ TOL_ELEMENTWISE = 1e-6
 TOL_MATVEC = 5e-5
 TOL_BLUR = 1e-5
 TOL_PATHS = 1e-4  # kernel-step vs plain-step solves, relative in x-hat
+#  * flash attention, held against the plain version computed in float32
+#    (in bf16 too: q, k and v upcast exactly, the plain version's last
+#    rounding left out), over the whole output and row by row (each query
+#    row's error over its own largest |value|: a late row averages ~n keys
+#    and is ~30x smaller than row 0, so a global ratio alone would let a
+#    wrong late row through).  float32: scores, softmax and P.V summed in
+#    another order, ~2^-24 * sqrt(n) of sum(p |v|), which is ~6x a long
+#    row's largest value: 2e-5 over the output, 1e-4 row by row.  bf16: the
+#    kernel's output rounded to nearest moves each value by at most 2^-8 of
+#    itself, so 2^-8 of its row's largest, plus the float32 row bound.
+TOL_FLASH = {"float32": 2e-5, "bfloat16": 2**-8 + 1e-4}
+TOL_FLASH_ROW = {"float32": 1e-4, "bfloat16": 2**-8 + 1e-4}
+# Path E2: the prefill (kernel) against token-by-token decode (the cache
+# attention, no kernel) through 32 layers in bf16; the decode side also
+# rounds q * scale to bf16 before the upcast (the reference's
+# _attend_chunked), the kernel does not.
+TOL_PREFILL_DECODE = 5e-2
+# Path E3: float32 on the card (kernel, cuBLAS with TF32 off) against float32
+# on the CPU (plain attention), 2 layers at full width.
+TOL_CARD_CPU = 1e-4
 PAPER_TARGET_MSE = 1e-4
 # a bf16-wire solve against its fp32 twin: the plan layer's own guard bound
 # (repro_torch.ops.plan.WIRE_ERROR_BOUND), as the reference's
@@ -138,31 +174,47 @@ def rel_err(got, want) -> tuple[float, float]:
     return diff, diff / max(want.abs().max().item(), 1e-30)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+def row_rel_err(got, want) -> float:
+    """The largest per-query-row norm-relative error of attention outputs
+    (B, S, H, D): each row's max |got - want| over its own max |want|."""
+    diff = (got.float() - want.float()).abs().flatten(2).amax(-1)
+    scale = want.float().abs().flatten(2).amax(-1).clamp_min(1e-30)
+    return (diff / scale).max().item()
+
+
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_shape(name, label, kern, plain, tol, nbytes, flops, library=None, plain_iters=20):
-    """One kernel at one shape: error against its plain version, and times."""
+def check_shape(name, label, kern, plain, tol, nbytes, flops, library=None, plain_iters=20,
+                flops_per_s=FP32_FLOPS_PER_S, want=None, row_tol=None):
+    """One kernel at one shape: error against its plain version, and times.
+
+    ``want`` computes what the kernel is held against where that is not
+    ``plain``'s result; ``row_tol`` also holds an attention output row by row
+    (:func:`row_rel_err`)."""
     import torch
 
-    got, want = kern(), plain()
+    got, want = kern(), (want or plain)()
     if isinstance(want, torch.Tensor):
         got, want = (got,), (want,)
     err = max((rel_err(g, w) for g, w in zip(got, want)), key=lambda e: e[1])
-    r = dict(shape=label, err=err, tol=tol, ms=timed(kern),
+    row_err = None if row_tol is None else row_rel_err(got[0], want[0])
+    r = dict(shape=label, err=err, tol=tol, row_err=row_err, row_tol=row_tol, ms=timed(kern),
              plain_ms=timed(plain, iters=plain_iters),
              library_ms=None if library is None else timed(library),
-             bound=bound(nbytes, flops))
+             bound=bound(nbytes, flops, flops_per_s))
     lib = "none" if r["library_ms"] is None else f"{r['library_ms'][0]:.4f}"
+    rows = "" if row_tol is None else f", row by row {row_err:.3e} (tol {row_tol:.1e})"
     print(f"{name} [{label}]: max abs err {err[0]:.3e}, norm-rel {err[1]:.3e} "
-          f"(tol {tol:.0e}); device ms: kernel {r['ms'][0]:.4f}, plain "
+          f"(tol {tol:.1e}){rows}; device ms: kernel {r['ms'][0]:.4f}, plain "
           f"{r['plain_ms'][0]:.4f}, library {lib}, bound {r['bound'][0]:.4f} "
           f"({r['bound'][1]}); host ms per call: kernel {r['ms'][1]:.4f}, plain "
           f"{r['plain_ms'][1]:.4f}")
-    if not err[1] <= tol:
-        fail(f"{name} [{label}] disagrees with its plain version: {err}")
+    if not err[1] <= tol or (row_tol is not None and not row_err <= row_tol):
+        fail(f"{name} [{label}] disagrees with its plain version: {err}, row by row {row_err}")
     return r
 
 
@@ -288,6 +340,7 @@ def check_kernels(dev, gen) -> dict:
             if not err[1] <= TOL_BLUR:
                 fail(f"banded_conv disagrees with moving_average_blur at n={n}: {err}")
     check_wire(dev, gen, results)
+    check_flash(dev, gen, results)
     return results
 
 
@@ -362,22 +415,56 @@ def check_wire(dev, gen, results) -> None:
                 results[name].append(r)
 
 
-def flash_attention_bound() -> None:
-    """The least time for the one unported TPU kernel, causal flash attention,
-    at the shapes of tests/test_flash_attention.py: BH = 4, S = 768, D = 64,
-    float32.  No run: the kernel waits for the LM substrate."""
-    bh, s_len, d = 4, 768, 64
-    nbytes = 4 * bh * s_len * d * 4  # q, k, v read once, o written once
-    flops = 2 * 2 * bh * s_len * s_len * d / 2  # QK^T and PV, half the tiles causal
-    t, by = bound(nbytes, flops)
-    print(f"flash_attention (not ported) bound at BH={bh} S={s_len} D={d} causal fp32: "
-          f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP -> {t:.4f} ms ({by})")
+def check_flash(dev, gen, results) -> None:
+    """flash_attention against its plain version: Path E1's prefill shape
+    first (minitron-4b: bf16, B = 4, S = 2048, H = 24 over KH = 8, D = 128,
+    causal) and the same shape in float32, then tests/test_flash_attention.py's
+    float32 shapes, its GQA mappings, a ragged causal S = 1000 and D = 256
+    (gemma-7b's head).  Each is held against the plain version in float32
+    (TOL_FLASH, TOL_FLASH_ROW) and timed against the plain version in its
+    own dtype.  The library yardstick is scaled_dot_product_attention on
+    (B, H, S, D) views with enable_gqa (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    # (label, dtype, B, S, H, KH, D, causal)
+    cases = [("path E1: minitron-4b prefill", torch.bfloat16, 4, 2048, 24, 8, 128, True),
+             ("path E1's shape", torch.float32, 4, 2048, 24, 8, 128, True)]
+    cases += [("tests' shape", torch.float32, 2, s, 2, 2, 64, c)
+              for s in (256, 512, 768) for c in (True, False)]
+    cases += [("GQA", torch.float32, 2, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
+    cases += [("ragged", torch.float32, 2, 1000, 4, 2, 64, True),
+              ("D=256", torch.float32, 2, 512, 4, 2, 256, True),
+              ("D=256", torch.bfloat16, 2, 512, 4, 2, 256, True)]
+    for label, dt, b, s, h, kh, d, causal in cases:
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
+        flops = 4 * b * h * s * s * d / (2 if causal else 1)  # Q.K^T and P.V
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        name = str(dt).removeprefix("torch.")
+        results["flash_attention"].append(check_shape(
+            "flash_attention",
+            f"{label}: {name} B={b} S={s} H={h} KH={kh} D={d} causal={causal}",
+            lambda a=(q, k, v, causal): flash_attention(*a[:3], causal=a[3]),
+            lambda a=(q, k, v, causal): flash_attention_ref(*a[:3], causal=a[3]),
+            TOL_FLASH[name], nbytes, flops,
+            want=lambda a=(q, k, v, causal): flash_attention_ref(
+                *(t.float() for t in a[:3]), causal=a[3]),
+            row_tol=TOL_FLASH_ROW[name],
+            library=lambda a=(q, k, v, causal): F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in a[:3]), is_causal=a[3], enable_gqa=True),
+            plain_iters=5 if s >= 2048 else 20,
+            flops_per_s=BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S,
+        ))
 
 
 def _wrappers() -> dict:
     from repro_torch.kernels.banded_conv.ops import blur_apply
     from repro_torch.kernels.circulant_matvec.ops import circulant_matvec_direct
     from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
     from repro_torch.kernels.spectral_pointwise.ops import spectral_update
     from repro_torch.kernels.wire_pack.ops import pack_wire, unpack_wire
@@ -391,6 +478,7 @@ def _wrappers() -> dict:
         "banded_conv": blur_apply,
         "pack_wire": pack_wire,
         "unpack_wire": unpack_wire,
+        "flash_attention": flash_attention,
     }
 
 
@@ -575,40 +663,52 @@ def path_c(dev, gen, n=16384, batch=8, iters=400) -> dict:
 
 
 def profile_steps(prob, plan, label, steps=5, **kw) -> None:
-    """``torch.profiler`` over a few steady solver steps: the device's busy
-    share of the window, device time by kernel name and the host ops that
-    cost most, per step."""
+    """:func:`profile_window` over a few steady CPADMM solver steps."""
+    from repro_torch.core.solvers import make_stepper
+
+    stepper = make_stepper(prob, "cpadmm", plan=plan, **kw)
+    state = [stepper.init()]
+
+    def one():
+        state[0] = stepper.step(state[0])
+
+    for _ in range(3):
+        one()
+    profile_window(one, label, steps)
+
+
+def profile_window(fn, label, steps=5) -> dict:
+    """``torch.profiler`` over ``steps`` calls of ``fn``: prints the device's
+    busy share of the window, device time by kernel name and the host ops
+    that cost most, per call; returns {"wall_ms", "busy_ms", "kernels":
+    {name: device ms}} per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.solvers import make_stepper
-
-    stepper = make_stepper(prob, "cpadmm", plan=plan, **kw)
-    state = stepper.init()
-    for _ in range(3):
-        state = stepper.step(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state = stepper.step(state)
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
     # device time from the kernel and copy records alone (an operator's record
     # repeats the time of the kernels it launched)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile {label}: {steps} steps in {wall_ms / steps:.4f} ms/step (host clock), device "
-          f"busy {busy / steps:.4f} ms/step ({100 * busy / wall_ms:.1f}% of the window)")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    print(f"profile {label}: {steps} calls, {wall_ms:.4f} ms each (host clock), device busy "
+          f"{busy:.4f} ms ({100 * busy / wall_ms:.1f}% of the window)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
-        print(f"  device {e.self_device_time_total / 1e3 / steps:.4f} ms/step  "
+        print(f"  device {e.self_device_time_total / 1e3 / steps:.4f} ms  "
               f"x{e.count / steps:g}  {e.key[:90]}")
     host = [e for e in events if e.device_type != DeviceType.CUDA]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-        print(f"  host {e.self_cpu_time_total / 1e3 / steps:.4f} ms/step  x{e.count / steps:g}  "
+        print(f"  host {e.self_cpu_time_total / 1e3 / steps:.4f} ms  x{e.count / steps:g}  "
               f"{e.key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy,
+                kernels={e.key: e.self_device_time_total / 1e3 / steps for e in kernels})
 
 
 def path_d1(dev, seed, x_a, size=1024, frames=4, iters=600) -> dict:
@@ -716,6 +816,220 @@ def path_d2(dev, seed, size=1024, frames=4, iters=200) -> dict:
     return out
 
 
+def timed_calls(fn, iters: int) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn``, for calls too long to queue
+    behind :func:`timed`'s device spin (a prefill issues ~1000 launches, more
+    than the launch queue holds): CUDA events around ``iters`` calls, and
+    the host clock to a synchronize.  The device stays busy while the host
+    issues (each layer's attention runs for milliseconds), so the events
+    time the device."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, (time.perf_counter() - t0) * 1e3 / iters
+
+
+def minitron(n_layers=None, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs.registry import full_config
+
+    cfg = full_config("minitron-4b")
+    cut = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v is not None}
+    return dataclasses.replace(cfg, **cut) if cut else cfg
+
+
+def path_e1(dev, seed, batch=4, seq=2048) -> dict:
+    """minitron-4b FULL (32 layers, d_model 3072, 24 query heads over 8 KV
+    heads, head_dim 128, vocab 256000; bf16 compute over float32 parameters,
+    as the reference) prefilling 4 prompts of 2048 tokens: the kernel in
+    every layer's attention."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.config import count_params
+    from repro_torch.models.lm import init_params, tree_leaves
+    from repro_torch.models.steps import make_prefill_step
+
+    cfg = minitron()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    counted = count_params(cfg)["total"] + (2 * cfg.n_layers + 1) * cfg.d_model  # + norm scales
+    if n_params != counted:
+        fail(f"Path E1: {n_params} parameters; count_params and the norms say {counted}")
+    tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device=dev)
+    prefill = make_prefill_step(cfg)
+    batch_in = {"tokens": tokens}
+    prefill(params, batch_in)  # the one cast of the weights to bf16, and warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    logits = prefill(params, batch_in)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, host_ms = timed_calls(lambda: prefill(params, batch_in), iters=3)
+    prof = profile_window(lambda: prefill(params, batch_in), "Path E1 prefill", steps=1)
+    attn_ms = sum(ms for name, ms in prof["kernels"].items() if "flash_fwd_kernel" in name)
+    busy_ms = prof["busy_ms"]
+    tok_s = batch * seq / (host_ms / 1e3)
+    print(f"Path E1: minitron-4b FULL, {n_params / 1e9:.3f} B parameters (float32 "
+          f"{4 * n_params / 1e9:.2f} GB, bf16 copy {2 * n_params / 1e9:.2f} GB), init + cast + "
+          f"warm-up {setup_s:.2f} s; prefill B={batch} S={seq}: device {dev_ms:.2f} ms, host "
+          f"clock {host_ms:.2f} ms, {tok_s:.0f} tokens/s, peak memory {peak_gib:.2f} GiB; "
+          f"profiled prefill: flash_attention {attn_ms:.2f} of {busy_ms:.2f} device ms "
+          f"({100 * attn_ms / busy_ms:.1f}%); launches {counts}")
+    if logits.shape != (batch, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
+        fail(f"Path E1 logits have shape {tuple(logits.shape)} or non-finite values")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=cfg.n_layers)
+    if counts != want:
+        fail(f"Path E1 launch counts {counts}; expected {want} (one per layer)")
+    return dict(cfg=cfg, params=params, tokens=tokens, prefill=prefill, counts=counts,
+                dev_ms=dev_ms, host_ms=host_ms, tok_s=tok_s, peak_gib=peak_gib,
+                attn_ms=attn_ms, busy_ms=busy_ms)
+
+
+PROFILED_STEPS = 5  # Path E2's last decode steps, run under torch.profiler
+
+
+def path_e2(e1, seq=512) -> dict:
+    """The same prompts cut to 512 tokens through make_decode_step one token
+    at a time (the reference's cache attention, no kernel), against a
+    prefill (the kernel) of the same prompts."""
+    import torch
+
+    from repro_torch.models.lm import init_decode_state
+    from repro_torch.models.steps import make_decode_step
+
+    cfg, params = e1["cfg"], e1["params"]
+    tokens = e1["tokens"][:, :seq].contiguous()
+    batch = tokens.shape[0]
+    decode = make_decode_step(cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_decode_state(cfg, batch, seq, device=tokens.device)
+    for i in range(seq - PROFILED_STEPS):
+        logits, state = decode(params, tokens[:, i:i + 1], state)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    last = [seq - PROFILED_STEPS, None, state]
+
+    def one():  # the next decode step
+        i = last[0]
+        last[1], last[2] = decode(params, tokens[:, i:i + 1], last[2])
+        last[0] = i + 1
+
+    prof = profile_window(one, f"Path E2 decode steps {seq - PROFILED_STEPS}-{seq - 1}",
+                          steps=PROFILED_STEPS)
+    logits = last[1]
+    decode_counts = read_counts()
+    want_logits = e1["prefill"](params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    err = rel_err(logits.float(), want_logits.float())
+    agree = (logits.argmax(-1) == want_logits.argmax(-1)).tolist()
+    n_timed = seq - PROFILED_STEPS
+    print(f"Path E2: {batch} prompts of {seq} tokens decoded one token at a time: the first "
+          f"{n_timed} steps in {decode_s:.2f} s ({1e3 * decode_s / n_timed:.2f} ms per step, host "
+          f"clock, the one cast of the weights included), the last {PROFILED_STEPS} "
+          f"{prof['wall_ms']:.2f} ms per step with the device busy {prof['busy_ms']:.2f} ms; "
+          f"last logits vs a prefill of the same prompts: max abs err "
+          f"{err[0]:.3e}, norm-rel {err[1]:.3e} (tol {TOL_PREFILL_DECODE:.0e}); next-token "
+          f"argmax agrees on {sum(agree)}/{batch} prompts {agree}; launches {counts} "
+          f"(decode alone {decode_counts})")
+    if not bool(torch.isfinite(logits).all()):
+        fail("Path E2: non-finite decode logits")
+    if not err[1] <= TOL_PREFILL_DECODE:
+        fail(f"Path E2: decode and prefill disagree: {err}")
+    want = dict.fromkeys(counts, 0)
+    if decode_counts != want:
+        fail(f"Path E2: the decode path launched kernels {decode_counts}")
+    want.update(flash_attention=cfg.n_layers)
+    if counts != want:
+        fail(f"Path E2 launch counts {counts}; expected {want}")
+    return dict(counts=counts, err=err, agree=agree, ms_step=1e3 * decode_s / n_timed,
+                busy_ms=prof["busy_ms"])
+
+
+def path_e4(e1, prompt_len=32, steps=32, max_len=64) -> dict:
+    """greedy_generate on the full model: 4 prompts of 32 tokens, 32 new tokens."""
+    import torch
+
+    from repro_torch.models.steps import greedy_generate
+
+    cfg, params = e1["cfg"], e1["params"]
+    prompt = e1["tokens"][:, :prompt_len].contiguous()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, steps, max_len)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    print(f"Path E4: greedy_generate, prompts {tuple(prompt.shape)}, {steps} new tokens, "
+          f"max_len {max_len}: tokens {tuple(out.shape)} in {total_ms:.1f} ms (host clock, the "
+          f"one cast included): {total_ms / steps:.2f} ms per generated token, "
+          f"{total_ms / (prompt_len + steps - 1):.2f} ms per decode step; first row "
+          f"{out[0, :8].tolist()}...; launches {counts}")
+    if out.shape != (prompt.shape[0], steps) or not (0 <= int(out.min()) and
+                                                     int(out.max()) < cfg.vocab):
+        fail(f"Path E4: tokens of shape {tuple(out.shape)} outside [0, {cfg.vocab})")
+    if any(counts.values()):
+        fail(f"Path E4: the decode path launched kernels {counts}")
+    return dict(counts=counts, ms_token=total_ms / steps)
+
+
+def path_e3(dev, seed, batch=2, seq=256) -> dict:
+    """minitron-4b at full width cut to 2 layers, float32, initialised once
+    on the CPU: a prefill on the CPU (plain attention) against the same
+    prefill on the card (the kernel)."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import init_params, tree_map
+    from repro_torch.models.steps import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
+    cfg = minitron(n_layers=2, dtype="float32")
+    gen = torch.Generator().manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device="cpu")
+    tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device="cpu")
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = make_prefill_step(cfg)(params, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    params_dev = tree_map(lambda a: a.to(dev), params)
+    zero_counts()
+    got = make_prefill_step(cfg)(params_dev, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    err = rel_err(got.float().cpu(), want.float())
+    print(f"Path E3: minitron-4b width, 2 layers, float32, B={batch} S={seq}: CPU init "
+          f"{init_s:.2f} s, CPU prefill {cpu_s:.2f} s; card vs CPU last logits max abs err "
+          f"{err[0]:.3e}, norm-rel {err[1]:.3e} (tol {TOL_CARD_CPU:.0e}); launches {counts}")
+    if not bool(torch.isfinite(got).all()) or not err[1] <= TOL_CARD_CPU:
+        fail(f"Path E3: the card's prefill disagrees with the CPU's: {err}")
+    want_counts = dict.fromkeys(counts, 0)
+    want_counts.update(flash_attention=cfg.n_layers)
+    if counts != want_counts:
+        fail(f"Path E3 launch counts {counts}; expected {want_counts}")
+    return dict(counts=counts, err=err)
+
+
 def run_cli(args: list) -> str:
     """``python -m repro_torch.launch.recover *args`` in this process; its
     standard output, echoed."""
@@ -806,6 +1120,8 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/wire_pack/kernel.py:45"),
     "unpack_wire": ("triton", "src/repro_torch/kernels/wire_pack/kernel.py",
                     "src/repro/kernels/wire_pack/kernel.py:73"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:72"),
 }
 # the PyTorch call timed as each kernel's library_ms (never used by the port)
 LIBRARY_CALLS = {
@@ -817,6 +1133,8 @@ LIBRARY_CALLS = {
     "banded_conv": "F.conv1d on a circular right pad (a correlation, like the kernel)",
     "pack_wire": "view_as_real(z).movedim(-1, 0).to(wire dtype, contiguous, copy=True)",
     "unpack_wire": "view_as_complex(w.movedim(0, -1).to(float32, contiguous, copy=True))",
+    "flash_attention": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
+                       "(B, H, S, D) views",
 }
 
 
@@ -848,17 +1166,23 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = check_kernels(dev, gen)
-    flash_attention_bound()
     a = path_a(dev, 1)
     b = path_b(dev, torch.Generator().manual_seed(2))
     c = path_c(dev, torch.Generator().manual_seed(3))
     d1 = path_d1(dev, 1, a["kernel"]["x"])
     d2 = path_d2(dev, 1)
     cli = cli_phase()
+    e1 = path_e1(dev, 4)
+    e2 = path_e2(e1)
+    e4 = path_e4(e1)
+    del e1["params"], e1["prefill"]
+    torch.cuda.empty_cache()
+    e3 = path_e3(dev, 5)
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     by_path = {"A": a["kernel"]["counts"], "B": b["kernel"]["counts"],
                "C": c["kernel"]["counts"], "D1": d1_counts, "D2": d2["counts"],
-               "CLI": cli["counts"]}
+               "CLI": cli["counts"], "E1": e1["counts"], "E2": e2["counts"],
+               "E3": e3["counts"], "E4": e4["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
@@ -876,6 +1200,7 @@ def main() -> int:
             "launches_by_path": launches,
             "shapes": [{
                 "shape": r["shape"], "max_abs_err": r["err"][0], "max_rel_err": r["err"][1],
+                **({} if r.get("row_err") is None else {"max_row_rel_err": r["row_err"]}),
                 "ms": r["ms"][0], "plain_ms": r["plain_ms"][0], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1],
                 "library_ms": None if r["library_ms"] is None else r["library_ms"][0],

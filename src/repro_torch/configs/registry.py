@@ -1,0 +1,69 @@
+"""--arch registry: full (assigned) configs and reduced smoke configs.
+
+Port of ``repro/configs/registry.py`` for the architectures whose layers the
+port has: the four dense decoder-only transformers.  The other six ids of
+the reference's registry need MoE, MLA, SSM, xLSTM, encoder-decoder or VLM
+layers and raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from ..models.config import ModelConfig
+
+ARCH_IDS: List[str] = [
+    "codeqwen15_7b",
+    "granite_34b",
+    "minitron_4b",
+    "gemma_7b",
+    "deepseek_v3_671b",
+    "moonshot_v1_16b_a3b",
+    "zamba2_1p2b",
+    "pixtral_12b",
+    "xlstm_350m",
+    "whisper_large_v3",
+]
+
+# the architectures the port runs: dense decoder-only transformers
+PORTED_ARCH_IDS: List[str] = ["codeqwen15_7b", "granite_34b", "minitron_4b", "gemma_7b"]
+
+# external ids (assignment spelling) -> module names
+ALIASES: Dict[str, str] = {
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "granite-34b": "granite_34b",
+    "minitron-4b": "minitron_4b",
+    "gemma-7b": "gemma_7b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "pixtral-12b": "pixtral_12b",
+    "xlstm-350m": "xlstm_350m",
+    "whisper-large-v3": "whisper_large_v3",
+}
+
+
+def _module(arch: str):
+    name = ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
+    if name not in PORTED_ARCH_IDS:
+        if name in ARCH_IDS:
+            raise NotImplementedError(
+                f"{arch}: its MoE / MLA / SSM / xLSTM / encoder-decoder / VLM layers are not "
+                "ported yet (ROADMAP.md Queue 1 item 11); the port runs "
+                f"{', '.join(PORTED_ARCH_IDS)}"
+            )
+        raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
+    return importlib.import_module(f"{__package__}.{name}")
+
+
+def full_config(arch: str) -> ModelConfig:
+    return _module(arch).FULL.validate()
+
+
+def smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE.validate()
+
+
+def all_arch_ids() -> List[str]:
+    return list(ARCH_IDS)

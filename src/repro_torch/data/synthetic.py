@@ -1,6 +1,7 @@
-"""Deterministic synthetic data: k-sparse signals and starfield images.
+"""Deterministic synthetic data: k-sparse signals, starfield images, tokens.
 
-Port of the recovery half of ``repro/data/synthetic.py``.  Each function
+Port of the recovery half of ``repro/data/synthetic.py`` and its LM token
+stream.  Each function
 takes a ``torch.Generator`` in place of the reference's ``jax.random`` key
 and draws on the generator's device, then places the result on
 ``device=`` (``None`` = the CUDA default).  The two packages give different
@@ -67,3 +68,22 @@ def starfield(
     # Kill sub-perceptual blob tails so the image stays genuinely sparse
     # (the paper's premise: most night-sky pixels are black).
     return torch.where(img < 0.02, torch.zeros_like(img), img)
+
+
+# ---------------------------------------------------------------------------
+# LM substrate: token streams
+# ---------------------------------------------------------------------------
+
+
+def token_batch(gen: torch.Generator, batch: int, seq_len: int, vocab: int,
+                device=None) -> torch.Tensor:
+    """(batch, seq_len + 1) int64 tokens in [0, vocab), as the reference's
+    ``token_batch``: a mixture of a low-id head (ids below max(2, vocab //
+    64), drawn with probability 0.8) and a uniform tail, so the marginal is
+    Zipf-ish.  Drawn from ``gen`` on its device, then placed on ``device``."""
+    device = resolve_device(device)
+    shape = (batch, seq_len + 1)
+    head = torch.randint(0, max(2, vocab // 64), shape, generator=gen, device=gen.device)
+    tail = torch.randint(0, vocab, shape, generator=gen, device=gen.device)
+    pick_head = torch.rand(shape, generator=gen, device=gen.device) < 0.8
+    return torch.where(pick_head, head, tail).to(device)

@@ -64,3 +64,27 @@ def dist_cpadmm_state_from_numpy(x, v, z, mu, nu, plan, device=None):
     distributed ``plan``: its rows, and its signals when the plan splits
     the batch."""
     return plan.local_state(DistCpadmmState(*(_tensor(a, device) for a in (x, v, z, mu, nu))))
+
+
+def lm_params_from_numpy(tree, cfg, device=None) -> dict:
+    """The reference's LM parameter tree (``np.asarray`` of each leaf of
+    ``repro.models.lm.init_params``) -> the port's parameters: the same
+    nested dict, ``embed`` / ``final_norm`` / ``segments[i]`` with each
+    segment's leaves stacked along the layer axis, every weight in the
+    reference's (d_in, d_out) orientation and dtype.  Dense decoder-only
+    trees only (``cfg``'s layer kinds must all be 'dense')."""
+    extra = sorted(set(tree) - {"embed", "final_norm", "segments"})
+    if extra or any(kind != "dense" for kind in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense decoder-only parameter trees are carried across "
+            f"(ROADMAP.md Queue 1 item 11); this one has {extra or set(cfg.layer_kinds())}"
+        )
+
+    def carry(node):
+        if isinstance(node, dict):
+            return {k: carry(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [carry(v) for v in node]
+        return _tensor(node, device)
+
+    return carry({k: tree[k] for k in ("embed", "final_norm", "segments")})

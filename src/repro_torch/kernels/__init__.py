@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the CPADMM, CPISTA and mesh paths.
+"""Hand-written Hopper kernels for the CPADMM, CPISTA, mesh and LM prefill paths.
 
 Each subpackage mirrors ``repro/kernels/<name>``: ``ref.py`` holds the
 plain PyTorch version, ``ops.py`` the public wrapper with its integer
@@ -13,6 +13,7 @@ the kernel or raises — it never falls back.
     soft_threshold       Triton   <- repro/kernels/soft_threshold
     banded_conv          CUDA C++ <- repro/kernels/banded_conv
     wire_pack            Triton   <- repro/kernels/wire_pack
+    flash_attention      CUDA C++ <- repro/kernels/flash_attention
 """
 
 

@@ -1,0 +1,145 @@
+"""The port's flash attention against the reference's kernel and chunked attention.
+
+The reference's Pallas kernel runs in interpret mode on the CPU, as
+``tests/test_flash_attention.py`` runs it, at that file's shapes; the port's
+wrapper, given CPU tensors, runs its plain version and leaves its launch
+counter at 0.  atol 3e-4, the reference test's own.  The CUDA kernel runs
+only on a card: the ``gpu`` test at the end holds it against the plain
+version there and skips here.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models.attention import _attend_chunked
+
+ATOL = 3e-4
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's kernel wrapper and chunked attention.  Loaded here
+    rather than at the top so the ``gpu`` test also runs on a card machine
+    that has no JAX."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention.ops import flash_attention as ref_flash
+    from repro.models.attention import _attend_chunked as ref_chunked
+
+    return types.SimpleNamespace(jnp=jnp, flash=ref_flash, chunked=ref_chunked)
+
+
+def qkv(seed, b, s, h, kh, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+
+
+def port(q, k, v, causal=True):
+    launches = flash_attention.launches
+    out = flash_attention(*(torch.as_tensor(a) for a in (q, k, v)), causal=causal)
+    assert flash_attention.launches == launches  # the plain version on the CPU
+    return out.numpy()
+
+
+# (b, s, h, kh, d, causal): tests/test_flash_attention.py's shapes
+SHAPES = ([(2, s, 2, 2, 64, c) for s in (256, 512, 768) for c in (True, False)]
+          + [(2, 512, h, kh, 32, True) for h, kh in ((4, 4), (4, 2), (8, 1))]
+          + [(1, 1024, 2, 2, 32, True)])  # the causal tile-skip case
+IDS = [f"b{b}-s{s}-h{h}-kh{kh}-d{d}-{'causal' if c else 'full'}" for b, s, h, kh, d, c in SHAPES]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_matches_reference_kernel(ref, shape):
+    b, s, h, kh, d, causal = shape
+    q, k, v = qkv(s + h, b, s, h, kh, d)
+    want = ref.flash(*(ref.jnp.asarray(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(port(q, k, v, causal), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 1000, 4, 2, 64, True)],
+                         ids=IDS + ["b2-s1000-h4-kh2-d64-causal-ragged"])
+def test_matches_reference_chunked_attention(ref, shape):
+    """The model's own attention, which the kernel replaces in the prefill;
+    S = 1000 is ragged against every tile (the reference's kernel asserts
+    S % 256 == 0 there, so it is held against the chunked attention only)."""
+    b, s, h, kh, d, causal = shape
+    q, k, v = qkv(s + 2 * h, b, s, h, kh, d)
+    want = ref.chunked(*(ref.jnp.asarray(a) for a in (q, k, v)), causal=causal, chunk=128)
+    np.testing.assert_allclose(port(q, k, v, causal), np.asarray(want), atol=ATOL)
+    mine = _attend_chunked(*(torch.as_tensor(a) for a in (q, k, v)), causal=causal, chunk=128)
+    np.testing.assert_allclose(port(q, k, v, causal), mine.numpy(), atol=ATOL)
+
+
+def test_causal_needs_equal_lengths():
+    """Causal Sq != Sk has no one meaning in the reference: its Pallas kernel
+    masks top-left (q_pos >= kv_pos) and its oracle bottom-right
+    (tril(k=Sk-Sq)); at q (2, 256, 64), k/v (2, 512, 64), blk 128, on
+    standard normals, they differ by up to 2.6-2.9 (2.90 from the draws of
+    ``jax.random.split(PRNGKey(0), 3)``).  The port raises rather than pick
+    one."""
+    q = torch.zeros(1, 256, 2, 64)
+    kv = torch.zeros(1, 512, 2, 64)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention(q, kv, kv, causal=True)
+    assert flash_attention(q, kv, kv, causal=False).shape == q.shape  # cross-attention
+
+
+def test_rejects_mismatched_heads():
+    with pytest.raises(ValueError, match="H % KH"):
+        flash_attention(torch.zeros(1, 8, 6, 32), torch.zeros(1, 8, 4, 32),
+                        torch.zeros(1, 8, 4, 32))
+
+
+def test_bf16_output_keeps_dtype():
+    q, k, v = (torch.as_tensor(a).bfloat16() for a in qkv(5, 1, 64, 4, 2, 32))
+    out = flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               flash_attention_ref(q.float(), k.float(), v.float()).numpy(),
+                               atol=1e-2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash attention kernel runs only on the card")
+    return torch.device("cuda")
+
+
+# against the plain version in float32, over the whole output and row by
+# row (each query row's error over its own largest |value|); see
+# chip_smoke.py's TOL_FLASH for the reasoning
+TOL_CARD = {torch.float32: 2e-5, torch.bfloat16: 2**-8 + 1e-4}
+TOL_CARD_ROW = {torch.float32: 1e-4, torch.bfloat16: 2**-8 + 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d,causal", [(2, 512, 4, 2, 64, True), (2, 1000, 8, 1, 32, True),
+                                               (1, 300, 4, 4, 128, False),
+                                               (1, 256, 2, 1, 256, True)])
+def test_kernel_matches_plain_version_on_card(cuda_device, dtype, b, s, h, kh, d, causal):
+    """Norm-relative, against the plain version in float32: 2e-5 over the
+    output and 1e-4 row by row in float32 (sums in another order); in bf16
+    2^-8 + 1e-4 both ways (the output's rounding to nearest as well)."""
+    g = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device=cuda_device).to(dtype)
+               for n in (h, kh, kh))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1 and got.dtype == dtype
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    diff = (got.float() - want).abs().flatten(2).amax(-1)  # (B, S)
+    scale = want.abs().flatten(2).amax(-1)
+    assert float(diff.max() / scale.max()) <= TOL_CARD[dtype]
+    assert float((diff / scale).max()) <= TOL_CARD_ROW[dtype]
+    with pytest.raises(ValueError, match="contiguous"):  # a strided view: no copy, a raise
+        flash_attention(q.transpose(1, 2), k, v, causal=False)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        flash_attention(q.half(), k.half(), v.half(), causal=causal)

@@ -34,7 +34,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import sys; import repro_torch, repro_torch.core, repro_torch.core.deblur, "
         "repro_torch.interop, repro_torch.kernels.build, repro_torch.launch.recover, "
         "repro_torch.kernels.soft_threshold.kernel, repro_torch.dist, repro_torch.dist.fft, "
-        "repro_torch.dist.recovery, repro_torch.kernels.wire_pack.kernel; "
+        "repro_torch.dist.recovery, repro_torch.kernels.wire_pack.kernel, "
+        "repro_torch.configs.registry, repro_torch.configs.minitron_4b, repro_torch.models.lm, "
+        "repro_torch.models.steps, repro_torch.kernels.flash_attention.ops; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'triton')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
