@@ -11,19 +11,27 @@ no result line):
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version, the
    library yardstick where one exists, against the kernel's bound (flash
-   attention also at the reference tests' shapes, a ragged S and D = 256);
+   attention: the bf16 tensor-core kernel and the float32 SIMT kernel, also
+   at the reference tests' shapes, a ragged S and D = 256); sweep the direct
+   matvec against the FFT path, n = 1024 ... 32768 at B = 8 and 1, beside
+   the dispatch's FFT_CROSSOVER;
 3. Path A — paper Sec. 7 at the paper's frame size: 4 starfield frames of
    1024x1024 (n = 2^20), order-5 moving-average blur, romberg sensing,
    m = n/2, 600 CPADMM iterations, once on the kernels (tail='kernel') and
    once on the plain step (tail='plain');
-4. Path B — paper Sec. 6 below the direct-matvec crossover: n = 16384,
-   8 signals, m = n/2, k = n/10, 400 CPADMM iterations, once on the kernels
-   and once on the plain step; every signal must reach MSE <= 1e-4 and the
-   two x-hats must agree;
+4. Path B — paper Sec. 6 at the quickstart's size: n = 16384, 8 signals,
+   m = n/2, k = n/10, 400 CPADMM iterations, once on the kernels and once on
+   the plain step; every signal must reach MSE <= 1e-4 and the two x-hats
+   must agree; n = 16384 is above FFT_CROSSOVER (2^13), so C x takes the
+   FFT branch and the direct kernel is not launched; then the same problem
+   at n = 4096, the largest swept n below the crossover, where the kernel
+   step launches the direct kernel once a step (Path B4096);
 5. Path C — CPISTA (paper Alg. 1 with Algs. 7-8) in the same Sec. 6 regime:
-   n = 16384, 8 signals, 400 ISTA iterations on the kernels (both direct
-   matvecs and the fused soft threshold) and on the plain step; the two
-   x-hats must agree and every signal's LASSO objective must fall;
+   n = 16384, 8 signals, 400 ISTA iterations on the kernels (the two
+   products on Path B's branch, the fused soft threshold) and on the plain
+   step; the two x-hats must agree and every signal's LASSO objective must
+   fall; then again at n = 4096 (Path C4096: the direct kernel twice a
+   step);
 6. Path D1 — Path A's problem on a mesh of one rank (NCCL, world size 1):
    ``build_deblur_plan(p, make_mesh((1,), ("model",)), rfft=True,
    tail="kernel")``, 600 fused iterations with fp32 and with bf16 wires,
@@ -42,9 +50,9 @@ no result line):
 9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
    128, vocab 256000; float32 parameters, bf16 compute) initialised on the
    card from a seed, prefilling 4 prompts of 2048 tokens through
-   ``make_prefill_step``: the flash attention kernel in every layer (32
-   launches); device and host ms, tokens/s, peak memory, the attention's
-   share of a profiled prefill;
+   ``make_prefill_step``: the bf16 tensor-core flash attention kernel in
+   every layer (32 launches); device and host ms, tokens/s, peak memory,
+   the attention's share of a profiled prefill;
 10. Path E2 — the same prompts cut to 512 tokens through
    ``make_decode_step`` one token at a time (the reference's cache
    attention, no kernel), the last steps profiled, held against a prefill
@@ -52,7 +60,7 @@ no result line):
 11. Path E4 — ``greedy_generate``: 4 prompts of 32 tokens, 32 new tokens;
 12. Path E3 — minitron-4b's width cut to 2 layers in float32, initialised
    once on the CPU: a prefill on the CPU (plain attention) against the same
-   prefill on the card (the kernel), 1e-4 norm-relative;
+   prefill on the card (the float32 SIMT kernel), 1e-4 norm-relative;
 13. one JSON line with every kernel's launches, error and times, then the
    device line ``{"ok": true, "device": {...}}`` last.
 
@@ -87,8 +95,9 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # Tolerances, norm-relative (max |kernel - plain| / max |plain|):
 #  * elementwise kernels: fp32, same operations, but the compiler may fuse a
 #    multiply-add into one rounding -> a few ulps (2^-24 ~ 6e-8 each).
-#  * direct matvec: a sum of n = 16384 fp32 products in another order than
-#    cuBLAS's; rounding grows like sqrt(n) * 2^-24 ~ 8e-6 typically.
+#  * direct matvec: bf16 hi + lo operands (16 bits each), three tensor-core
+#    products a term (the lo * lo term, ~2^-18, dropped), fp32 sums: ~5e-6
+#    on random data, against the dense fp32 plain version.
 #  * banded blur: a sum of L <= 17 products, fused multiply-adds against the
 #    plain version's separate roundings, and the FFT route's O(log n) ulps.
 TOL_ELEMENTWISE = 1e-6
@@ -274,26 +283,31 @@ def check_kernels(dev, gen) -> dict:
             TOL_ELEMENTWISE, 4 * L + 4 * pty.numel() + 32 * B * L, B * L * 12,
         ))
 
-    # circulant_matvec at Path B's shape, n = 16384, B = 8 (Path A's n = 2^20
-    # takes the FFT branch); forward is the main path's, transpose checked too
-    n, B = 16384, 8
-    col, xs = rnd(n), rnd(B, n)
-    for transpose in (False, True):
-        results["circulant_matvec"].append(check_shape(
-            "circulant_matvec", f"path B: n={n} B={B} transpose={transpose}",
-            lambda t=transpose: circulant_matvec_direct(col, xs, transpose=t),
-            lambda t=transpose: circulant_matvec_ref(col, xs, transpose=t),
-            TOL_MATVEC, 4 * n + 8 * B * n, 2 * B * n * n,
-            library=lambda t=transpose: circulant_matvec_fft(col, xs, transpose=t),
-            plain_iters=5,
-        ))
-    # where the direct kernel and the FFT path cross on this card (the
-    # dispatch's FFT_CROSSOVER = 2^15 was chosen for the TPU)
-    for n_s in (1024, 2048, 4096, 8192):
-        col_s, xs_s = rnd(n_s), rnd(B, n_s)
-        print(f"crossover n={n_s} B={B}: device ms direct "
-              f"{timed(lambda: circulant_matvec_direct(col_s, xs_s))[0]:.4f}, fft path "
-              f"{timed(lambda: circulant_matvec_fft(col_s, xs_s))[0]:.4f}")
+    # circulant_matvec: first, both ways, the shape that reaches it on a
+    # path, Paths B4096 and C4096 (n below FFT_CROSSOVER, B = 8); then Paths
+    # B and C's own n = 16384 (the FFT branch there, Path A's 2^20 too) at
+    # B = 8 and one padded 8-signal slice (B = 1, 3).  Bound: the design's
+    # three bf16 products a term on the tensor cores, the fastest rate that
+    # meets TOL_MATVEC; the fp32 CUDA-core bound is printed beside it
+    below = below_crossover()
+    for n, B, label in ((below, 8, f"paths B{below}, C{below}"),
+                        (16384, 8, "paths B, C's n (FFT branch there)"),
+                        (16384, 1, "padded slice"), (16384, 3, "padded slice")):
+        col, xs = rnd(n), rnd(B, n)
+        for transpose in (False, True):
+            shape = f"{label}: n={n} B={B} transpose={transpose}"
+            results["circulant_matvec"].append(check_shape(
+                "circulant_matvec", shape,
+                lambda a=(col, xs, transpose): circulant_matvec_direct(a[0], a[1], transpose=a[2]),
+                lambda a=(col, xs, transpose): circulant_matvec_ref(a[0], a[1], transpose=a[2]),
+                TOL_MATVEC, 4 * n + 8 * B * n, 3 * 2 * B * n * n,
+                library=lambda a=(col, xs, transpose): circulant_matvec_fft(
+                    a[0], a[1], transpose=a[2]),
+                plain_iters=5, flops_per_s=BF16_FLOPS_PER_S,
+            ))
+            print(f"circulant_matvec [{shape}]: beside the bound, 2Bn^2 in fp32 on the "
+                  f"CUDA cores: {bound(4 * n + 8 * B * n, 2 * B * n * n)[0]:.4f} ms")
+    crossover_sweep(rnd)
 
     # the soft-threshold kernels: Path C's shape (n = 16384, B = 8), the
     # CLI's default (n = 65536, B = 4) and a ragged length; the threshold is
@@ -342,6 +356,41 @@ def check_kernels(dev, gen) -> dict:
     check_wire(dev, gen, results)
     check_flash(dev, gen, results)
     return results
+
+
+CROSSOVER_SWEEP = (1024, 2048, 4096, 8192, 16384, 32768)
+
+
+def below_crossover() -> int:
+    """The largest swept n below FFT_CROSSOVER: Paths B and C are driven a
+    second time at this n, where their products take the direct kernel."""
+    from repro_torch.kernels.circulant_matvec.ops import FFT_CROSSOVER
+
+    return max(n for n in CROSSOVER_SWEEP if n < FFT_CROSSOVER)
+
+
+def crossover_sweep(rnd) -> None:
+    """The direct kernel against the FFT path, both directions, at B = 8
+    (Paths B and C) and B = 1, n = 1024 ... 32768; prints where the FFT
+    path first wins, beside the dispatch's FFT_CROSSOVER."""
+    from repro_torch.kernels.circulant_matvec.ops import FFT_CROSSOVER, circulant_matvec_direct
+    from repro_torch.kernels.circulant_matvec.ref import circulant_matvec_fft
+
+    for B in (8, 1):
+        first_fft = {}
+        for n in CROSSOVER_SWEEP:
+            col, xs = rnd(n), rnd(B, n)
+            row = []
+            for transpose in (False, True):
+                direct = timed(lambda: circulant_matvec_direct(col, xs, transpose=transpose))[0]
+                fft = timed(lambda: circulant_matvec_fft(col, xs, transpose=transpose))[0]
+                row.append(f"{'C^T' if transpose else 'C'} direct {direct:.4f} fft {fft:.4f}")
+                if fft < direct:
+                    first_fft.setdefault(transpose, n)
+            print(f"crossover sweep B={B} n={n}: device ms " + "; ".join(row))
+        print(f"crossover sweep B={B}: the FFT path first wins at n = "
+              f"{first_fft.get(False)} (C), {first_fft.get(True)} (C^T); "
+              f"FFT_CROSSOVER = {FFT_CROSSOVER}")
 
 
 def _special_values(z):
@@ -416,55 +465,73 @@ def check_wire(dev, gen, results) -> None:
 
 
 def check_flash(dev, gen, results) -> None:
-    """flash_attention against its plain version: Path E1's prefill shape
-    first (minitron-4b: bf16, B = 4, S = 2048, H = 24 over KH = 8, D = 128,
-    causal) and the same shape in float32, then tests/test_flash_attention.py's
-    float32 shapes, its GQA mappings, a ragged causal S = 1000 and D = 256
-    (gemma-7b's head).  Each is held against the plain version in float32
-    (TOL_FLASH, TOL_FLASH_ROW) and timed against the plain version in its
-    own dtype.  The library yardstick is scaled_dot_product_attention on
-    (B, H, S, D) views with enable_gqa (never called by the port)."""
+    """flash_attention against its plain version, through the public wrapper,
+    which routes bf16 at D in SM90_HEAD_DIMS to the tensor-core kernel and
+    the rest to the SIMT kernel; the routed kernel's counter must move.
+
+    The tensor-core kernel: Path E1's prefill shape first (minitron-4b: bf16,
+    B = 4, S = 2048, H = 24 over KH = 8, D = 128, causal), then D = 64, a
+    ragged GQA (8, 1) S = 1000, a full (non-causal) S = 300 and D = 256
+    (gemma-7b's head).  The SIMT kernel: E1's shape in float32 first, then
+    tests/test_flash_attention.py's float32 shapes, its GQA mappings, a
+    ragged causal S = 1000 and D = 256.  Each is held against the plain
+    version in float32 (TOL_FLASH, TOL_FLASH_ROW) and timed against the plain
+    version in its own dtype.  The library yardstick is
+    scaled_dot_product_attention on (B, H, S, D) views with enable_gqa (never
+    called by the port); its own error against the same float32 plain
+    version is printed beside the kernel's, a finding and no gate."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     # (label, dtype, B, S, H, KH, D, causal)
     cases = [("path E1: minitron-4b prefill", torch.bfloat16, 4, 2048, 24, 8, 128, True),
+             ("D=64", torch.bfloat16, 2, 512, 4, 2, 64, True),
+             ("ragged GQA", torch.bfloat16, 2, 1000, 8, 1, 128, True),
+             ("full", torch.bfloat16, 1, 300, 4, 4, 128, False),
+             ("D=256", torch.bfloat16, 2, 512, 4, 2, 256, True),
              ("path E1's shape", torch.float32, 4, 2048, 24, 8, 128, True)]
     cases += [("tests' shape", torch.float32, 2, s, 2, 2, 64, c)
               for s in (256, 512, 768) for c in (True, False)]
     cases += [("GQA", torch.float32, 2, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
     cases += [("ragged", torch.float32, 2, 1000, 4, 2, 64, True),
-              ("D=256", torch.float32, 2, 512, 4, 2, 256, True),
-              ("D=256", torch.bfloat16, 2, 512, 4, 2, 256, True)]
+              ("D=256", torch.float32, 2, 512, 4, 2, 256, True)]
     for label, dt, b, s, h, kh, d, causal in cases:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
         flops = 4 * b * h * s * s * d / (2 if causal else 1)  # Q.K^T and P.V
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         name = str(dt).removeprefix("torch.")
-        results["flash_attention"].append(check_shape(
-            "flash_attention",
-            f"{label}: {name} B={b} S={s} H={h} KH={kh} D={d} causal={causal}",
-            lambda a=(q, k, v, causal): flash_attention(*a[:3], causal=a[3]),
+        kernel = f"flash_attention_{ops.kernel_for(dt, d)}"
+        wrapper = getattr(ops, kernel)
+        before = wrapper.launches
+        want = lambda a=(q, k, v, causal): flash_attention_ref(
+            *(t.float() for t in a[:3]), causal=a[3])
+        library = lambda a=(q, k, v, causal): F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in a[:3]), is_causal=a[3], enable_gqa=True)
+        label = f"{label}: {name} B={b} S={s} H={h} KH={kh} D={d} causal={causal}"
+        results[kernel].append(check_shape(
+            kernel, label,
+            lambda a=(q, k, v, causal): ops.flash_attention(*a[:3], causal=a[3]),
             lambda a=(q, k, v, causal): flash_attention_ref(*a[:3], causal=a[3]),
-            TOL_FLASH[name], nbytes, flops,
-            want=lambda a=(q, k, v, causal): flash_attention_ref(
-                *(t.float() for t in a[:3]), causal=a[3]),
-            row_tol=TOL_FLASH_ROW[name],
-            library=lambda a=(q, k, v, causal): F.scaled_dot_product_attention(
-                *(t.transpose(1, 2) for t in a[:3]), is_causal=a[3], enable_gqa=True),
-            plain_iters=5 if s >= 2048 else 20,
+            TOL_FLASH[name], nbytes, flops, want=want, row_tol=TOL_FLASH_ROW[name],
+            library=library, plain_iters=5 if s >= 2048 else 20,
             flops_per_s=BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S,
         ))
+        if wrapper.launches == before:
+            fail(f"{kernel} [{label}]: the wrapper routed the call elsewhere")
+        lib_out, ref_out = library().transpose(1, 2), want()
+        print(f"  library [{label}] vs the float32 plain version: norm-rel "
+              f"{rel_err(lib_out.float(), ref_out)[1]:.3e}, row by row "
+              f"{row_rel_err(lib_out, ref_out):.3e} (a finding, not a gate)")
 
 
 def _wrappers() -> dict:
     from repro_torch.kernels.banded_conv.ops import blur_apply
     from repro_torch.kernels.circulant_matvec.ops import circulant_matvec_direct
     from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_simt, flash_attention_sm90
     from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
     from repro_torch.kernels.spectral_pointwise.ops import spectral_update
     from repro_torch.kernels.wire_pack.ops import pack_wire, unpack_wire
@@ -478,7 +545,8 @@ def _wrappers() -> dict:
         "banded_conv": blur_apply,
         "pack_wire": pack_wire,
         "unpack_wire": unpack_wire,
-        "flash_attention": flash_attention,
+        "flash_attention_sm90": flash_attention_sm90,
+        "flash_attention_simt": flash_attention_simt,
     }
 
 
@@ -575,8 +643,19 @@ def path_a(dev, seed, size=1024, frames=4, iters=600) -> dict:
     return out
 
 
-def path_b(dev, gen, n=16384, batch=8, iters=400) -> dict:
-    """Paper Sec. 6 recovery below the direct-matvec crossover."""
+def direct_matvecs(n: int, per_iter: int, iters: int) -> int:
+    """Direct-kernel launches of ``iters`` kernel steps with ``per_iter``
+    products C x / C^T r each: all of them below FFT_CROSSOVER, none at or
+    above it (the FFT branch)."""
+    from repro_torch.kernels.circulant_matvec.ops import FFT_CROSSOVER
+
+    return per_iter * iters if n < FFT_CROSSOVER else 0
+
+
+def path_b(dev, gen, n=16384, batch=8, iters=400, name="B") -> dict:
+    """Paper Sec. 6 recovery at the quickstart's size, n = 16384: at or above
+    FFT_CROSSOVER (2^13 on the H100) its C x takes the FFT branch, below it
+    (Path B4096) the direct kernel."""
     import torch
 
     from repro_torch.core.circulant import partial_gaussian_circulant
@@ -595,30 +674,34 @@ def path_b(dev, gen, n=16384, batch=8, iters=400) -> dict:
         x, trace, ms_iter = timed_solve(prob, plan(op, tail=tail), iters, iters, **kw)
         counts = read_counts()
         mse = trace.mse[-1].tolist()
-        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse)
         dev_ms, host_ms = step_times(prob, plan(op, tail=tail), **kw)
-        print(f"Path B tail={tail}: n={n} B={batch} m={m} k={k}, {iters} iters, "
+        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse, dev_ms=dev_ms)
+        print(f"Path {name} tail={tail}: n={n} B={batch} m={m} k={k}, {iters} iters, "
               f"{ms_iter:.4f} ms/iter (solve, host clock), per step device {dev_ms:.4f} ms / "
               f"host issue {host_ms:.4f} ms, launches {counts}, MSE per signal {mse}")
         if x.shape != (batch, n) or not bool(torch.isfinite(x).all()):
-            fail(f"Path B ({tail}) result has shape {tuple(x.shape)} or non-finite values")
+            fail(f"Path {name} ({tail}) result has shape {tuple(x.shape)} or non-finite values")
         if not all(v <= PAPER_TARGET_MSE for v in mse):
-            fail(f"Path B ({tail}): a signal misses MSE <= {PAPER_TARGET_MSE}: {mse}")
+            fail(f"Path {name} ({tail}): a signal misses MSE <= {PAPER_TARGET_MSE}: {mse}")
     xk, xp = out["kernel"]["x"], out["plain"]["x"]
     diff = ((xk - xp).norm() / xp.norm()).item()
-    print(f"Path B: kernel vs plain x-hat norm-rel diff {diff:.3e} (tol {TOL_PATHS:.0e})")
+    print(f"Path {name}: kernel vs plain x-hat norm-rel diff {diff:.3e} (tol {TOL_PATHS:.0e}); "
+          f"kernel step / plain step device ms "
+          f"{out['kernel']['dev_ms'] / out['plain']['dev_ms']:.3f}")
     if not diff <= TOL_PATHS:
-        fail(f"Path B kernel and plain solves disagree: {diff}")
+        fail(f"Path {name} kernel and plain solves disagree: {diff}")
     want = dict.fromkeys(out["kernel"]["counts"], 0)
-    want.update(spectral_pointwise=iters, cpadmm_tail=iters, circulant_matvec=iters)
+    want.update(spectral_pointwise=iters, cpadmm_tail=iters,
+                circulant_matvec=direct_matvecs(n, 1, iters))
     if out["kernel"]["counts"] != want or any(out["plain"]["counts"].values()):
-        fail(f"Path B launch counts {out['kernel']['counts']} (kernel) / "
+        fail(f"Path {name} launch counts {out['kernel']['counts']} (kernel) / "
              f"{out['plain']['counts']} (plain); expected {want} / none")
     return out
 
 
-def path_c(dev, gen, n=16384, batch=8, iters=400) -> dict:
-    """CPISTA (paper Alg. 1, Algs. 7-8) in the Sec. 6 regime, on both tails."""
+def path_c(dev, gen, n=16384, batch=8, iters=400, name="C") -> dict:
+    """CPISTA (paper Alg. 1, Algs. 7-8) in the Sec. 6 regime, on both tails;
+    its two products a step take the branch Path B's does."""
     import torch
 
     from repro_torch.core.circulant import partial_gaussian_circulant
@@ -639,25 +722,27 @@ def path_c(dev, gen, n=16384, batch=8, iters=400) -> dict:
         x, trace, ms_iter = timed_solve(prob, plan(op, tail=tail), iters, iters, **kw)
         counts = read_counts()
         obj, mse = trace.objective[-1].tolist(), trace.mse[-1].tolist()
-        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse)
         dev_ms, host_ms = step_times(prob, plan(op, tail=tail), **kw)
-        print(f"Path C tail={tail}: CPISTA n={n} B={batch} m={m} k={k}, {iters} iters, "
+        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse, dev_ms=dev_ms)
+        print(f"Path {name} tail={tail}: CPISTA n={n} B={batch} m={m} k={k}, {iters} iters, "
               f"{ms_iter:.4f} ms/iter (solve, host clock), per step device {dev_ms:.4f} ms / "
               f"host issue {host_ms:.4f} ms, launches {counts}, MSE per signal {mse}, "
               f"LASSO objective per signal {obj} (at x = 0: {obj0})")
         if x.shape != (batch, n) or not bool(torch.isfinite(x).all()):
-            fail(f"Path C ({tail}) result has shape {tuple(x.shape)} or non-finite values")
+            fail(f"Path {name} ({tail}) result has shape {tuple(x.shape)} or non-finite values")
         if not all(o < o0 for o, o0 in zip(obj, obj0)):
-            fail(f"Path C ({tail}): a signal's LASSO objective did not fall: {obj} vs {obj0}")
+            fail(f"Path {name} ({tail}): a signal's LASSO objective did not fall: {obj} vs {obj0}")
     xk, xp = out["kernel"]["x"], out["plain"]["x"]
     diff = ((xk - xp).norm() / xp.norm()).item()
-    print(f"Path C: kernel vs plain x-hat norm-rel diff {diff:.3e} (tol {TOL_PATHS:.0e})")
+    print(f"Path {name}: kernel vs plain x-hat norm-rel diff {diff:.3e} (tol {TOL_PATHS:.0e}); "
+          f"kernel step / plain step device ms "
+          f"{out['kernel']['dev_ms'] / out['plain']['dev_ms']:.3f}")
     if not diff <= TOL_PATHS:
-        fail(f"Path C kernel and plain solves disagree: {diff}")
+        fail(f"Path {name} kernel and plain solves disagree: {diff}")
     want = dict.fromkeys(out["kernel"]["counts"], 0)
-    want.update(circulant_matvec=2 * iters, soft_threshold_ista=iters)
+    want.update(circulant_matvec=direct_matvecs(n, 2, iters), soft_threshold_ista=iters)
     if out["kernel"]["counts"] != want or any(out["plain"]["counts"].values()):
-        fail(f"Path C launch counts {out['kernel']['counts']} (kernel) / "
+        fail(f"Path {name} launch counts {out['kernel']['counts']} (kernel) / "
              f"{out['plain']['counts']} (plain); expected {want} / none")
     return out
 
@@ -881,7 +966,7 @@ def path_e1(dev, seed, batch=4, seq=2048) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     dev_ms, host_ms = timed_calls(lambda: prefill(params, batch_in), iters=3)
     prof = profile_window(lambda: prefill(params, batch_in), "Path E1 prefill", steps=1)
-    attn_ms = sum(ms for name, ms in prof["kernels"].items() if "flash_fwd_kernel" in name)
+    attn_ms = sum(ms for name, ms in prof["kernels"].items() if "flash_fwd" in name)
     busy_ms = prof["busy_ms"]
     tok_s = batch * seq / (host_ms / 1e3)
     print(f"Path E1: minitron-4b FULL, {n_params / 1e9:.3f} B parameters (float32 "
@@ -893,7 +978,7 @@ def path_e1(dev, seed, batch=4, seq=2048) -> dict:
     if logits.shape != (batch, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
         fail(f"Path E1 logits have shape {tuple(logits.shape)} or non-finite values")
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention=cfg.n_layers)
+    want.update(flash_attention_sm90=cfg.n_layers)
     if counts != want:
         fail(f"Path E1 launch counts {counts}; expected {want} (one per layer)")
     return dict(cfg=cfg, params=params, tokens=tokens, prefill=prefill, counts=counts,
@@ -957,7 +1042,7 @@ def path_e2(e1, seq=512) -> dict:
     want = dict.fromkeys(counts, 0)
     if decode_counts != want:
         fail(f"Path E2: the decode path launched kernels {decode_counts}")
-    want.update(flash_attention=cfg.n_layers)
+    want.update(flash_attention_sm90=cfg.n_layers)
     if counts != want:
         fail(f"Path E2 launch counts {counts}; expected {want}")
     return dict(counts=counts, err=err, agree=agree, ms_step=1e3 * decode_s / n_timed,
@@ -1024,7 +1109,7 @@ def path_e3(dev, seed, batch=2, seq=256) -> dict:
     if not bool(torch.isfinite(got).all()) or not err[1] <= TOL_CARD_CPU:
         fail(f"Path E3: the card's prefill disagrees with the CPU's: {err}")
     want_counts = dict.fromkeys(counts, 0)
-    want_counts.update(flash_attention=cfg.n_layers)
+    want_counts.update(flash_attention_simt=cfg.n_layers)
     if counts != want_counts:
         fail(f"Path E3 launch counts {counts}; expected {want_counts}")
     return dict(counts=counts, err=err)
@@ -1120,8 +1205,10 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/wire_pack/kernel.py:45"),
     "unpack_wire": ("triton", "src/repro_torch/kernels/wire_pack/kernel.py",
                     "src/repro/kernels/wire_pack/kernel.py:73"),
-    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:72"),
+    "flash_attention_sm90": ("cuda", "src/repro_torch/csrc/flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:72"),
+    "flash_attention_simt": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:72"),
 }
 # the PyTorch call timed as each kernel's library_ms (never used by the port)
 LIBRARY_CALLS = {
@@ -1133,8 +1220,10 @@ LIBRARY_CALLS = {
     "banded_conv": "F.conv1d on a circular right pad (a correlation, like the kernel)",
     "pack_wire": "view_as_real(z).movedim(-1, 0).to(wire dtype, contiguous, copy=True)",
     "unpack_wire": "view_as_complex(w.movedim(0, -1).to(float32, contiguous, copy=True))",
-    "flash_attention": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
-                       "(B, H, S, D) views",
+    "flash_attention_sm90": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
+                            "(B, H, S, D) views",
+    "flash_attention_simt": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
+                            "(B, H, S, D) views",
 }
 
 
@@ -1167,8 +1256,11 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = check_kernels(dev, gen)
     a = path_a(dev, 1)
+    below = below_crossover()
     b = path_b(dev, torch.Generator().manual_seed(2))
+    b_below = path_b(dev, torch.Generator().manual_seed(2), n=below, name=f"B{below}")
     c = path_c(dev, torch.Generator().manual_seed(3))
+    c_below = path_c(dev, torch.Generator().manual_seed(3), n=below, name=f"C{below}")
     d1 = path_d1(dev, 1, a["kernel"]["x"])
     d2 = path_d2(dev, 1)
     cli = cli_phase()
@@ -1180,13 +1272,14 @@ def main() -> int:
     e3 = path_e3(dev, 5)
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     by_path = {"A": a["kernel"]["counts"], "B": b["kernel"]["counts"],
-               "C": c["kernel"]["counts"], "D1": d1_counts, "D2": d2["counts"],
+               "C": c["kernel"]["counts"], f"B{below}": b_below["kernel"]["counts"],
+               f"C{below}": c_below["kernel"]["counts"], "D1": d1_counts, "D2": d2["counts"],
                "CLI": cli["counts"], "E1": e1["counts"], "E2": e2["counts"],
                "E3": e3["counts"], "E4": e4["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
-        head = checks[name][0]  # the main path's largest shape for this kernel
+        head = checks[name][0]  # the shape a driven path gives this kernel
         launches = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,

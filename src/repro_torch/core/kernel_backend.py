@@ -13,8 +13,8 @@ CPADMM:
   * frequency-domain x-update -> kernels.spectral_pointwise (Triton),
     between two rffts and one irfft (``torch.fft``, cuFFT on the card)
   * C x                       -> kernels.circulant_matvec: the direct CUDA
-                                 kernel below n = 2^15 (n % 128 == 0), the
-                                 FFT path above, as the reference dispatches
+                                 kernel below FFT_CROSSOVER (n % 128 == 0),
+                                 the FFT path from there on
   * whole elementwise tail    -> kernels.cpadmm_tail (Triton)
 
 Both are routed from ``make_stepper`` by ``plan(op, tail="kernel")`` with

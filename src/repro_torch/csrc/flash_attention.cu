@@ -15,19 +15,20 @@
 // takes any S (the ragged last tiles are masked) and keeps only one KV tile
 // on chip at a time, not the whole sequence.
 //
-// Bound on the H100: operations.  4 B H Sq Sk D FLOPs (halved when causal)
-// against (q + k + v + o) bytes read and written once: at the prefill's
-// shape (bf16, B = 4, S = 2048, H = 24, KH = 8, D = 128) 1.03e11 FLOP, which
-// is 0.104 ms at the bf16 tensor-core rate, and 134 MB, 0.040 ms.  This first
-// version runs on the CUDA cores in float32 (67 TFLOP/s, 1.54 ms at that
-// shape), the simple design: one block of 256 threads per (64-row q tile,
-// head, batch); the q tile and one 64-row K and V tile staged in shared
+// The wrapper routes float32 operands here, and bf16 at a head size the
+// tensor-core kernel (flash_attention_sm90.cu, which takes bf16 LM prefills)
+// has no instance for.  Bound on the H100: operations.  4 B H Sq Sk D FLOPs
+// (halved when causal) against (q + k + v + o) bytes read and written once:
+// at the LM prefill's shape in float32 (B = 4, S = 2048, H = 24, KH = 8, D =
+// 128) 1.03e11 FLOP, 1.54 ms at the fp32 CUDA-core rate (67 TFLOP/s): it
+// runs in float32 on the CUDA cores (tensor-core products in fp32 would be
+// TF32, other numbers).  The design: one block of 256 threads per (64-row q
+// tile, head, batch); the q tile and one 64-row K and V tile staged in shared
 // memory as float32; each thread owns 4 rows x 4 score columns of Q.K^T and
 // 4 rows x D/16 columns of the float32 output accumulator in registers; the
 // online softmax's row max and sum are reduced across the 16 threads of a
 // row by warp shuffles, and P goes through shared memory to the P.V product.
-// Its limit is shared-memory issue (about one load per two FMAs).  wgmma
-// from shared memory, TMA staging and a bf16 P.V are the redesign's.
+// Its limit is shared-memory issue (about one load per two FMAs).
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a head size or dtype it does not take.

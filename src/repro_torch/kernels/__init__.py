@@ -13,7 +13,8 @@ the kernel or raises — it never falls back.
     soft_threshold       Triton   <- repro/kernels/soft_threshold
     banded_conv          CUDA C++ <- repro/kernels/banded_conv
     wire_pack            Triton   <- repro/kernels/wire_pack
-    flash_attention      CUDA C++ <- repro/kernels/flash_attention
+    flash_attention      CUDA C++ <- repro/kernels/flash_attention (two kernels:
+                                     bf16 on the tensor cores, float32 SIMT)
 """
 
 

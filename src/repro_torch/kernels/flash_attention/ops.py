@@ -1,8 +1,16 @@
-"""Public wrapper of the flash attention kernel, with its launch count.
+"""Public wrapper of the flash attention kernels, with their launch counts.
 
 ``flash_attention`` is what :func:`repro_torch.models.attention.gqa_forward`
-calls for causal self-attention in the prefill.  The kernel is CUDA C++
-(``repro_torch/csrc/flash_attention.cu``, built by :mod:`..build`).
+calls for causal self-attention in the prefill.  It routes statically by
+(dtype, D), never on failure (:func:`kernel_for`):
+
+* bf16 with D in :data:`SM90_HEAD_DIMS` -> :func:`flash_attention_sm90`,
+  the tensor-core kernel (wgmma, TMA; ``csrc/flash_attention_sm90.cu``);
+* float32, and bf16 at any other D in :data:`HEAD_DIMS` ->
+  :func:`flash_attention_simt`, float32 on the CUDA cores
+  (``csrc/flash_attention.cu``).
+
+Both are CUDA C++, built by :mod:`..build`; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -14,19 +22,27 @@ import torch
 from .. import require_cuda_operands
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (32, 64, 128, 256)  # the kernel's template instances
+HEAD_DIMS = (32, 64, 128, 256)  # the SIMT kernel's template instances
+SM90_HEAD_DIMS = (64, 128, 256)  # the tensor-core kernel's (bf16 only)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# q, k, v, o; B, Sq, Sk, H, KH, D; the SIMT kernel's dtype code; causal, scale, stream
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
-def _library() -> ctypes.CDLL:
+def _entry(stem: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of the library built from ``csrc/<stem>.cu``."""
     from .. import build
 
-    lib = build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p
-    ]
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
+    fn = getattr(build.load(stem), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """``"sm90"`` (the tensor-core kernel) or ``"simt"``: which kernel a CUDA
+    call with operands of ``dtype`` and head size ``d`` launches."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,9 +53,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reads KV head h // (H // KH).  ``causal`` needs Sq == Sk and raises
     otherwise: the reference's Pallas kernel masks such a case top-left and
     its oracle bottom-right, so it has no one meaning.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel, which takes float32 or
-    bf16, D in :data:`HEAD_DIMS`, any S, contiguous operands of one dtype on
-    one device, and raises otherwise.
+    plain version; CUDA tensors launch the kernel :func:`kernel_for` names,
+    which takes float32 or bf16, D in :data:`HEAD_DIMS`, any S, contiguous
+    16-byte aligned operands of one dtype on one device, and raises
+    otherwise.
     """
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B, Sq, H, D) and k, v (B, Sk, KH, D); got "
@@ -66,17 +83,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention kernel reads 16-byte vectors: operands must be "
                          "16-byte aligned")
+    if kernel_for(q.dtype, d) == "sm90":
+        return flash_attention_sm90(q, k, v, causal=causal)
+    return flash_attention_simt(q, k, v, causal=causal)
+
+
+def flash_attention_sm90(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Launch the tensor-core kernel on operands :func:`flash_attention` has
+    checked (bf16, D in :data:`SM90_HEAD_DIMS`)."""
+    b, sq, h, d = q.shape
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, kh, d,
-            _DTYPE_CODES[q.dtype], int(causal), d**-0.5, stream,
+        err = _entry("flash_attention_sm90", "flash_attention_sm90_fwd", _ARGS + _TAIL)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, k.shape[1], h,
+            k.shape[2], d, int(causal), d**-0.5, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    flash_attention.launches += 1
+        raise RuntimeError(f"flash_attention_sm90 kernel launch failed: cudaError {err}")
+    flash_attention_sm90.launches += 1
     return o
 
 
-flash_attention.launches = 0
+def flash_attention_simt(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Launch the float32 SIMT kernel on operands :func:`flash_attention` has
+    checked (float32 or bf16, D in :data:`HEAD_DIMS`)."""
+    b, sq, h, d = q.shape
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("flash_attention", "flash_attention_fwd", _ARGS + [ctypes.c_int] + _TAIL)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, k.shape[1], h,
+            k.shape[2], d, _DTYPE_CODES[q.dtype], int(causal), d**-0.5, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    flash_attention_simt.launches += 1
+    return o
+
+
+flash_attention_sm90.launches = 0
+flash_attention_simt.launches = 0

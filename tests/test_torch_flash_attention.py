@@ -5,15 +5,19 @@ The reference's Pallas kernel runs in interpret mode on the CPU, as
 wrapper, given CPU tensors, runs its plain version and leaves its launch
 counter at 0.  atol 3e-4, the reference test's own.  The CUDA kernel runs
 only on a card: the ``gpu`` test at the end holds it against the plain
-version there and skips here.
+version there and skips here.  On the CPU the bf16 tensor-core kernel's
+arithmetic is emulated instead (``emulate_sm90``) and held to the card's
+tolerance.
 """
 
+import math
 import types
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.attention import _attend_chunked
@@ -39,10 +43,14 @@ def qkv(seed, b, s, h, kh, d):
                  for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
 
 
+def launch_counts():
+    return flash_ops.flash_attention_sm90.launches, flash_ops.flash_attention_simt.launches
+
+
 def port(q, k, v, causal=True):
-    launches = flash_attention.launches
+    launches = launch_counts()
     out = flash_attention(*(torch.as_tensor(a) for a in (q, k, v)), causal=causal)
-    assert flash_attention.launches == launches  # the plain version on the CPU
+    assert launch_counts() == launches  # the plain version on the CPU
     return out.numpy()
 
 
@@ -104,13 +112,6 @@ def test_bf16_output_keeps_dtype():
                                atol=1e-2)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the flash attention kernel runs only on the card")
-    return torch.device("cuda")
-
-
 # against the plain version in float32, over the whole output and row by
 # row (each query row's error over its own largest |value|); see
 # chip_smoke.py's TOL_FLASH for the reasoning
@@ -118,22 +119,104 @@ TOL_CARD = {torch.float32: 2e-5, torch.bfloat16: 2**-8 + 1e-4}
 TOL_CARD_ROW = {torch.float32: 1e-4, torch.bfloat16: 2**-8 + 1e-4}
 
 
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 256, "sm90"),
+    (torch.bfloat16, 32, "simt"),  # no tensor-core instance: the SIMT kernel
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 32, "simt"), (torch.float16, 128, "simt"),
+])
+def test_kernel_routing_by_dtype_and_head_size(dtype, d, kernel):
+    """bf16 at the tensor-core kernel's head sizes goes to it; float32, and
+    any D it has no instance for, to the SIMT kernel (the wrapper raises for
+    other dtypes before it routes)."""
+    assert flash_ops.kernel_for(dtype, d) == kernel
+    assert set(flash_ops.SM90_HEAD_DIMS) <= set(flash_ops.HEAD_DIMS)
+
+
+def emulate_sm90(q, k, v, *, causal=True, block_k=128, split_p=True):
+    """The bf16 tensor-core kernel's arithmetic on the CPU: bf16 q, k, v;
+    scores q.k in float32, scaled by D^-1/2 log2(e) there and fed to exp2;
+    an online softmax over ``block_k``-key tiles with the running max and
+    sum and the P.V accumulator in float32, the sum taken from the float32
+    p; P.V as P_hi V + P_lo V with P_hi = bf16(p), P_lo = bf16(p - P_hi) (or
+    P_hi V alone, ``split_p=False``); o / l rounded to bf16."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    qf, kf, vf = (t.float().repeat_interleave(r, dim=2).transpose(1, 2)
+                  for t, r in ((q, 1), (k, g), (v, g)))  # (B, H, S, D)
+    c = d**-0.5 * math.log2(math.e)
+    m = torch.full((b, h, s, 1), -1e30)
+    l, o = torch.zeros(b, h, s, 1), torch.zeros(b, h, s, d)
+    for k0 in range(0, s, block_k):
+        keys = slice(k0, min(k0 + block_k, s))
+        t = qf @ kf[:, :, keys].transpose(-1, -2) * c
+        if causal:
+            t = t.masked_fill(torch.arange(k0, keys.stop)[None, :] > torch.arange(s)[:, None],
+                              -1e30)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        corr, m = torch.exp2(m - m_new), m_new
+        p = torch.exp2(t - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[:, :, keys]
+        if split_p:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, :, keys]
+        o = o * corr + pv
+    return (o / l).transpose(1, 2).bfloat16()
+
+
+def row_rel_err(got, want):
+    """The largest per-query-row error over that row's largest |value|."""
+    diff = (got.float() - want).abs().flatten(2).amax(-1)
+    return float((diff / want.abs().flatten(2).amax(-1)).max())
+
+
+@pytest.mark.parametrize("split_p,within", [(True, True), (False, False)],
+                         ids=["p-hi-plus-lo", "single-bf16-p"])
+def test_sm90_numerics_emulated_against_float32(split_p, within):
+    """At 2 heads, S = 512, D = 128, causal, from bf16 inputs: with P split
+    into bf16 hi + lo the emulated kernel stays within the card's bf16 limit
+    (2^-8 + 1e-4, row by row) of the float32 plain version (3.79e-3 here, the
+    output's own rounding); with a single bf16 P it does not (4.70e-3)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 2, 128)).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    want = flash_attention_ref(q.float(), k.float(), v.float())
+    err = row_rel_err(emulate_sm90(q, k, v, split_p=split_p), want)
+    assert (err <= TOL_CARD_ROW[torch.bfloat16]) == within, err
+    assert row_rel_err(want.bfloat16(), want) <= TOL_CARD_ROW[torch.bfloat16]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash attention kernel runs only on the card")
+    return torch.device("cuda")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kh,d,causal", [(2, 512, 4, 2, 64, True), (2, 1000, 8, 1, 32, True),
                                                (1, 300, 4, 4, 128, False),
-                                               (1, 256, 2, 1, 256, True)])
+                                               (1, 256, 2, 1, 256, True),
+                                               (2, 1000, 8, 1, 128, True),
+                                               (2, 512, 4, 2, 64, False),
+                                               (1, 1000, 4, 2, 256, False)])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype, b, s, h, kh, d, causal):
     """Norm-relative, against the plain version in float32: 2e-5 over the
     output and 1e-4 row by row in float32 (sums in another order); in bf16
-    2^-8 + 1e-4 both ways (the output's rounding to nearest as well)."""
+    2^-8 + 1e-4 both ways (the output's rounding to nearest as well).  bf16
+    at D = 64, 128 and 256 runs the tensor-core kernel, the rest the SIMT
+    kernel: the counter of the routed kernel alone moves."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(b, s, n, d, generator=g, device=cuda_device).to(dtype)
                for n in (h, kh, kh))
-    launches = flash_attention.launches
+    kernel = flash_ops.kernel_for(dtype, d)
+    launches = launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == launches + 1 and got.dtype == dtype
+    moved = (launches[0] + (kernel == "sm90"), launches[1] + (kernel == "simt"))
+    assert launch_counts() == moved and got.dtype == dtype
     want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
     diff = (got.float() - want).abs().flatten(2).amax(-1)  # (B, S)
     scale = want.abs().flatten(2).amax(-1)

@@ -12,7 +12,8 @@ from repro_torch.core.circulant import gaussian_circulant, moving_average_blur
 from repro_torch.device import default_device
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "matvec_sweep.py"]
 
 
 def _imported_modules(path: Path):

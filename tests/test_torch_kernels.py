@@ -179,16 +179,25 @@ def test_circulant_matvec_matches_reference(n, transpose, counters, ref):
     assert counters() == [0] * 6
 
 
-@pytest.mark.parametrize("n,direct", [(256, True), (1000, False), (1 << 15, False)])
+CROSSOVER = matvec_ops.FFT_CROSSOVER
+
+
+@pytest.mark.parametrize("n,direct", [(256, True), (1000, False), (CROSSOVER - 128, True),
+                                      (CROSSOVER, False), (1 << 15, False)])
 def test_circulant_matvec_dispatch(n, direct, monkeypatch, ref):
-    """Direct below FFT_CROSSOVER with n % 128 == 0, the FFT path otherwise."""
-    assert matvec_ops.FFT_CROSSOVER == ref.FFT_CROSSOVER
+    """Direct below FFT_CROSSOVER with n % 128 == 0, the FFT path otherwise.
+    The port's crossover is its own, chosen on the H100 (2^13; the
+    reference's TPU-era 2^15 sends n = 2^13 and 2^14 down the slower branch
+    there)."""
+    assert CROSSOVER == 1 << 13 and ref.FFT_CROSSOVER == 1 << 15
     calls = []
     direct_fn = matvec_ops.circulant_matvec_direct
 
     def spy(col, x, *, transpose=False):
         calls.append(n)
-        return direct_fn(col, x, transpose=transpose)
+        # on the CPU the direct wrapper is the dense plain version, O(n^2)
+        # memory: past 4096 the FFT path stands in for its value
+        return (direct_fn if n <= 4096 else circulant_matvec_fft)(col, x, transpose=transpose)
 
     monkeypatch.setattr(matvec_ops, "circulant_matvec_direct", spy)
     col = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(np.float32))
@@ -371,6 +380,23 @@ def test_kernels_match_plain_versions_on_card(cuda_device, counters):
         close(matvec_ops.circulant_matvec_direct(col, xs, transpose=transpose),
               circulant_matvec_ref(col, xs, transpose=transpose).cpu(), rel=2e-5)
     assert counters() == [1, 2, 2, 0, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n", [128, 1024, 16384])
+@pytest.mark.parametrize("batch", [1, 3, 8, 16])
+def test_circulant_matvec_matches_plain_version_on_card(batch, n, transpose, cuda_device,
+                                                        counters):
+    """The tensor-core kernel (bf16 hi + lo, three products) against the
+    dense fp32 plain version, 5e-5 norm-relative (chip_smoke.py's
+    TOL_MATVEC): one 8-signal slice padded (B = 1, 3), whole (B = 8) and two
+    slices a block (B = 16)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + batch)
+    col, xs = (torch.randn(*s, generator=g, device=cuda_device) for s in ((n,), (batch, n)))
+    close(matvec_ops.circulant_matvec_direct(col, xs, transpose=transpose),
+          circulant_matvec_ref(col, xs, transpose=transpose).cpu(), rel=5e-5)
+    assert counters() == [0, 0, 1, 0, 0, 0]
 
 
 @pytest.mark.gpu
