@@ -8,13 +8,16 @@ no result line):
 
 0. the card's name and power limit, torch / CUDA / Triton versions;
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
-2. hold every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and time kernel, plain version, the
-   library yardstick where one exists, against the kernel's bound (flash
-   attention: the bf16 tensor-core kernel and the float32 SIMT kernel, also
-   at the reference tests' shapes, a ragged S and D = 256); sweep the direct
-   matvec against the FFT path, n = 1024 ... 32768 at B = 8 and 1, beside
-   the dispatch's FFT_CROSSOVER;
+2. time an empty kernel by each route (Triton, CUDA C++ through ctypes),
+   the floor under every kernel's time; hold every kernel against its
+   plain PyTorch version on the card, at the shapes the main path gives
+   it, and time kernel, plain version, the library yardstick where one
+   exists, against the kernel's bound and floor (flash attention: the bf16
+   tensor-core kernel and the float32 SIMT kernel, also at the reference
+   tests' shapes, a ragged S and D = 256; the soft-threshold pair as CPISTA
+   and dense ADMM call them, and at the grid settings swept beside the
+   committed one); sweep the direct matvec against the FFT path, n = 1024
+   ... 32768 at B = 8 and 1, beside the dispatch's FFT_CROSSOVER;
 3. Path A — paper Sec. 7 at the paper's frame size: 4 starfield frames of
    1024x1024 (n = 2^20), order-5 moving-average blur, romberg sensing,
    m = n/2, 600 CPADMM iterations, once on the kernels (tail='kernel') and
@@ -31,7 +34,14 @@ no result line):
    products on Path B's branch, the fused soft threshold) and on the plain
    step; the two x-hats must agree and every signal's LASSO objective must
    fall; then again at n = 4096 (Path C4096: the direct kernel twice a
-   step);
+   step); each step's device operations are counted by torch.profiler;
+5b. Path F — PADMM (dense ADMM, paper Alg. 2) against CPADMM: the dense
+   setup (A^T A + rho I and its float32 inverse) at n = 4096 ... 32768
+   against CPADMM's FFT setup, with its peak memory and the inverse's
+   residual, then Path B's problem densified at n = 16384, 400 iterations
+   on the plain step and on the kernel step (the soft-threshold ADMM kernel
+   once a step), held together and against MSE <= 1e-4, beside Path B's
+   CPADMM step;
 6. Path D1 — Path A's problem on a mesh of one rank (NCCL, world size 1):
    ``build_deblur_plan(p, make_mesh((1,), ("model",)), rfft=True,
    tail="kernel")``, 600 fused iterations with fp32 and with bf16 wires,
@@ -42,11 +52,13 @@ no result line):
    model) mesh, the same problem at 200 iterations with ``overlap=2``, fp32
    and bf16 wires, held against a local kernel-step solve;
 8. the recovery CLI (``python -m repro_torch.launch.recover``) as a user
-   runs it: a checkpointed CPADMM run at its default n = 65536, B = 4, run
-   a second time to resume from the checkpoint, a Sec. 7 deblur run of
-   two 512x512 frames in tolerance mode, and a 2x2-mesh deblur run of four
-   512x512 frames on four ranks sharing the card with bf16 wires, run twice
-   to resume;
+   runs it, with no flag for the step (on the card the plan resolves to
+   the kernel step): a checkpointed CPADMM run at its default n = 65536,
+   B = 4, run a second time to resume from the checkpoint, a Sec. 7 deblur
+   run of two 512x512 frames in tolerance mode (one spectral_pointwise and
+   one cpadmm_tail launch an iteration, counted), and a 2x2-mesh deblur run
+   of four 512x512 frames on four ranks sharing the card with bf16 wires,
+   run twice to resume;
 9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
    128, vocab 256000; float32 parameters, bf16 compute) initialised on the
    card from a seed, prefilling 4 prompts of 2048 tokens through
@@ -61,15 +73,14 @@ no result line):
 12. Path E3 — minitron-4b's width cut to 2 layers in float32, initialised
    once on the CPU: a prefill on the CPU (plain attention) against the same
    prefill on the card (the float32 SIMT kernel), 1e-4 norm-relative;
-13. one JSON line with every kernel's launches, error and times, then the
-   device line ``{"ok": true, "device": {...}}`` last.
+13. one JSON line with every kernel's launches, error, times, bound and
+   floor, then the device line ``{"ok": true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
 after (inside each rank for Path D2); the comparison launches of phase 2
-do not count.  Two kernels have
-no caller on any path (the reference calls them only from its tests): the
-ADMM soft threshold and the banded blur, held against their plain
-versions in phase 2 only.  Exits non-zero
+do not count.  One kernel has no caller on any path (the reference calls
+it only from its tests): the banded blur, held against its plain version
+in phase 2 only.  Exits non-zero
 when CUDA is unavailable or the port's sources are not beside this file.
 """
 
@@ -104,6 +115,15 @@ TOL_ELEMENTWISE = 1e-6
 TOL_MATVEC = 5e-5
 TOL_BLUR = 1e-5
 TOL_PATHS = 1e-4  # kernel-step vs plain-step solves, relative in x-hat
+#  * Path F's dense inverse B = (A^T A + rho I)^{-1} in float32 (cuSOLVER's
+#    LU): max |(A^T A + rho I) B - I| <= cond * n * 2^-24, cond <= (1 + rho)
+#    / rho ~ 101 for Path B's unit-norm operator (an unnormalised Gaussian,
+#    ||C||^2 ~ n, would push cond to ~1e6 at n = 16384).
+DENSE_RHO = 0.01  # benchmarks/bench_admm_recovery.py's alpha = 1e-4, rho = 0.01
+
+
+def inverse_residual_bound(n: int) -> float:
+    return (1 + DENSE_RHO) / DENSE_RHO * n * 2.0**-24
 #  * flash attention, held against the plain version computed in float32
 #    (in bf16 too: q, k and v upcast exactly, the plain version's last
 #    rounding left out), over the whole output and row by row (each query
@@ -177,6 +197,32 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, host_ms / iters
 
 
+# the empty kernel's back-to-back time by each route (phase 2 measures it
+# first): what one more kernel costs the stream, the floor under any kernel
+FLOORS: dict = {}
+
+
+def launch_floors(dev) -> dict:
+    """Time an empty kernel by each route with :func:`timed` (one program /
+    block, and one for each SM), as every kernel is timed."""
+    import torch
+
+    from repro_torch.kernels.floor import cuda_empty, triton_empty
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for route, empty in (("triton", triton_empty), ("cuda", cuda_empty)):
+        one, per_sm = timed(lambda: empty(dev)), timed(lambda: empty(dev, sms))
+        FLOORS[route] = one[0]
+        print(f"launch floor [{route}]: an empty kernel back to back, device ms {one[0]:.4f} "
+              f"(1 program), {per_sm[0]:.4f} ({sms} programs); host ms per launch "
+              f"{one[1]:.4f}")
+    return dict(FLOORS)
+
+
+def floor_of(name: str) -> float:
+    return FLOORS[KERNEL_SOURCES[name][0]]
+
+
 def rel_err(got, want) -> tuple[float, float]:
     """(max abs error, norm-relative error) of ``got`` against ``want``."""
     diff = (got - want).abs().max().item()
@@ -220,8 +266,8 @@ def check_shape(name, label, kern, plain, tol, nbytes, flops, library=None, plai
     print(f"{name} [{label}]: max abs err {err[0]:.3e}, norm-rel {err[1]:.3e} "
           f"(tol {tol:.1e}){rows}; device ms: kernel {r['ms'][0]:.4f}, plain "
           f"{r['plain_ms'][0]:.4f}, library {lib}, bound {r['bound'][0]:.4f} "
-          f"({r['bound'][1]}); host ms per call: kernel {r['ms'][1]:.4f}, plain "
-          f"{r['plain_ms'][1]:.4f}")
+          f"({r['bound'][1]}), floor {floor_of(name):.4f}; host ms per call: kernel "
+          f"{r['ms'][1]:.4f}, plain {r['plain_ms'][1]:.4f}")
     if not err[1] <= tol or (row_tol is not None and not row_err <= row_tol):
         fail(f"{name} [{label}] disagrees with its plain version: {err}, row by row {row_err}")
     return r
@@ -244,11 +290,6 @@ def check_kernels(dev, gen) -> dict:
     )
     from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
     from repro_torch.kernels.cpadmm_tail.ref import cpadmm_tail_ref
-    from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
-    from repro_torch.kernels.soft_threshold.ref import (
-        admm_threshold_dual_update_ref,
-        ista_threshold_update_ref,
-    )
     from repro_torch.kernels.spectral_pointwise.ops import spectral_update
     from repro_torch.kernels.spectral_pointwise.ref import cpadmm_spectral_update_ref
 
@@ -309,27 +350,7 @@ def check_kernels(dev, gen) -> dict:
                   f"CUDA cores: {bound(4 * n + 8 * B * n, 2 * B * n * n)[0]:.4f} ms")
     crossover_sweep(rnd)
 
-    # the soft-threshold kernels: Path C's shape (n = 16384, B = 8), the
-    # CLI's default (n = 65536, B = 4) and a ragged length; the threshold is
-    # a one-element tensor on the card, as CPISTA passes alpha * tau (a Python
-    # number would add a one-element fill launch to each call)
-    gamma, tau2 = torch.tensor(0.05, device=dev), torch.tensor(1.0, device=dev)
-    for label, n, B in (("path C", 16384, 8), ("CLI default", 65536, 4), ("ragged", 16383, 3)):
-        x, other = rnd(B, n), rnd(B, n)
-        results["soft_threshold_ista"].append(check_shape(
-            "soft_threshold_ista", f"{label}: n={n} B={B}",
-            lambda a=(x, other): fused_ista_update(*a, gamma),
-            lambda a=(x, other): ista_threshold_update_ref(*a, gamma),
-            TOL_ELEMENTWISE, 12 * B * n, 3 * B * n,
-            # no one PyTorch call computes eta(x + delta): an add, then softshrink
-            library=lambda a=(x, other): F.softshrink(a[0] + a[1], 0.05),
-        ))
-        results["soft_threshold_admm"].append(check_shape(
-            "soft_threshold_admm", f"{label}: n={n} B={B}",
-            lambda a=(x, other): fused_admm_update(*a, gamma, tau2),
-            lambda a=(x, other): admm_threshold_dual_update_ref(*a, gamma, tau2),
-            TOL_ELEMENTWISE, 16 * B * n, 6 * B * n,
-        ))
+    check_thresholds(dev, gen, rnd, results)
 
     # the banded blur: the Sec. 7 frame (n = 2^20, B = 4, order-5 moving
     # average), random order-17 taps at n = 16384, B = 8, and a ragged n
@@ -356,6 +377,89 @@ def check_kernels(dev, gen) -> dict:
     check_wire(dev, gen, results)
     check_flash(dev, gen, results)
     return results
+
+
+# the soft-threshold pair's shapes: Path C's (and Path F's) n = 16384, B = 8,
+# the CLI's default n = 65536, B = 4, and a ragged length
+THRESHOLD_SHAPES = (("path C, F", 16384, 8), ("CLI default", 65536, 4), ("ragged", 16383, 3))
+
+
+def check_thresholds(dev, gen, rnd, results) -> None:
+    """The soft-threshold pair against their plain versions, and a sweep of
+    the grid settings (``kernel.SWEEP``) beside the committed ``CONFIG``.
+
+    soft_threshold_ista: first as CPISTA calls it (Paths C, C4096), from the
+    raw gradient with tau a one-element tensor on the card and alpha a
+    number, then as the TPU kernel's eta_gamma(x + delta) with gamma on the
+    card.  soft_threshold_admm: as the dense ADMM step calls it (Path F:
+    gamma = alpha / rho and tau2 = 1 as numbers), then with device scalars.
+    Both are built to be bit-equal to their plain versions (no fused
+    multiply-add); whether they are is printed, the gate is
+    TOL_ELEMENTWISE."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.soft_threshold import kernel as st_kernel
+    from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
+    from repro_torch.kernels.soft_threshold.ref import (
+        admm_threshold_dual_update_ref,
+        ista_step_update_ref,
+        ista_threshold_update_ref,
+    )
+
+    gamma, tau2 = torch.tensor(0.05, device=dev), torch.tensor(1.0, device=dev)
+    tau, alpha = torch.tensor(0.99, device=dev), 1e-4
+    operands = {}
+    for label, n, B in THRESHOLD_SHAPES:
+        x, other = rnd(B, n), rnd(B, n)
+        operands[label] = (x, other)
+        cases = (
+            ("soft_threshold_ista", f"{label}, CPISTA's folded call: n={n} B={B}",
+             lambda a=(x, other): fused_ista_update(*a, alpha, tau=tau),
+             lambda a=(x, other): ista_step_update_ref(a[0], a[1], tau, alpha),
+             12 * B * n, 4 * B * n,
+             # no one PyTorch call computes it: a multiply-add, then softshrink
+             lambda a=(x, other): F.softshrink(torch.addcmul(a[0], tau, a[1]), 0.99e-4)),
+            ("soft_threshold_ista", f"{label}, eta_gamma(x + delta): n={n} B={B}",
+             lambda a=(x, other): fused_ista_update(*a, gamma),
+             lambda a=(x, other): ista_threshold_update_ref(*a, gamma),
+             12 * B * n, 3 * B * n, lambda a=(x, other): F.softshrink(a[0] + a[1], 0.05)),
+            ("soft_threshold_admm", f"{label}, dense ADMM's call: n={n} B={B}",
+             lambda a=(x, other): fused_admm_update(*a, alpha / DENSE_RHO, 1.0),
+             lambda a=(x, other): admm_threshold_dual_update_ref(*a, alpha / DENSE_RHO, 1.0),
+             16 * B * n, 6 * B * n, None),
+            ("soft_threshold_admm", f"{label}, device scalars: n={n} B={B}",
+             lambda a=(x, other): fused_admm_update(*a, gamma, tau2),
+             lambda a=(x, other): admm_threshold_dual_update_ref(*a, gamma, tau2),
+             16 * B * n, 6 * B * n, None),
+        )
+        for name, shape, kern, plain, nbytes, flops, library in cases:
+            r = check_shape(name, shape, kern, plain, TOL_ELEMENTWISE, nbytes, flops,
+                            library=library)
+            tensors = lambda out: (out,) if isinstance(out, torch.Tensor) else out
+            r["bit_exact"] = all(torch.equal(g, w) for g, w in zip(tensors(kern()),
+                                                                   tensors(plain())))
+            print(f"  {name} [{shape}]: bit-equal to the plain version: {r['bit_exact']}")
+            results[name].append(r)
+    # the grid settings, each at the three shapes; the committed one first
+    totals = {}
+    for config in st_kernel.SWEEP:
+        row = []
+        for label, n, B in THRESHOLD_SHAPES:
+            x, other = operands[label]
+            ista = timed(lambda: st_kernel.ista_update(x, other, alpha, tau.reshape(1),
+                                                       config=config))[0]
+            admm = timed(lambda: st_kernel.admm_update(x, other, alpha / DENSE_RHO, 1.0,
+                                                       config=config))[0]
+            totals[config] = totals.get(config, 0.0) + ista + admm
+            row.append(f"{label} ista {ista:.4f} admm {admm:.4f}")
+        block, warps, per_sm = config
+        print(f"soft-threshold grid sweep BLOCK={block} num_warps={warps} programs/SM="
+              f"{per_sm}: device ms " + "; ".join(row))
+    best = min(totals, key=totals.get)
+    print(f"soft-threshold grid sweep: fastest over the three shapes {best} "
+          f"({totals[best]:.4f} ms summed), committed CONFIG {st_kernel.CONFIG} "
+          f"({totals[st_kernel.CONFIG]:.4f} ms summed)")
 
 
 CROSSOVER_SWEEP = (1024, 2048, 4096, 8192, 16384, 32768)
@@ -457,8 +561,8 @@ def check_wire(dev, gen, results) -> None:
                          bound=bound(8 * n + wire_bytes, 0.0))
                 print(f"{name} [{r['shape']}]: bit-exact {exact}; device ms: kernel "
                       f"{r['ms'][0]:.4f}, plain {r['plain_ms'][0]:.4f}, library {r['library_ms'][0]:.4f}, "
-                      f"bound {r['bound'][0]:.4f} ({r['bound'][1]}); host ms per call: kernel "
-                      f"{r['ms'][1]:.4f}")
+                      f"bound {r['bound'][0]:.4f} ({r['bound'][1]}), floor "
+                      f"{floor_of(name):.4f}; host ms per call: kernel {r['ms'][1]:.4f}")
                 if not exact:
                     fail(f"{name} [{r['shape']}] is not bit-equal to its plain version")
                 results[name].append(r)
@@ -723,11 +827,14 @@ def path_c(dev, gen, n=16384, batch=8, iters=400, name="C") -> dict:
         counts = read_counts()
         obj, mse = trace.objective[-1].tolist(), trace.mse[-1].tolist()
         dev_ms, host_ms = step_times(prob, plan(op, tail=tail), **kw)
-        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse, dev_ms=dev_ms)
+        ops = profile_steps(prob, plan(op, tail=tail), f"Path {name} tail={tail}", **kw)
+        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse, dev_ms=dev_ms,
+                         ops=ops["launches"])
         print(f"Path {name} tail={tail}: CPISTA n={n} B={batch} m={m} k={k}, {iters} iters, "
               f"{ms_iter:.4f} ms/iter (solve, host clock), per step device {dev_ms:.4f} ms / "
-              f"host issue {host_ms:.4f} ms, launches {counts}, MSE per signal {mse}, "
-              f"LASSO objective per signal {obj} (at x = 0: {obj0})")
+              f"host issue {host_ms:.4f} ms / {ops['launches']:g} device operations, "
+              f"launches {counts}, MSE per signal {mse}, LASSO objective per signal {obj} "
+              f"(at x = 0: {obj0})")
         if x.shape != (batch, n) or not bool(torch.isfinite(x).all()):
             fail(f"Path {name} ({tail}) result has shape {tuple(x.shape)} or non-finite values")
         if not all(o < o0 for o, o0 in zip(obj, obj0)):
@@ -736,7 +843,8 @@ def path_c(dev, gen, n=16384, batch=8, iters=400, name="C") -> dict:
     diff = ((xk - xp).norm() / xp.norm()).item()
     print(f"Path {name}: kernel vs plain x-hat norm-rel diff {diff:.3e} (tol {TOL_PATHS:.0e}); "
           f"kernel step / plain step device ms "
-          f"{out['kernel']['dev_ms'] / out['plain']['dev_ms']:.3f}")
+          f"{out['kernel']['dev_ms'] / out['plain']['dev_ms']:.3f}, device operations a step "
+          f"{out['kernel']['ops']:g} / {out['plain']['ops']:g}")
     if not diff <= TOL_PATHS:
         fail(f"Path {name} kernel and plain solves disagree: {diff}")
     want = dict.fromkeys(out["kernel"]["counts"], 0)
@@ -747,11 +855,139 @@ def path_c(dev, gen, n=16384, batch=8, iters=400, name="C") -> dict:
     return out
 
 
-def profile_steps(prob, plan, label, steps=5, **kw) -> None:
-    """:func:`profile_window` over a few steady CPADMM solver steps."""
+DENSE_SETUP_NS = (4096, 8192, 16384, 32768)
+
+
+def one_call(fn) -> tuple[float, float]:
+    """(device ms, host ms) of one call of ``fn``: CUDA events around it (host
+    gaps included) and the host clock from a synchronize to a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def dense_problem(dev, n, batch=8):
+    """Path B's problem (its generator seed) at ``n``: the normalised partial
+    Gaussian circulant, m = n/2, k = n/10, and its dense matrix."""
+    import torch
+
+    from repro_torch.core.circulant import densify, partial_gaussian_circulant
+    from repro_torch.core.solvers import RecoveryProblem
+    from repro_torch.data.synthetic import paper_regime, sparse_signal
+
+    gen = torch.Generator().manual_seed(2)
+    m, k = paper_regime(n)
+    x_true = sparse_signal(gen, n, k, batch=(batch,), device=dev)
+    op = partial_gaussian_circulant(gen, n, m, normalize=True, device=dev)
+    y = op.matvec(x_true)
+    return RecoveryProblem(op, y, x_true), RecoveryProblem(densify(op), y, x_true)
+
+
+def path_f(dev, b, n=16384, batch=8, iters=400) -> dict:
+    """PADMM (dense ADMM, paper Alg. 2) against CPADMM (Alg. 3) on the card:
+    the O(n^3) inversion against the FFT setup at n = 4096 ... 32768, then
+    400 iterations of Path B's problem densified, on the plain step and on
+    the kernel step (the n x n product, then the soft-threshold ADMM kernel)."""
+    import torch
+
+    from repro_torch.core.admm import CpadmmParams, cpadmm_setup, dense_admm_setup
+    from repro_torch.ops.plan import plan
+
+    kw = dict(alpha=1e-4, rho=DENSE_RHO)
+    dense_admm_setup(dense_problem(dev, 1024, 1)[1].op, torch.zeros(1, 512, device=dev),
+                     DENSE_RHO)  # cuSOLVER's and cuBLAS's handles, once
+    setups = {}
+    for n_s in DENSE_SETUP_NS:
+        circ, dense = dense_problem(dev, n_s, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        consts = []
+        dev_ms, host_ms = one_call(lambda: consts.append(dense_admm_setup(dense.op, dense.y,
+                                                                          DENSE_RHO)))
+        const, peak = consts.pop(), torch.cuda.max_memory_allocated() / 2**30
+        A = dense.op.mat
+        gram = A.mT @ A
+        gram.diagonal().add_(DENSE_RHO)
+        resid = gram @ const.B
+        resid.diagonal().sub_(1.0)
+        residual = resid.abs().max().item()
+        del gram, resid, const
+        p = CpadmmParams(alpha=kw["alpha"], rho=DENSE_RHO, sigma=DENSE_RHO, tau1=1.0, tau2=1.0)
+        cpadmm_setup(circ.op, circ.y, p)  # warm
+        circ_ms = one_call(lambda: cpadmm_setup(circ.op, circ.y, p))
+        setups[n_s] = dict(dense_ms=dev_ms, host_ms=host_ms, peak_gib=peak, residual=residual,
+                           circ_ms=circ_ms[0])
+        print(f"Path F setup n={n_s} B={batch} (one call each, CUDA events and the host "
+              f"clock to a synchronize): dense_admm_setup (A^T A + rho I and its float32 "
+              f"inverse) device {dev_ms:.3f} ms / host clock {host_ms:.3f} ms, peak "
+              f"memory {peak:.3f} GiB (the {A.shape[0]}x{n_s} matrix included), inverse "
+              f"residual max|(A^T A + rho I) B - I| {residual:.3e} (bound "
+              f"{inverse_residual_bound(n_s):.3e}); cpadmm_setup device {circ_ms[0]:.4f} ms / "
+              f"host {circ_ms[1]:.4f} ms; inversion dense / circulant "
+              f"{dev_ms / circ_ms[0]:.1f}x")
+        if not residual <= inverse_residual_bound(n_s):
+            fail(f"Path F: the dense inverse at n={n_s} has residual {residual}")
+        del circ, dense, A
+        torch.cuda.empty_cache()
+
+    circ, prob = dense_problem(dev, n, batch)
+    out = {}
+    for tail in ("kernel", "plain"):
+        zero_counts()
+        x, trace, ms_iter = timed_solve(prob, plan(prob.op, tail=tail), iters, iters,
+                                        method="admm", **kw)
+        counts = read_counts()
+        mse = trace.mse[-1].tolist()
+        dev_ms, host_ms = step_times(prob, plan(prob.op, tail=tail), method="admm", **kw)
+        out[tail] = dict(x=x, ms_iter=ms_iter, counts=counts, mse=mse, dev_ms=dev_ms,
+                         host_ms=host_ms)
+        print(f"Path F tail={tail}: PADMM n={n} B={batch} m={n // 2}, {iters} iters, "
+              f"{ms_iter:.4f} ms/iter (solve, host clock, the setup included), per step device "
+              f"{dev_ms:.4f} ms / host issue {host_ms:.4f} ms, launches {counts}, MSE per "
+              f"signal {mse}")
+        if x.shape != (batch, n) or not bool(torch.isfinite(x).all()):
+            fail(f"Path F ({tail}) result has shape {tuple(x.shape)} or non-finite values")
+        if not all(v <= PAPER_TARGET_MSE for v in mse):
+            fail(f"Path F ({tail}): a signal misses MSE <= {PAPER_TARGET_MSE}: {mse}")
+    xk, xp = out["kernel"]["x"], out["plain"]["x"]
+    diff = ((xk - xp).norm() / xp.norm()).item()
+    x_b = b["kernel"]["x"]
+    vs_b = ((xk - x_b).norm() / x_b.norm()).item()
+    # the per-step product reads the n x n inverse once: its byte bound
+    gemm_bound = bound(4 * n * n + 8 * batch * n, 2 * batch * n * n)
+    k, bk = out["kernel"], b["kernel"]
+    print(f"Path F: kernel vs plain x-hat norm-rel diff {diff:.3e} (tol {TOL_PATHS:.0e}); vs "
+          f"Path B's CPADMM x-hat {vs_b:.3e}; the step's n x n product bound "
+          f"{gemm_bound[0]:.4f} ms ({gemm_bound[1]}); PADMM / CPADMM (Path B, kernel steps): "
+          f"device ms a step {k['dev_ms']:.4f} / {bk['dev_ms']:.4f} = "
+          f"{k['dev_ms'] / bk['dev_ms']:.2f}x, solve ms/iter {k['ms_iter']:.4f} / "
+          f"{bk['ms_iter']:.4f} = {k['ms_iter'] / bk['ms_iter']:.2f}x; inversion at n={n} "
+          f"{setups[n]['dense_ms']:.3f} / {setups[n]['circ_ms']:.4f} ms = "
+          f"{setups[n]['dense_ms'] / setups[n]['circ_ms']:.0f}x")
+    if not diff <= TOL_PATHS:
+        fail(f"Path F kernel and plain solves disagree: {diff}")
+    want = dict.fromkeys(k["counts"], 0)
+    want.update(soft_threshold_admm=iters)
+    if k["counts"] != want or any(out["plain"]["counts"].values()):
+        fail(f"Path F launch counts {k['counts']} (kernel) / {out['plain']['counts']} "
+             f"(plain); expected {want} / none")
+    del prob, circ
+    torch.cuda.empty_cache()
+    return dict(out, setups=setups)
+
+
+def profile_steps(prob, plan, label, steps=5, method="cpadmm", **kw) -> dict:
+    """:func:`profile_window` over a few steady solver steps."""
     from repro_torch.core.solvers import make_stepper
 
-    stepper = make_stepper(prob, "cpadmm", plan=plan, **kw)
+    stepper = make_stepper(prob, method, plan=plan, **kw)
     state = [stepper.init()]
 
     def one():
@@ -759,14 +995,14 @@ def profile_steps(prob, plan, label, steps=5, **kw) -> None:
 
     for _ in range(3):
         one()
-    profile_window(one, label, steps)
+    return profile_window(one, label, steps)
 
 
 def profile_window(fn, label, steps=5) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``fn``: prints the device's
     busy share of the window, device time by kernel name and the host ops
     that cost most, per call; returns {"wall_ms", "busy_ms", "kernels":
-    {name: device ms}} per call."""
+    {name: device ms}, "launches": device operations} per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -783,8 +1019,10 @@ def profile_window(fn, label, steps=5) -> dict:
     # repeats the time of the kernels it launched)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
     print(f"profile {label}: {steps} calls, {wall_ms:.4f} ms each (host clock), device busy "
-          f"{busy:.4f} ms ({100 * busy / wall_ms:.1f}% of the window)")
+          f"{busy:.4f} ms ({100 * busy / wall_ms:.1f}% of the window), {launches:g} device "
+          f"operations (kernels and copies) each")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         print(f"  device {e.self_device_time_total / 1e3 / steps:.4f} ms  "
               f"x{e.count / steps:g}  {e.key[:90]}")
@@ -792,7 +1030,7 @@ def profile_window(fn, label, steps=5) -> dict:
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  host {e.self_cpu_time_total / 1e3 / steps:.4f} ms  x{e.count / steps:g}  "
               f"{e.key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy,
+    return dict(wall_ms=wall_ms, busy_ms=busy, launches=launches,
                 kernels={e.key: e.self_device_time_total / 1e3 / steps for e in kernels})
 
 
@@ -1152,7 +1390,10 @@ def _floats(text: str) -> list:
 
 def cli_phase() -> dict:
     """The recovery CLI as a user runs it, on the card: a checkpointed run,
-    a resume from its checkpoint, and a Sec. 7 deblur run."""
+    a resume from its checkpoint, and a Sec. 7 deblur run, all on the kernel
+    step the plan resolves to on the card, one spectral_pointwise and one
+    cpadmm_tail launch an iteration (the resume runs none: its checkpoint is
+    at the budget); then the 2x2-mesh deblur run twice, as a subprocess."""
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     zero_counts()
@@ -1182,9 +1423,19 @@ def cli_phase() -> dict:
     psnr = [_floats(ln.split("PSNR")[1])[0] for ln in deblur.splitlines() if "PSNR" in ln]
     if len(psnr) != 2 or not all(math.isfinite(v) and v > 0 for v in psnr):
         fail(f"CLI: per-frame PSNR of the deblur run is {psnr}")
-    # the CLI builds plan(op) with the default tail, the plain step
-    if any(counts.values()):
-        fail(f"CLI: kernel launches {counts} on the plain step")
+    # the CLI builds plan(op) with the default tail, which resolves to the
+    # kernel step on the card: one launch of each per iteration, the
+    # tolerance run's iterations being its slowest signal's
+    deblur_iters = max(int(v) for v in _floats(deblur.split("per-signal iterations:")[1]
+                                               .splitlines()[0]))
+    if not all("tail=kernel" in out for out in (first, second, deblur)):
+        fail("CLI: a local run did not report the kernel step")
+    want = dict.fromkeys(counts, 0)
+    want.update(spectral_pointwise=200 + deblur_iters, cpadmm_tail=200 + deblur_iters)
+    print(f"CLI launches (local runs: 200 + 0 resumed + {deblur_iters} deblur iterations): "
+          f"{counts}")
+    if counts != want:
+        fail(f"CLI launch counts {counts}; expected {want}")
     return dict(counts=counts, mse=mse, psnr=psnr)
 
 
@@ -1215,7 +1466,8 @@ LIBRARY_CALLS = {
     "spectral_pointwise": None,
     "cpadmm_tail": None,
     "circulant_matvec": "torch.fft path (rfft, product, irfft)",
-    "soft_threshold_ista": "F.softshrink(x + delta, gamma): two launches, no one call fuses it",
+    "soft_threshold_ista": "F.softshrink(torch.addcmul(x, tau, grad), alpha * tau): two "
+                           "launches, no one call fuses it",
     "soft_threshold_admm": None,
     "banded_conv": "F.conv1d on a circular right pad (a correlation, like the kernel)",
     "pack_wire": "view_as_real(z).movedim(-1, 0).to(wire dtype, contiguous, copy=True)",
@@ -1254,6 +1506,7 @@ def main() -> int:
         print(Path(f"{lib}.log").read_text().strip())
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    launch_floors(dev)
     checks = check_kernels(dev, gen)
     a = path_a(dev, 1)
     below = below_crossover()
@@ -1261,6 +1514,7 @@ def main() -> int:
     b_below = path_b(dev, torch.Generator().manual_seed(2), n=below, name=f"B{below}")
     c = path_c(dev, torch.Generator().manual_seed(3))
     c_below = path_c(dev, torch.Generator().manual_seed(3), n=below, name=f"C{below}")
+    f = path_f(dev, b)
     d1 = path_d1(dev, 1, a["kernel"]["x"])
     d2 = path_d2(dev, 1)
     cli = cli_phase()
@@ -1273,7 +1527,8 @@ def main() -> int:
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     by_path = {"A": a["kernel"]["counts"], "B": b["kernel"]["counts"],
                "C": c["kernel"]["counts"], f"B{below}": b_below["kernel"]["counts"],
-               f"C{below}": c_below["kernel"]["counts"], "D1": d1_counts, "D2": d2["counts"],
+               f"C{below}": c_below["kernel"]["counts"], "F": f["kernel"]["counts"],
+               "D1": d1_counts, "D2": d2["counts"],
                "CLI": cli["counts"], "E1": e1["counts"], "E2": e2["counts"],
                "E3": e3["counts"], "E4": e4["counts"]}
 
@@ -1288,6 +1543,7 @@ def main() -> int:
             "max_rel_err": max(r["err"][1] for r in checks[name]), "tol": head["tol"],
             "ms": head["ms"][0], "plain_ms": head["plain_ms"][0],
             "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+            "floor_ms": floor_of(name),
             "library_ms": None if head["library_ms"] is None else head["library_ms"][0],
             "library": LIBRARY_CALLS[name], "host_ms": head["ms"][1], "shape": head["shape"],
             "launches_by_path": launches,

@@ -2,9 +2,11 @@
 
 from .circulant import (  # noqa: F401
     Circulant,
+    DenseOperator,
     PartialCirculant,
     airy_blur,
     compose_sensing_blur,
+    densify,
     gaussian_blur,
     gaussian_circulant,
     moving_average_blur,

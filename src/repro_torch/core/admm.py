@@ -1,13 +1,18 @@
-"""Circulant ADMM for LASSO — CPADMM, paper Alg. 3 (scaled-dual form).
+"""ADMM for LASSO: dense baseline (paper Alg. 2) and circulant CPADMM (Alg. 3).
 
-Port of the CPADMM half of ``repro/core/admm.py``.  For A = P C the
-splitting makes both inner inverses structured:
+Port of ``repro/core/admm.py``.
+
+Dense ADMM (the PADMM baseline) pays the O(n^3) inverse of
+(A^T A + rho I) up front and keeps the n x n inverse in memory: the cost
+profile the paper measures CPADMM against (Figs. 3-4).
+
+CPADMM (scaled-dual form): for A = P C the splitting makes both inner
+inverses structured:
 
     B = (rho C^T C + sigma I)^{-1}   circulant: reciprocal spectrum
     D = (P^T P + rho I)^{-1}         diagonal: 1/(1+rho) on Omega, 1/rho off
 
-so an iteration is two FFT applications plus elementwise work.  The dense
-ADMM baseline (Alg. 2) comes with a later slice.
+so an iteration is two FFT applications plus elementwise work.
 """
 
 from __future__ import annotations
@@ -17,8 +22,60 @@ from typing import NamedTuple
 import torch
 
 from ..ops.spectral import apply_spectrum
-from .circulant import PartialCirculant
+from .circulant import DenseOperator, PartialCirculant
 from .soft_threshold import soft_threshold
+
+# ---------------------------------------------------------------------------
+# Dense ADMM — paper Alg. 2 (the PADMM baseline)
+# ---------------------------------------------------------------------------
+
+
+class DenseAdmmState(NamedTuple):
+    x: torch.Tensor
+    z: torch.Tensor  # the sparse iterate
+    u: torch.Tensor  # scaled dual
+
+
+class DenseAdmmConst(NamedTuple):
+    """Per-problem constants: the O(n^2)-memory inverse the paper measures."""
+
+    B: torch.Tensor  # (n, n) = (A^T A + rho I)^{-1}
+    Aty: torch.Tensor  # (..., n) = A^T y
+
+
+def dense_admm_setup(op: DenseOperator, y: torch.Tensor, rho: float) -> DenseAdmmConst:
+    """Alg. 2 line 2: the O(n^3) inversion (timed on its own as PADMM-I).
+
+    ``rho`` is added to the gram matrix's diagonal in place, the same
+    numbers as the reference's ``A^T A + rho I`` without an n x n identity
+    in memory; the inverse is ``torch.linalg.inv`` in the operator's dtype.
+    """
+    A = op.to_dense()
+    gram = A.mT @ A
+    gram.diagonal().add_(rho)
+    return DenseAdmmConst(B=torch.linalg.inv(gram), Aty=op.rmatvec(y))
+
+
+def dense_admm_init(op, y: torch.Tensor) -> DenseAdmmState:
+    z = y.new_zeros(y.shape[:-1] + (op.n,))
+    return DenseAdmmState(x=z, z=z, u=z)
+
+
+def dense_admm_step(
+    const: DenseAdmmConst, state: DenseAdmmState, alpha: float, rho: float, prox=None
+) -> DenseAdmmState:
+    """Alg. 2 lines 4-6 (``prox=None`` = the paper's soft threshold)."""
+    x = torch.matmul(const.Aty + rho * (state.z - state.u), const.B.mT)
+    if prox is None:
+        z = soft_threshold(x + state.u, alpha / rho)
+    else:
+        z = prox.apply(x + state.u, alpha / rho)
+    return DenseAdmmState(x=x, z=z, u=state.u + x - z)
+
+
+# ---------------------------------------------------------------------------
+# Circulant ADMM — paper Alg. 3 (CPADMM)
+# ---------------------------------------------------------------------------
 
 
 class CpadmmState(NamedTuple):
@@ -95,3 +152,11 @@ def cpadmm_step(
     cx = C.matvec(x)
     v, z, mu, nu = cpadmm_tail(x, cx, const.d_diag, const.Pty, state.mu, state.nu, p, prox=prox)
     return CpadmmState(x=x, v=v, z=z, mu=mu, nu=nu)
+
+
+def default_cpadmm_params(
+    alpha: float = 1e-4, rho: float = 0.1, sigma: float = 0.1, tau: float = 1.0
+) -> CpadmmParams:
+    """Paper Sec. 6 defaults: alpha = 1e-4, sigma = tau = 1e-1."""
+    return CpadmmParams(alpha=float(alpha), rho=float(rho), sigma=float(sigma),
+                        tau1=float(tau), tau2=float(tau))

@@ -10,8 +10,9 @@ All operators act on the trailing axis and broadcast over leading batch
 axes.  Every factory takes ``device=`` (``None`` = the CUDA default, see
 :mod:`repro_torch.device`); random factories take a ``torch.Generator``
 and draw on the generator's device, so one seed gives one operator
-wherever the result is then placed.  The dense ``DenseOperator`` baseline
-comes with a later slice.
+wherever the result is then placed.  ``DenseOperator`` is the explicit
+matrix of the PISTA / PADMM baselines, and ``densify`` makes one of any
+operator.
 """
 
 from __future__ import annotations
@@ -113,9 +114,18 @@ class Circulant:
 
     # -- oracle (O(n^2); tests / small-n baselines only) ------------------
     def to_dense(self) -> torch.Tensor:
+        return self.dense_rows()
+
+    def dense_rows(self, rows=None) -> torch.Tensor:
+        """Rows ``rows`` (all by default) of the dense matrix, C[i, j] =
+        col[(i - j) mod n]: row i is the window ``rev[n-1-i : 2n-1-i]`` of
+        ``rev``, the doubled column reversed, so the rows are gathered from
+        a strided view with no (n, n) index array."""
         n = self.n
-        i = torch.arange(n, device=self.col.device)
-        return self.col[(i[:, None] - i[None, :]) % n]
+        rev = torch.cat([self.col, self.col]).flip(0)
+        windows = rev.unfold(0, n, 1)  # windows[s] = rev[s : s + n]
+        i = torch.arange(n, device=self.col.device) if rows is None else rows
+        return windows[n - 1 - i]
 
 
 def _row_to_col(row: torch.Tensor) -> torch.Tensor:
@@ -172,7 +182,51 @@ class PartialCirculant:
         return self.circ.gram_inverse_spectrum(rho, sigma)
 
     def to_dense(self) -> torch.Tensor:
-        return self.circ.to_dense()[self.omega, :]
+        return self.circ.dense_rows(self.omega)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseOperator:
+    """Explicitly materialized m-by-n sensing matrix: the circulant-agnostic
+    baseline (PISTA / PADMM).  Memory O(mn); matvec O(mn)."""
+
+    mat: torch.Tensor  # (m, n)
+
+    @property
+    def m(self) -> int:
+        return self.mat.shape[-2]
+
+    @property
+    def n(self) -> int:
+        return self.mat.shape[-1]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.m, self.n)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x over leading batch axes."""
+        return torch.matmul(x, self.mat.mT)
+
+    def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
+        """A.T @ y over leading batch axes."""
+        return torch.matmul(y, self.mat)
+
+    def operator_norm_bound(self) -> torch.Tensor:
+        """A *guaranteed upper* bound on ||A||_2 (power iteration only gives a
+        lower bound, which would make tau unsafe): min of the Holder bound
+        sqrt(||A||_1 ||A||_inf) and the Frobenius norm."""
+        a = self.mat.abs()
+        holder = torch.sqrt(a.sum(dim=0).max() * a.sum(dim=1).max())
+        return torch.minimum(holder, torch.linalg.vector_norm(self.mat))
+
+    def to_dense(self) -> torch.Tensor:
+        return self.mat
+
+
+def densify(op) -> DenseOperator:
+    """Materialize any structured operator (for baselines / oracles)."""
+    return DenseOperator(op.to_dense())
 
 
 # ---------------------------------------------------------------------------

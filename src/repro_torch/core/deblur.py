@@ -112,7 +112,7 @@ def build_multiframe_deblur_problem(
 
 
 def build_deblur_plan(problem: DeblurProblem, mesh=None, *, n1=None, n2=None, rfft=False,
-                      overlap=1, tail="plain", fused=True, batch_axis=None,
+                      overlap=1, tail=None, fused=True, batch_axis=None,
                       axis_name=MODEL_AXIS, wire_dtype="fp32", prox=None):
     """Lower the joint operator ``A = P (C B)`` to a backend.
 
@@ -122,7 +122,8 @@ def build_deblur_plan(problem: DeblurProblem, mesh=None, *, n1=None, n2=None, rf
     keyword defaults are deblur-aware, as the reference's: the four-step
     ``n1 x n2`` is the image's own (H, W) grid whenever it splits over the
     mesh axis, and a frame stack goes on the mesh's ``data`` axis when it
-    has one.
+    has one.  ``tail=None`` resolves from the operands' device
+    (:func:`repro_torch.ops.plan.resolve_tail`): the kernels on the card.
     """
     knobs = dict(rfft=rfft, overlap=overlap, tail=tail, fused=fused, wire_dtype=wire_dtype,
                  prox=prox)

@@ -2,8 +2,10 @@
 
 Port of ``repro/core/solvers.py``.  Methods:
 
-    'ista'    Alg. 1 (CPISTA on a circulant operator)
+    'ista'    Alg. 1 (PISTA on a dense operator, CPISTA on a circulant one)
     'fista'   beyond-paper accelerated variant (same cost per iteration)
+    'admm'    Alg. 2 on a DenseOperator (the O(n^3) inverse up front); 'padmm'
+              is the same
     'cpadmm'  Alg. 3 on a PartialCirculant (FFT setup + structured iterations)
 
 Drivers: ``solve`` (fixed iteration count, metric traces), ``solve_until``
@@ -14,14 +16,17 @@ eager steps.  Every driver takes a leading batch axis on ``y`` / ``x_true``
 (B signals through one operator); batch-of-1 equals the unbatched run.
 
 ``plan=`` (:func:`repro_torch.ops.plan.plan`) selects the backend and the
-step's substrate: ``tail='kernel'`` with the l1 prior runs CPADMM and
-ISTA/CPISTA on the hand-written kernels
+step's substrate: ``tail='kernel'`` with the l1 prior runs CPADMM,
+ISTA/CPISTA and dense ADMM on the hand-written kernels
 (:mod:`repro_torch.core.kernel_backend`); FISTA keeps the plain step on
-either tail, as the reference has no kernel FISTA step.  A distributed
-plan (``plan(op, mesh)``) lowers every method to the four-step transforms
-of :mod:`repro_torch.dist`; the drivers run unchanged on this rank's
-signals (the local batch of the data axis), whole.  Dense ADMM (Alg. 2)
-is ROADMAP Queue 1 item 2 and not ported yet.
+either tail, as the reference has no kernel FISTA step.  With no plan, or
+a plan built with the default ``tail=None``, the tail follows the
+operands' device (:func:`repro_torch.ops.plan.resolve_tail`): the kernel
+steps for a PartialCirculant on the card, the plain steps on the CPU and
+for other operators.  A distributed plan (``plan(op, mesh)``) lowers every
+method but dense ADMM to the four-step transforms of
+:mod:`repro_torch.dist`; the drivers run unchanged on this rank's signals
+(the local batch of the data axis), whole.
 
 Recovery success follows the paper: MSE = ||x* - x||^2 / n <= 1e-4 (Sec. 6).
 """
@@ -34,11 +39,12 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.plan import resolve_tail
 from ..ops.prox import is_l1
 from . import admm as admm_mod
 from . import ista as ista_mod
-from .circulant import PartialCirculant
-from .kernel_backend import cpadmm_step_kernel, ista_step_kernel
+from .circulant import DenseOperator, PartialCirculant
+from .kernel_backend import cpadmm_step_kernel, dense_admm_step_kernel, ista_step_kernel
 
 PAPER_TARGET_MSE = 1e-4  # paper Sec. 6 recovery threshold
 
@@ -86,7 +92,7 @@ class Stepper:
     extract: Callable[[Any], torch.Tensor]  # state -> current x
 
 
-VALID_METHODS = ("ista", "fista", "cpista", "cpadmm")
+VALID_METHODS = ("ista", "fista", "cpista", "admm", "padmm", "cpadmm")
 
 
 def make_stepper(
@@ -104,8 +110,11 @@ def make_stepper(
     ``prox=None`` defaults to the plan's ``prox`` and then to the paper's
     soft threshold, which keeps the fused kernel steps eligible; a non-l1
     prox takes the plain step.  ``tail='kernel'`` swaps in the kernel
-    steps for 'cpadmm' and 'ista'/'cpista' (a PartialCirculant operator);
-    'fista' has no kernel step and keeps the plain one.  A distributed
+    steps for 'cpadmm' and 'ista'/'cpista' (a PartialCirculant operator)
+    and for 'admm'/'padmm' (a DenseOperator); 'fista' has no kernel step
+    and keeps the plain one.  ``plan=None`` takes the tail
+    :func:`~repro_torch.ops.plan.resolve_tail` gives the operator, as
+    ``plan(op)`` would.  A distributed
     plan builds its own stepper (:meth:`ExecutionPlan.build_stepper`) with
     the same init / step / extract-flat-x contract.
     """
@@ -114,8 +123,8 @@ def make_stepper(
     if plan is not None and plan.is_distributed:
         return plan.build_stepper(problem, method, alpha=alpha, rho=rho, sigma=sigma, tau=tau,
                                   prox=prox)
-    tail = plan.tail if plan is not None else "plain"
     op, y = problem.op, problem.y
+    tail = plan.tail if plan is not None else resolve_tail(None, op)
     if method in ("ista", "fista", "cpista"):
         tau_v = tau if tau is not None else ista_mod.default_tau(op)
         p = ista_mod.IstaParams(alpha=float(alpha), tau=tau_v)
@@ -134,8 +143,19 @@ def make_stepper(
             extract=lambda s: s.x,
         )
     if method in ("admm", "padmm"):
-        raise NotImplementedError(
-            "dense ADMM (Alg. 2) is not ported yet: ROADMAP Queue 1 item 2; use 'cpadmm'"
+        if not isinstance(op, DenseOperator):
+            raise TypeError("dense ADMM needs a DenseOperator; use 'cpadmm'")
+        alpha, rho = float(alpha), float(rho)
+        const = admm_mod.dense_admm_setup(op, y, rho)
+        if tail == "kernel" and is_l1(prox):
+            # the threshold + dual kernel bakes in the soft threshold (l1 only)
+            step = lambda s: dense_admm_step_kernel(const, s, alpha, rho)
+        else:
+            step = lambda s: admm_mod.dense_admm_step(const, s, alpha, rho, prox=prox)
+        return Stepper(
+            init=lambda: admm_mod.dense_admm_init(op, y),
+            step=step,
+            extract=lambda s: s.z,  # z is the sparse iterate
         )
     if method == "cpadmm":
         if not isinstance(op, PartialCirculant):

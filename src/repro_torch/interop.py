@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .core.admm import CpadmmState
-from .core.circulant import Circulant, PartialCirculant
+from .core.circulant import Circulant, DenseOperator, PartialCirculant
 from .core.deblur import DeblurProblem
 from .device import resolve_device
 from .dist.fft import col_block, row_block
@@ -35,6 +35,11 @@ def partial_circulant_from_numpy(col, spec, omega, device=None) -> PartialCircul
     return PartialCirculant(
         circulant_from_numpy(col, spec, device), _tensor(omega, device, torch.int64)
     )
+
+
+def dense_operator_from_numpy(mat, device=None) -> DenseOperator:
+    """The reference's ``DenseOperator.mat`` (m, n) -> the port's."""
+    return DenseOperator(mat=_tensor(mat, device))
 
 
 def cpadmm_state_from_numpy(x, v, z, mu, nu, device=None) -> CpadmmState:

@@ -15,6 +15,10 @@ the kernel or raises — it never falls back.
     wire_pack            Triton   <- repro/kernels/wire_pack
     flash_attention      CUDA C++ <- repro/kernels/flash_attention (two kernels:
                                      bf16 on the tensor cores, float32 SIMT)
+
+``floor`` (Triton, and ``csrc/floor.cu``) holds two empty kernels, one by
+each route, whose time is the floor under every kernel's; only
+``chip_smoke.py`` launches them.
 """
 
 

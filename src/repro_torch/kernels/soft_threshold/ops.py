@@ -5,42 +5,46 @@ from __future__ import annotations
 import torch
 
 from .. import require_cuda_operands
-from .ref import admm_threshold_dual_update_ref, ista_threshold_update_ref
+from .ref import admm_threshold_dual_update_ref, ista_step_update_ref, ista_threshold_update_ref
 
 
-def _scalar_operand(name: str, value, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as a 1-element float32 tensor on ``like``'s device.
-
-    A Python number becomes a device fill (no host sync); a one-element
-    tensor already on the card is only reshaped, so a threshold computed
-    there (``alpha * tau``) is read by the kernel where it lies.
-    """
-    if isinstance(value, torch.Tensor):
-        if value.numel() != 1:
-            raise ValueError(f"{name} must be a scalar or a 1-element tensor; got shape "
-                             f"{tuple(value.shape)}")
-        return value.to(device=like.device, dtype=torch.float32).reshape(1)
-    return torch.full((1,), float(value), dtype=torch.float32, device=like.device)
+def _scalar_operand(name: str, value, like: torch.Tensor):
+    """``value`` as the kernel takes it: a Python number as it is (a kernel
+    argument, no fill launch); a one-element tensor as a 1-element float32
+    tensor on ``like``'s device, so a value computed there (CPISTA's
+    ``tau``) is read by the kernel where it lies."""
+    if not isinstance(value, torch.Tensor):
+        return float(value)
+    if value.numel() != 1:
+        raise ValueError(f"{name} must be a scalar or a 1-element tensor; got shape "
+                         f"{tuple(value.shape)}")
+    return value.to(device=like.device, dtype=torch.float32).reshape(1)
 
 
-def fused_ista_update(x: torch.Tensor, delta: torch.Tensor, gamma) -> torch.Tensor:
+def fused_ista_update(x: torch.Tensor, delta: torch.Tensor, gamma, *, tau=None) -> torch.Tensor:
     """eta_gamma(x + delta), fused; any shape, leading axes being signals.
 
-    ``gamma`` is a number or a 1-element tensor.  CPU tensors take the plain
-    version; CUDA tensors launch the Triton kernel, which needs contiguous
-    float32 operands and raises otherwise.
+    With ``tau``: eta_{gamma tau}(x + tau delta), CPISTA's whole update from
+    the raw gradient ``delta`` and the l1 weight ``gamma`` (Alg. 8), with
+    ``tau * delta`` rounded before the add.  ``gamma`` and ``tau`` are
+    numbers or 1-element tensors.  CPU tensors take the plain version; CUDA
+    tensors launch the Triton kernel, which needs contiguous float32
+    operands and raises otherwise.
     """
     if x.shape != delta.shape:
         raise ValueError(f"fused_ista_update shapes: x {tuple(x.shape)}, "
                          f"delta {tuple(delta.shape)}")
     if x.device.type == "cpu" and delta.device.type == "cpu":
-        return ista_threshold_update_ref(x, delta, gamma)
+        if tau is None:
+            return ista_threshold_update_ref(x, delta, gamma)
+        return ista_step_update_ref(x, delta, tau, gamma)
     require_cuda_operands("soft_threshold", {"x": x, "delta": delta},
                           {"x": torch.float32, "delta": torch.float32})
     from .kernel import ista_update
 
     with torch.cuda.device(x.device):
-        out = ista_update(x, delta, _scalar_operand("gamma", gamma, x))
+        out = ista_update(x, delta, _scalar_operand("gamma", gamma, x),
+                          None if tau is None else _scalar_operand("tau", tau, x))
     fused_ista_update.launches += 1
     return out
 

@@ -29,7 +29,10 @@ card a rank), from ``--fake-devices N`` (N gloo ranks started here, all on
 this process alone.  Rank 0 alone prints and writes checkpoints, which
 hold the global state.
 
-Everything runs on the CUDA card unless ``--device cpu`` is given.  The
+Everything runs on the CUDA card unless ``--device cpu`` is given.  On
+the card the plan's tail resolves to the hand-written kernel steps
+(:func:`repro_torch.ops.plan.resolve_tail`), with no flag; on the CPU to
+the plain steps.  The
 data come from ``torch.Generator`` seeds (``--seed``), drawn on the CPU so
 that one seed gives the same problem on either device and on every rank;
 they differ from the reference's ``jax.random`` draws, and the default
@@ -239,6 +242,7 @@ def run(args) -> None:
         else:
             pl = plan(op, mesh, n1=args.n1, batch_axis=batch_axis, prox=prox,
                       **plan_knobs(args))
+    say(f"step: tail={pl.tail}" + (" (the hand-written kernels)" if pl.tail == "kernel" else ""))
     kw = dict(alpha=args.alpha, rho=0.01, sigma=0.01, plan=pl)
     gather = pl.gather_batch if mesh is not None else (lambda t: t)
 

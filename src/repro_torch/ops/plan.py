@@ -23,7 +23,10 @@ Knobs (one frozen :class:`PlanConfig`):
 
     tail        'plain' (the reference's 'jnp') or 'kernel' (its 'pallas'):
                 the hand-written kernels for the CPADMM tail (and, on one
-                device, the CPISTA and spectral steps)
+                device, the CPISTA and spectral steps); None (the default)
+                resolves when the plan is built (:func:`resolve_tail`):
+                'kernel' on a CUDA device for the operators the kernel
+                steps take, 'plain' elsewhere
     prox        the prior; None = the l1 soft threshold
     rfft        half-spectrum transforms (half the FFT flops and wire bytes)
     overlap=K   chunked transposes overlapped with the first FFT stage
@@ -446,6 +449,31 @@ def _wire_guard(wire_plan: ExecutionPlan) -> ExecutionPlan:
     return wire_plan
 
 
+def resolve_tail(tail: Optional[str], op=None, device=None) -> str:
+    """The step a plan runs when it is built: ``tail`` itself when one is
+    given; else 'kernel' where the operands lie on a CUDA device and the
+    kernel steps take the operator, 'plain' elsewhere.
+
+    On one device the kernel steps take a ``PartialCirculant`` (the deblur
+    problem's joint operator is one), and ``device`` defaults to its
+    tensors' device; every other operator (a ``Circulant``, a
+    ``DenseOperator``) resolves to 'plain', whose steps serve it.  On a mesh
+    (``op=None``) the fused tail runs on any operator's blocks, and
+    ``device`` is the one the rank's blocks live on.  The reference's plan
+    defaults to its plain tail and leaves the choice to its tuner; the port
+    chooses from the device, so the CLI runs the kernels on the card.
+    """
+    if tail is not None:
+        return tail
+    if op is not None:
+        from ..core.circulant import PartialCirculant  # here: core's drivers import ops
+
+        if not isinstance(op, PartialCirculant):
+            return "plain"
+        device = op.circ.col.device if device is None else device
+    return "kernel" if device is not None and torch.device(device).type == "cuda" else "plain"
+
+
 def _check_mesh(mesh, cfg: PlanConfig) -> None:
     if not isinstance(mesh, Mesh):
         raise TypeError(
@@ -456,15 +484,18 @@ def _check_mesh(mesh, cfg: PlanConfig) -> None:
             raise ValueError(f"axis {name!r} not in mesh axes {mesh.axis_names}")
 
 
-def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail="plain",
+def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail=None,
          fused=True, batch_axis=None, axis_name=MODEL_AXIS, wire_dtype="fp32",
          prox=None) -> ExecutionPlan:
     """Lower ``op`` to an execution plan (see module docstring).
 
     With ``mesh=None`` the identity lowering; with a :class:`Mesh`, ``op``
     must be a (partial) circulant, whose stored half spectrum is laid out
-    into this rank's four-step spectrum columns.
+    into this rank's four-step spectrum columns.  ``tail=None`` resolves
+    from the operands' device (:func:`resolve_tail`).
     """
+    tail = resolve_tail(tail, op) if mesh is None else resolve_tail(
+        tail, device=getattr(mesh, "device", None))
     cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
                      batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
                      prox=prox).validate(distributed=mesh is not None)
@@ -500,15 +531,17 @@ def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail="plain"
 
 
 def plan_from_parts(mesh, spec2d, mask2d, *, n1=None, n2=None, rfft=False, overlap=1,
-                    tail="plain", fused=True, batch_axis=None, axis_name=MODEL_AXIS,
+                    tail=None, fused=True, batch_axis=None, axis_name=MODEL_AXIS,
                     wire_dtype="fp32", prox=None) -> ExecutionPlan:
     """A distributed plan from this rank's blocks instead of an operator:
     ``spec2d`` its spectrum columns (in the ``rfft`` layout), ``mask2d`` its
     rows of the 0/1 measurement mask (``repro_torch.interop.
     plan_parts_from_numpy`` cuts them from global arrays).  With no operator
     to read ``n`` from, ``n1 x n2`` must be given.  No precision guard:
-    :func:`plan` is the guarded route.
+    :func:`plan` is the guarded route.  ``tail=None`` resolves from the
+    blocks' device (:func:`resolve_tail`).
     """
+    tail = resolve_tail(tail, device=spec2d.device)
     cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
                      batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
                      prox=prox).validate(distributed=True)

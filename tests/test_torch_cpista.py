@@ -33,6 +33,7 @@ from repro_torch.core.kernel_backend import ista_step_kernel
 from repro_torch.core.solvers import RecoveryProblem, solve
 from repro_torch.kernels.circulant_matvec import ops as matvec_ops
 from repro_torch.kernels.soft_threshold.ops import fused_ista_update
+from repro_torch.kernels.soft_threshold.ref import ista_step_update_ref, ista_threshold_update_ref
 from repro_torch.ops.plan import plan
 from repro_torch.ops.prox import L1Prox
 
@@ -152,3 +153,47 @@ def test_kernel_ista_step_needs_a_partial_circulant():
     full = RecoveryProblem(port.op.circ, port.op.circ.matvec(port.x_true), port.x_true)
     with pytest.raises(TypeError, match="PartialCirculant"):
         solve(full, "ista", iters=1, plan=plan(full.op, tail="kernel"))
+
+
+@pytest.mark.parametrize("tau_kind", ["tensor", "number"])
+@pytest.mark.parametrize("n", [7, 1000, 4096])
+def test_folded_ista_update_is_the_old_composition_bit_for_bit(n, tau_kind):
+    """The folded kernel's plain version, eta_{alpha tau}(x + tau grad) in the
+    kernel's order (the threshold and the step each rounded in float32, two
+    shrink branches), equals the composition CPISTA launched before the
+    fold: eta_gamma(x + delta) on delta = tau * grad, gamma = alpha * tau."""
+    rng = np.random.default_rng(n)
+    x, grad = (torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32))
+               for _ in range(2))
+    x[:, :2] = grad[:, :2] = 0.0  # sign(0)
+    x[:, 2], grad[:, 2] = 0.003, 0.0  # inside the kill zone (alpha tau = 0.0037)
+    alpha = 1e-2
+    tau = torch.tensor(0.37) if tau_kind == "tensor" else 0.37
+    tau32 = torch.as_tensor(tau, dtype=torch.float32)
+    old = ista_threshold_update_ref(x, tau32 * grad, torch.tensor(alpha) * tau32)
+    got = ista_step_update_ref(x, grad, tau, alpha)
+    assert torch.equal(got, old)
+    assert torch.equal(fused_ista_update(x, grad, alpha, tau=tau), old)
+    assert int((got == 0).sum()) > 0  # the kill zone is exercised
+
+
+def test_kernel_step_passes_the_raw_gradient(monkeypatch):
+    """ista_step_kernel hands the fused update the gradient C^T r, the l1
+    weight and the step itself: no tau * grad or alpha * tau of its own
+    (two launches fewer a step on the card), and the plain step's numbers."""
+    from repro_torch.core import kernel_backend
+
+    seen = []
+    real = kernel_backend.fused_ista_update
+    monkeypatch.setattr(kernel_backend, "fused_ista_update",
+                        lambda x, d, g, tau=None: seen.append((d, g, tau)) or real(x, d, g, tau=tau))
+    _, port = _problems(256, (2,), seed=15)
+    p = ista.IstaParams(alpha=1e-4, tau=ista.default_tau(port.op))
+    s0 = ista.ista_init(port.op, port.y)
+    s1 = ista.ista_step(port.op, port.y, s0, p)
+    s1k = ista_step_kernel(port.op, port.y, s1, p)
+    (delta, gamma, tau), = seen
+    assert gamma == 1e-4 and tau is p.tau
+    r = port.op.project_back(port.y - port.op.matvec(s1.x))
+    assert rel(delta, port.op.circ.rmatvec(r).numpy()) <= 1e-5
+    assert rel(s1k.x, ista.ista_step(port.op, port.y, s1, p).x.numpy()) <= 1e-5

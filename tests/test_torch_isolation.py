@@ -37,7 +37,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.kernels.soft_threshold.kernel, repro_torch.dist, repro_torch.dist.fft, "
         "repro_torch.dist.recovery, repro_torch.kernels.wire_pack.kernel, "
         "repro_torch.configs.registry, repro_torch.configs.minitron_4b, repro_torch.models.lm, "
-        "repro_torch.models.steps, repro_torch.kernels.flash_attention.ops; "
+        "repro_torch.models.steps, repro_torch.kernels.flash_attention.ops, "
+        "repro_torch.ops.operator, repro_torch.core.admm, repro_torch.kernels.floor, "
+        "repro_torch.kernels.soft_threshold.ops; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'triton')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -25,9 +25,11 @@ from repro_torch.kernels.circulant_matvec import ops as matvec_ops
 from repro_torch.kernels.circulant_matvec.ref import circulant_matvec_fft, circulant_matvec_ref
 from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
 from repro_torch.kernels.cpadmm_tail.ref import cpadmm_tail_ref
+from repro_torch.kernels.soft_threshold import kernel as threshold_kernel
 from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
 from repro_torch.kernels.soft_threshold.ref import (
     admm_threshold_dual_update_ref,
+    ista_step_update_ref,
     ista_threshold_update_ref,
 )
 from repro_torch.kernels.spectral_pointwise.ops import spectral_update
@@ -275,6 +277,22 @@ def test_soft_threshold_batched_rows_match_reference(n, counters, ref):
     assert counters() == [0] * 6
 
 
+@pytest.mark.parametrize("n", THRESHOLD_NS)
+@pytest.mark.parametrize("tau_kind", ["tensor", "number"])
+def test_fused_ista_update_with_tau_matches_reference(n, tau_kind, counters, ref):
+    """The folded form eta_{alpha tau}(x + tau grad), CPISTA's whole update,
+    against the reference's Pallas kernel given tau * grad and alpha * tau."""
+    x, grad = _threshold_operands(n)
+    alpha, tau = 0.3, 0.7
+    got = fused_ista_update(t(x), t(grad), alpha,
+                            tau=torch.tensor(tau) if tau_kind == "tensor" else tau).numpy()
+    xj, gj = ref.jnp.asarray(x), ref.jnp.asarray(grad)
+    tau32 = ref.jnp.float32(tau)
+    want = ref.ista_update(xj, tau32 * gj, ref.jnp.float32(alpha) * tau32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+    assert counters() == [0] * 6
+
+
 def test_soft_threshold_rejects_bad_operands():
     with pytest.raises(ValueError, match="shapes"):
         fused_ista_update(torch.zeros(2, 8), torch.zeros(8), 0.1)
@@ -344,6 +362,8 @@ def test_wrappers_raise_on_tensors_they_cannot_launch(kernel, counters):
     if kernel == "soft_threshold":
         with pytest.raises(ValueError, match="CUDA tensors"):
             fused_admm_update(meta(2, 7), meta(2, 7), 0.1, 1.0)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fused_ista_update(meta(2, 7), meta(2, 7), 0.1, tau=torch.tensor(0.5))
     assert counters() == [0] * 6
 
 
@@ -419,3 +439,78 @@ def test_slice2_kernels_match_plain_versions_on_card(kernel, n, cuda_device, cou
             close(blur_apply(taps, x, order=order),
                   banded_circulant_matvec_ref(taps, x, order=order).cpu(), rel=1e-5)
         assert counters() == [0, 0, 0, 0, 0, 2]
+
+
+# the shapes the main path gives the soft-threshold pair: Path C (and Path
+# F's dense ADMM), the CLI's default n, a ragged length
+THRESHOLD_CARD_SHAPES = [(8, 16384), (4, 65536), (3, 16383)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", threshold_kernel.SWEEP)
+@pytest.mark.parametrize("shape", THRESHOLD_CARD_SHAPES)
+def test_soft_threshold_pair_matches_plain_versions_on_card(shape, config, cuda_device):
+    """The grid-stride kernels at every swept setting against their plain
+    versions (1e-6, chip_smoke.py's TOL_ELEMENTWISE): eta_gamma(x + delta)
+    with gamma on the card, the folded CPISTA form (tau on the card, alpha a
+    number), and the ADMM pair with numbers and with device scalars."""
+    g = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    x, other = (torch.randn(*shape, generator=g, device=cuda_device) for _ in range(2))
+    gamma, tau = torch.tensor(0.5, device=cuda_device), torch.tensor(0.7, device=cuda_device)
+    close(threshold_kernel.ista_update(x, other, gamma.reshape(1), config=config),
+          ista_threshold_update_ref(x, other, gamma).cpu(), rel=1e-6)
+    close(threshold_kernel.ista_update(x, other, 0.3, tau.reshape(1), config=config),
+          ista_step_update_ref(x, other, tau, 0.3).cpu(), rel=1e-6)
+    for g2, t2 in ((0.05, 1.0), (gamma.reshape(1), torch.tensor([1.6], device=cuda_device))):
+        for got, want in zip(threshold_kernel.admm_update(x, other, g2, t2, config=config),
+                             admm_threshold_dual_update_ref(x, other, g2, t2)):
+            close(got, want.cpu(), rel=1e-6)
+
+
+@pytest.mark.gpu
+def test_folded_ista_wrapper_launches_once_on_card(cuda_device, counters):
+    """CPISTA's update from the raw gradient: one launch, no fill for the
+    numbers, and the same values as the unfolded call on tau * grad."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x, grad = (torch.randn(8, 16384, generator=g, device=cuda_device) for _ in range(2))
+    tau = torch.tensor(0.9, device=cuda_device)
+    got = fused_ista_update(x, grad, 1e-4, tau=tau)
+    close(got, fused_ista_update(x, tau * grad, 1e-4 * tau).cpu(), rel=1e-6)
+    assert counters() == [0, 0, 0, 2, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,batch", [(4096, 8), (1000, 3)])
+def test_dense_kernel_step_matches_plain_step_on_card(n, batch, cuda_device, counters):
+    """dense_admm_step_kernel (the n x n product, then the soft-threshold
+    ADMM kernel) against dense_admm_step on the card, 20 steps, z within
+    1e-4 (chip_smoke.py's TOL_PATHS); one kernel launch a step."""
+    from repro_torch.core import admm
+    from repro_torch.core.circulant import DenseOperator
+    from repro_torch.core.kernel_backend import dense_admm_step_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    op = DenseOperator(torch.randn(n // 2, n, generator=g, device=cuda_device) / n**0.5)
+    y = op.matvec(torch.randn(batch, n, generator=g, device=cuda_device))
+    c = admm.dense_admm_setup(op, y, 0.01)
+    s_plain = s_kernel = admm.dense_admm_init(op, y)
+    for _ in range(20):
+        s_plain = admm.dense_admm_step(c, s_plain, 1e-4, 0.01)
+        s_kernel = dense_admm_step_kernel(c, s_kernel, 1e-4, 0.01)
+    assert counters() == [0, 0, 0, 0, 20, 0]
+    err = float((s_kernel.z - s_plain.z).norm() / s_plain.z.norm())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.gpu
+def test_floor_kernels_launch_on_card(cuda_device):
+    """The empty kernels chip_smoke.py times as the launch floor, by both
+    routes, one block and one a SM."""
+    from repro_torch.kernels.floor import cuda_empty, triton_empty
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for blocks in (1, sms):
+        triton_empty(cuda_device, blocks)
+        cuda_empty(cuda_device, blocks)
+    torch.cuda.synchronize()

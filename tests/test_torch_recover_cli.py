@@ -126,3 +126,29 @@ def test_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         recover.main(["--n", "256", "--iters", "10", "--ckpt-dir", str(tmp_path / "ck")])
+
+
+def test_cli_reports_the_plain_step_on_the_cpu(capsys):
+    recover.main(["--n", "256", "--batch", "1", "--iters", "10", "--chunk", "10",
+                  "--device", "cpu", "--tol", "1e-2"])
+    assert "tail=plain" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_cli_runs_the_kernels_on_the_card(tmp_path, capsys):
+    """No flag asks for them: on the card the plan's tail resolves to the
+    kernel step, one spectral_pointwise and one cpadmm_tail launch an
+    iteration, and the deblur workload takes them too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
+    from repro_torch.kernels.spectral_pointwise.ops import spectral_update
+
+    spectral_update.launches = fused_cpadmm_tail.launches = 0
+    recover.main(["--n", "16384", "--batch", "2", "--iters", "40", "--chunk", "20",
+                  "--ckpt-dir", str(tmp_path / "ck")])
+    assert "tail=kernel" in capsys.readouterr().out
+    assert spectral_update.launches == fused_cpadmm_tail.launches == 40
+    recover.main(["--deblur", "--size", "64", "--batch", "2", "--iters", "30", "--chunk", "30",
+                  "--ckpt-dir", str(tmp_path / "deblur")])
+    assert fused_cpadmm_tail.launches == 70 > 0

@@ -43,7 +43,7 @@ from repro_torch.core.solvers import (
     until_step,
 )
 from repro_torch.data.synthetic import paper_regime, sparse_signal
-from repro_torch.ops.plan import PlanConfig, plan
+from repro_torch.ops.plan import PlanConfig, plan, resolve_tail
 from repro_torch.ops.prox import L1Prox, is_l1
 
 FIELDS = ("x", "v", "z", "mu", "nu")
@@ -236,7 +236,7 @@ def test_plan_layer_validates_and_routes():
         plan(port.op, prox=object())
     with pytest.raises(TypeError, match="Mesh"):
         plan(port.op, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(TypeError, match="dense ADMM needs a DenseOperator"):
         make_stepper(port, "admm")
     with pytest.raises(ValueError, match="valid methods"):
         make_stepper(port, "nope")
@@ -273,3 +273,59 @@ def test_prox_routes_the_kernel_tail(monkeypatch):
     x_nn_plain, _ = solve(port, "cpadmm", prox=_NonNegShrink(), **kw)
     assert len(calls) == 20
     assert torch.equal(x_nn, x_nn_plain) and bool((x_nn >= 0).all())
+
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("tail,family,device,want", [
+    (None, "partial", None, "plain"),  # the operator's own device: the CPU
+    (None, "partial", CUDA, "kernel"),  # operands on the card: the kernel steps
+    (None, "partial", "cuda:1", "kernel"),
+    (None, "circulant", CUDA, "plain"),  # no kernel step takes a full circulant
+    (None, "dense", CUDA, "plain"),  # nor a dense operator (PADMM asks by name)
+    (None, "mesh", CUDA, "kernel"),  # a mesh rank's blocks on the card
+    (None, "mesh", torch.device("cpu"), "plain"),
+    ("plain", "partial", CUDA, "plain"),  # an explicit tail is kept
+    ("kernel", "dense", None, "kernel"),
+])
+def test_resolve_tail_chooses_the_step_from_the_operands_device(tail, family, device, want):
+    """The plan's default tail, resolved by a pure helper: no card needed to
+    ask what a CUDA operand would get."""
+    from repro_torch.core.circulant import densify
+
+    _, port = _problems(64, (), seed=16)
+    op = {"partial": port.op, "circulant": port.op.circ, "dense": densify(port.op),
+          "mesh": None}[family]
+    assert resolve_tail(tail, op, device=device) == want
+
+
+def test_plan_resolves_its_tail_when_built(monkeypatch):
+    """plan(op), build_deblur_plan(problem) and a stepper with no plan take
+    the resolved tail: the plain step for CPU operands, the kernel step for
+    a PartialCirculant on the card (the device faked through the helper)."""
+    from repro_torch.core import deblur, solvers
+    from repro_torch.ops import plan as plan_mod
+
+    _, port = _problems(256, (2,), seed=17)
+    assert plan(port.op).config == PlanConfig(tail="plain")
+    g = torch.Generator().manual_seed(0)
+    images = torch.rand(2, 16, 16, generator=g)
+    dp = deblur.build_multiframe_deblur_problem(g, images)
+    assert deblur.build_deblur_plan(dp).tail == "plain"
+    assert deblur.build_deblur_plan(dp, tail="kernel").tail == "kernel"
+
+    real = plan_mod.resolve_tail
+    on_card = lambda tail, op=None, device=None: real(tail, op, device=CUDA)
+    monkeypatch.setattr(plan_mod, "resolve_tail", on_card)
+    monkeypatch.setattr(solvers, "resolve_tail", on_card)
+    assert plan(port.op).tail == "kernel" and deblur.build_deblur_plan(dp).tail == "kernel"
+    assert plan(port.op.circ).tail == "plain"
+    calls = []
+    kernel_step = solvers.cpadmm_step_kernel
+    monkeypatch.setattr(solvers, "cpadmm_step_kernel",
+                        lambda *a: calls.append(1) or kernel_step(*a))
+    x_default, _ = solve(port, "cpadmm", iters=5, rho=0.01, sigma=0.01)
+    x_kernel, _ = solve(port, "cpadmm", iters=5, rho=0.01, sigma=0.01,
+                        plan=plan(port.op, tail="kernel"))
+    assert len(calls) == 10 and torch.equal(x_default, x_kernel)
