@@ -47,6 +47,19 @@ no result line):
    tail="kernel")``, 600 fused iterations with fp32 and with bf16 wires,
    held against Path A's kernel-step x-hat (the bf16 wire runs both
    ``wire_pack`` kernels around every transpose);
+6b. Path M — Sec. 7 map-making (Herschel-style) at Path A's frame size: an
+   ``extended_emission`` sky of 1024x1024 seen at 4 dithered offsets (0, 1,
+   W, W + 1) through one optic (gaussian PSF sigma 1.5, romberg sensing,
+   m = n/2), 400 CPADMM iterations under l1 (the kernel step:
+   spectral_pointwise and cpadmm_tail once an iteration) and under TV (the
+   plain step, no kernel), and l1 on the plain step; each prior's apply
+   (non-negative l1, TV, wavelet haar and db4) at that shape held card
+   against CPU, the l1 kernel step against the plain step in the map, and
+   the TV solve at 256x256 x 4 frames card against CPU;
+6c. Path MD1 — Path M's TV problem on Path D1's one-rank NCCL mesh (rfft,
+   the hybrid step: the fused transform core, then TV on the gathered
+   signals), 100 iterations with fp32 and bf16 wires, against the local TV
+   solve (the bf16 wire runs both ``wire_pack`` kernels);
 7. Path D2 — four gloo ranks sharing the card
    (``spawn_fake_devices(4, ..., device="cuda:0")``) on a 2x2 (data x
    model) mesh, the same problem at 200 iterations with ``overlap=2``, fp32
@@ -58,7 +71,12 @@ no result line):
    run of two 512x512 frames in tolerance mode (one spectral_pointwise and
    one cpadmm_tail launch an iteration, counted), and a 2x2-mesh deblur run
    of four 512x512 frames on four ranks sharing the card with bf16 wires,
-   run twice to resume;
+   run twice to resume; then ``--prior nonneg-l1``, ``wavelet`` and ``tv``
+   at n = 65536 = 256^2, B = 4 (no kernel launch), and ``--deblur --size
+   512 --prior tv`` as a subprocess;
+8b. the five ``examples/torch_*.py`` as subprocesses at their defaults, and
+   the distributed one again with ``--fake-devices 4``: each must exit 0,
+   and the quickstart must recover with both methods;
 9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
    128, vocab 256000; float32 parameters, bf16 compute) initialised on the
    card from a seed, prefilling 4 prompts of 2048 tokens through
@@ -676,9 +694,11 @@ def timed_solve(prob, plan, iters, record_every, method="cpadmm", **kw):
     return x, trace, (time.perf_counter() - t0) * 1e3 / iters
 
 
-def step_times(prob, plan, method="cpadmm", **kw) -> tuple[float, float]:
+def step_times(prob, plan, method="cpadmm", calls=5, **kw) -> tuple[float, float]:
     """(device ms, host ms) of one solver step in steady state: how long the
-    card is busy per iteration, and how long the host takes to issue it."""
+    card is busy per iteration, and how long the host takes to issue it.
+    A plain step issues ~25 launches; a TV step ~210 (``calls`` 2 keeps the
+    queue short)."""
     from repro_torch.core.solvers import make_stepper
 
     stepper = make_stepper(prob, method, plan=plan, **kw)
@@ -687,7 +707,7 @@ def step_times(prob, plan, method="cpadmm", **kw) -> tuple[float, float]:
     def one():
         state[0] = stepper.step(state[0])
 
-    return timed(one, iters=5)  # a plain step issues ~25 launches
+    return timed(one, iters=calls)
 
 
 def sec7_problem(dev, seed, size, frames):
@@ -1074,6 +1094,193 @@ def path_d1(dev, seed, x_a, size=1024, frames=4, iters=600) -> dict:
     return out
 
 
+# Sec. 7 map-making (Herschel-style): the paper's application at users' size
+MAP_SHIFTS = lambda w: [0, 1, w, w + 1]  # the 2x2 dither on the raster
+MAP_KW = dict(alpha=1e-4, rho=0.01, sigma=0.01)
+TOL_PROX = 1e-5  # a prior's apply, card against CPU (roll, sub, clamp: ulps)
+
+
+def map_problem(dev, seed, size, frames=4):
+    """An ``extended_emission`` sky of ``size`` x ``size`` seen at the 2x2
+    dither through one optic (gaussian PSF sigma 1.5, romberg sensing, m =
+    n/2), drawn on the CPU from ``seed`` and placed on ``dev``."""
+    import torch
+
+    from repro_torch.core.mapmaking import build_mapmaking_problem
+    from repro_torch.data.synthetic import extended_emission
+
+    sky = extended_emission(torch.Generator().manual_seed(seed), size, size, n_sources=3,
+                            device=dev)
+    return build_mapmaking_problem(torch.Generator().manual_seed(seed + 1), sky,
+                                   MAP_SHIFTS(size)[:frames], blur_order=1.5, subsample=0.5,
+                                   sensing="romberg", blur_kind="gaussian")
+
+
+def moved(p, dev):
+    """The same map-making problem with every tensor on ``dev``."""
+    from repro_torch import interop
+
+    d = lambda t: t.cpu().numpy()
+    return interop.mapmaking_problem_from_numpy(
+        d(p.deblur.op.circ.col), d(p.deblur.op.circ.spec), d(p.deblur.op.omega),
+        d(p.deblur.blur.col), d(p.deblur.blur.spec), d(p.deblur.y), d(p.deblur.image),
+        d(p.sky), p.shifts, device=dev)
+
+
+def map_recovery(p):
+    import math
+
+    from repro_torch.core.solvers import RecoveryProblem
+
+    n = math.prod(p.sky.shape)
+    return RecoveryProblem(op=p.deblur.op, y=p.deblur.y,
+                           x_true=p.deblur.image.reshape(len(p.shifts), n))
+
+
+def check_priors(dev, p) -> dict:
+    """Each prior's apply at Path M's full shape on the card against the
+    same call on the CPU, and its device time."""
+    import torch
+
+    from repro_torch.ops.prox import NonNegL1Prox, TVProx, WaveletProx
+
+    x = map_recovery(p).x_true.cpu() + 0.05 * torch.randn(
+        *p.deblur.image.reshape(len(p.shifts), -1).shape, generator=torch.Generator().manual_seed(3))
+    xd, gamma = x.to(dev), MAP_KW["alpha"] / MAP_KW["sigma"]
+    out = {}
+    for prox in (NonNegL1Prox(), TVProx(shape=tuple(p.sky.shape)), WaveletProx(),
+                 WaveletProx(wavelet="db4")):
+        want = prox.apply(x, gamma)
+        got = prox.apply(xd, gamma).cpu()
+        err = ((got - want).norm() / want.norm()).item()
+        calls = 2 if prox.kind == "tv" else 5  # TV issues ~170 launches a call
+        ms = timed(lambda: prox.apply(xd, gamma), iters=calls, warmup=1)
+        out[prox.tag] = dict(err=err, ms=ms)
+        print(f"prior {prox.tag} at {tuple(x.shape)}: card vs CPU norm-rel {err:.3e} (tol "
+              f"{TOL_PROX:.0e}); device ms {ms[0]:.4f}, host ms {ms[1]:.4f} per call")
+        if not err <= TOL_PROX:
+            fail(f"prior {prox.tag} on the card disagrees with the CPU: {err}")
+    return out
+
+
+def path_m(dev, seed, size=1024, iters=400) -> dict:
+    """Sec. 7 map-making at Path A's frame size: 4 dithered exposures of an
+    extended-emission sky, 400 CPADMM iterations under l1 (the kernel step:
+    spectral_pointwise and cpadmm_tail once an iteration) and under TV (the
+    plain step, no kernel), and l1 on the plain step for the agreement gate."""
+    import torch
+
+    from repro_torch.core.mapmaking import build_mapmaking_plan, solve_mapmaking
+
+    p = map_problem(dev, seed, size)
+    prob = map_recovery(p)
+    out = {"priors": check_priors(dev, p)}
+    for name, prox, tail in (("l1", None, None), ("tv", "tv", None), ("l1 plain", None, "plain")):
+        pl = build_mapmaking_plan(p, prox=prox, tail=tail)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z, m = solve_mapmaking(p, plan=pl, iters=iters, **MAP_KW)
+        torch.cuda.synchronize()
+        ms_iter = (time.perf_counter() - t0) * 1e3 / iters
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dev_ms, host_ms = step_times(prob, pl, calls=2 if prox else 5, **MAP_KW)
+        ops = profile_steps(prob, pl, f"Path M {name}", steps=2, **MAP_KW)
+        out[name] = dict(z=z, map=m["map"], psnr=m["psnr_db"].item(), rms=m["rms"].item(),
+                         ms_iter=ms_iter, dev_ms=dev_ms, host_ms=host_ms, peak_gib=peak,
+                         counts=counts, ops=ops["launches"], tail=pl.tail)
+        print(f"Path M prior={name}: {size}x{size} sky x {len(p.shifts)} dithered frames "
+              f"(n = {size * size}), {iters} iters, plan tail={pl.tail}"
+              f"{' (l1 only: the plain tail runs)' if prox else ''}: map PSNR "
+              f"{out[name]['psnr']:.2f} dB, RMS {out[name]['rms']:.4e}; {ms_iter:.4f} ms/iter "
+              f"(solve with its per-iteration record, host clock), per step device "
+              f"{dev_ms:.4f} ms / host issue {host_ms:.4f} ms / {ops['launches']:g} device "
+              f"operations, peak memory {peak:.3f} GiB, launches {counts}")
+        if z.shape != prob.x_true.shape or not bool(torch.isfinite(m["map"]).all()):
+            fail(f"Path M ({name}) result has shape {tuple(z.shape)} or non-finite values")
+    zero = dict.fromkeys(out["l1"]["counts"], 0)
+    want = dict(zero, spectral_pointwise=iters, cpadmm_tail=iters)
+    if out["l1"]["counts"] != want or out["tv"]["counts"] != zero:
+        fail(f"Path M launch counts {out['l1']['counts']} (l1) / {out['tv']['counts']} (tv); "
+             f"expected {want} / none")
+    mk, mp = out["l1"]["map"], out["l1 plain"]["map"]
+    diff = ((mk - mp).norm() / mp.norm()).item()
+    print(f"Path M: l1 kernel step vs plain step, map norm-rel {diff:.3e} (tol {TOL_PATHS:.0e});"
+          f" TV over l1 {out['tv']['psnr'] - out['l1']['psnr']:+.2f} dB (not gated)")
+    if not diff <= TOL_PATHS:
+        fail(f"Path M l1 kernel and plain steps disagree in the map: {diff}")
+    out["card_cpu"] = tv_card_vs_cpu(dev, seed)
+    out["problem"] = p
+    return out
+
+
+def tv_card_vs_cpu(dev, seed, size=256, iters=100) -> float:
+    """The TV map-making solve at size x size x 4 frames on the card against
+    the same solve on the CPU, from the same arrays."""
+    import torch
+
+    from repro_torch.core.mapmaking import build_mapmaking_plan, solve_mapmaking
+
+    cpu = map_problem("cpu", seed, size)
+    card = moved(cpu, dev)
+    z_cpu, _ = solve_mapmaking(cpu, plan=build_mapmaking_plan(cpu), iters=iters, **MAP_KW)
+    z_card, _ = solve_mapmaking(card, plan=build_mapmaking_plan(card), iters=iters, **MAP_KW)
+    diff = ((z_card.cpu() - z_cpu).norm() / z_cpu.norm()).item()
+    print(f"Path M: TV solve {size}x{size} x 4 frames, {iters} iters, card vs CPU norm-rel "
+          f"{diff:.3e} (tol {TOL_PATHS:.0e})")
+    if not bool(torch.isfinite(z_card).all()) or not diff <= TOL_PATHS:
+        fail(f"Path M: the TV solve on the card disagrees with the CPU: {diff}")
+    return diff
+
+
+def path_md1(dev, p, iters=100) -> dict:
+    """Path M's TV problem on a one-rank NCCL mesh (rfft, the hybrid step:
+    the fused transform core, then TV on the gathered signals), fp32 and
+    bf16 wires, against the local TV solve on the card."""
+    import torch
+
+    from repro_torch.core.mapmaking import build_mapmaking_plan, solve_mapmaking
+    from repro_torch.dist.compat import make_mesh
+
+    mesh = make_mesh((1,), ("model",), device=dev)
+    z_local, _ = solve_mapmaking(p, plan=build_mapmaking_plan(p), iters=iters, **MAP_KW)
+    prob = map_recovery(p)
+    out = {}
+    for wire in ("fp32", "bf16"):
+        pl = build_mapmaking_plan(p, mesh, rfft=True, wire_dtype=wire)
+        if pl.wire_dtype != wire:
+            fail(f"Path MD1: the {wire} wire fell back to {pl.wire_dtype} in the plan's guard")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z, m = solve_mapmaking(p, plan=pl, iters=iters, **MAP_KW)
+        torch.cuda.synchronize()
+        ms_iter = (time.perf_counter() - t0) * 1e3 / iters
+        counts = read_counts()
+        dev_ms, host_ms = step_times(prob, pl, calls=2, **MAP_KW)
+        diff = ((z - z_local).norm() / z_local.norm()).item()
+        out[wire] = dict(counts=counts, diff=diff, ms_iter=ms_iter, dev_ms=dev_ms,
+                         host_ms=host_ms, psnr=m["psnr_db"].item())
+        print(f"Path MD1 wire={wire}: mesh 1 (NCCL), {pl.config.describe()}, {iters} iters, "
+              f"{ms_iter:.4f} ms/iter (solve, host clock), per step device {dev_ms:.4f} ms / "
+              f"host issue {host_ms:.4f} ms, map PSNR {out[wire]['psnr']:.2f} dB, launches "
+              f"{counts}, z vs the local TV solve norm-rel {diff:.3e}")
+        if not bool(torch.isfinite(z).all()):
+            fail(f"Path MD1 ({wire}) has non-finite values")
+        tol = TOL_PATHS if wire == "fp32" else WIRE_ERROR_BOUND
+        if not diff <= tol:
+            fail(f"Path MD1 ({wire}) disagrees with the local TV solve: {diff} > {tol}")
+        # 2 transposes per fused iteration and 2 for the one metric record; TV
+        # takes the plain tail, so no cpadmm_tail launch
+        n_pack = 2 * iters + 2 if wire != "fp32" else 0
+        want = dict(dict.fromkeys(counts, 0), pack_wire=n_pack, unpack_wire=n_pack)
+        if counts != want or (wire != "fp32" and not n_pack):
+            fail(f"Path MD1 ({wire}) launch counts {counts}; expected {want}")
+    return out
+
+
 def _d2_rank(seed, size, frames, iters):
     """One rank of Path D2: the 2x2 mesh solve at fp32 and bf16 wires; the
     gathered x-hat, this rank's launch counts and host ms per iteration."""
@@ -1439,6 +1646,75 @@ def cli_phase() -> dict:
     return dict(counts=counts, mse=mse, psnr=psnr)
 
 
+def cli_priors_phase() -> dict:
+    """``--prior`` through the recovery CLI on the card: non-negative l1,
+    wavelet and TV at n = 65536 = 256^2, B = 4 (the plain step: no kernel
+    launch), then a 512 x 512 deblur under TV as a subprocess.  Each must
+    end with finite per-signal or per-frame metrics."""
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    zero_counts()
+    mse = {}
+    for prior in ("nonneg-l1", "wavelet", "tv"):
+        with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
+            out = run_cli(["--n", "65536", "--batch", "4", "--iters", "200", "--chunk", "100",
+                           "--prior", prior, "--ckpt-dir", ckpt_dir])
+        mse[prior] = _floats(out.split("per-signal MSE:")[-1])
+        if f"prior={prior}" not in out or len(mse[prior]) != 4 or not all(
+                math.isfinite(v) for v in mse[prior]):
+            fail(f"CLI --prior {prior}: per-signal MSE {mse[prior]}")
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"CLI priors launched kernels: {counts}")
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
+        out = run_cli_process(["--deblur", "--size", "512", "--batch", "2", "--prior", "tv",
+                               "--iters", "200", "--chunk", "100", "--ckpt-dir", ckpt_dir])
+    psnr = [_floats(ln.split("PSNR")[1])[0] for ln in out.splitlines() if "PSNR" in ln]
+    if "prior=tv" not in out or len(psnr) != 2 or not all(math.isfinite(v) for v in psnr):
+        fail(f"CLI --deblur --prior tv: per-frame PSNR {psnr}")
+    return dict(counts=counts, mse=mse, psnr=psnr)
+
+
+# (script, arguments): each example at its defaults, the distributed one also
+# on four gloo ranks sharing the card
+EXAMPLES = (
+    ("torch_quickstart.py", []),
+    ("torch_deblur_astronomy.py", []),
+    ("torch_deblur_multiframe.py", []),
+    ("torch_distributed_recovery.py", []),
+    ("torch_distributed_recovery.py", ["--fake-devices", "4"]),
+    ("torch_mapmaking_herschel.py", []),
+)
+
+
+def examples_phase() -> dict:
+    """Run the port's examples on the card as a user does, each as its own
+    process from a scratch directory (their renders and checkpoints land
+    there); every one must exit 0, and the quickstart must recover with
+    both methods."""
+    import os
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as cwd:
+        for script, args in EXAMPLES:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ROOT / "examples" / script), *args],
+                                  cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            print(f"$ python examples/{script} {' '.join(args)}   [{wall:.2f} s, exit "
+                  f"{proc.returncode}]\n{proc.stdout.rstrip()}")
+            if proc.returncode != 0:
+                fail(f"example {script} {args} exited {proc.returncode}: {proc.stderr[-3000:]}")
+            out[" ".join([script, *args])] = dict(wall_s=wall, stdout=proc.stdout)
+    quick = out["torch_quickstart.py"]["stdout"]
+    if quick.count("-> recovered") != 2:
+        fail("examples: the quickstart did not recover with both methods")
+    return out
+
+
 KERNEL_SOURCES = {
     "spectral_pointwise": ("triton", "src/repro_torch/kernels/spectral_pointwise/kernel.py",
                            "src/repro/kernels/spectral_pointwise/kernel.py:50"),
@@ -1516,8 +1792,12 @@ def main() -> int:
     c_below = path_c(dev, torch.Generator().manual_seed(3), n=below, name=f"C{below}")
     f = path_f(dev, b)
     d1 = path_d1(dev, 1, a["kernel"]["x"])
+    m = path_m(dev, 6)
+    md1 = path_md1(dev, m.pop("problem"))
     d2 = path_d2(dev, 1)
     cli = cli_phase()
+    cli_priors = cli_priors_phase()
+    examples_phase()
     e1 = path_e1(dev, 4)
     e2 = path_e2(e1)
     e4 = path_e4(e1)
@@ -1525,12 +1805,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     e3 = path_e3(dev, 5)
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
+    m_counts = {k: m["l1"]["counts"][k] + m["tv"]["counts"][k] for k in m["l1"]["counts"]}
+    md1_counts = {k: md1["fp32"]["counts"][k] + md1["bf16"]["counts"][k]
+                  for k in md1["fp32"]["counts"]}
     by_path = {"A": a["kernel"]["counts"], "B": b["kernel"]["counts"],
                "C": c["kernel"]["counts"], f"B{below}": b_below["kernel"]["counts"],
                f"C{below}": c_below["kernel"]["counts"], "F": f["kernel"]["counts"],
-               "D1": d1_counts, "D2": d2["counts"],
-               "CLI": cli["counts"], "E1": e1["counts"], "E2": e2["counts"],
-               "E3": e3["counts"], "E4": e4["counts"]}
+               "D1": d1_counts, "M": m_counts, "MD1": md1_counts, "D2": d2["counts"],
+               "CLI": cli["counts"], "CLI priors": cli_priors["counts"], "E1": e1["counts"],
+               "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

@@ -14,6 +14,7 @@ from .circulant import (  # noqa: F401
     partial_romberg_circulant,
     random_omega,
     romberg_circulant,
+    shift_circulant,
 )
 from .soft_threshold import soft_threshold  # noqa: F401
 from .solvers import (  # noqa: F401

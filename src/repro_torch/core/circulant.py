@@ -358,6 +358,18 @@ def airy_blur(n: int, radius: float, dtype=torch.float32, device=None) -> Circul
     return Circulant.from_first_row(intensity / intensity.sum())
 
 
+def shift_circulant(n: int, shift: int, dtype=torch.float32, device=None) -> Circulant:
+    """The raster-offset operator S_s with ``S_s x = roll(x, s)``: first
+    column e_{s mod n}, unit-modulus spectrum.  Composing ``blur @ S_s``
+    expresses one offset frame of a map-making scan
+    (:mod:`repro_torch.core.mapmaking`) as a single circulant."""
+    if n <= 0:
+        raise ValueError(f"shift circulant needs n > 0; got n={n}")
+    col = torch.zeros(n, dtype=dtype, device=resolve_device(device))
+    col[int(shift) % n] = 1.0
+    return Circulant.from_first_col(col)
+
+
 def compose_sensing_blur(sense: Circulant, blur: Circulant) -> Circulant:
     """A = C @ B — still circulant (the key Sec. 7 observation)."""
     if sense.n != blur.n:

@@ -1,4 +1,5 @@
-"""Deterministic synthetic data: k-sparse signals, starfield images, tokens.
+"""Deterministic synthetic data: k-sparse signals, starfield and extended-emission
+images, tokens.
 
 Port of the recovery half of ``repro/data/synthetic.py`` and its LM token
 stream.  Each function
@@ -68,6 +69,49 @@ def starfield(
     # Kill sub-perceptual blob tails so the image stays genuinely sparse
     # (the paper's premise: most night-sky pixels are black).
     return torch.where(img < 0.02, torch.zeros_like(img), img)
+
+
+def extended_emission(
+    gen: torch.Generator,
+    h: int = 256,
+    w: int = 256,
+    n_sources: int = 3,
+    background: float = 0.05,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Piecewise-constant extended-emission map (a Herschel-style dust or
+    cloud field): ``n_sources`` flat-topped disks of random centre, radius
+    and intensity over a faint uniform background.  The complement of
+    :func:`starfield`: almost nowhere zero but gradient-sparse, the regime
+    where the TV prior (``repro_torch.ops.prox.TVProx``) beats the paper's
+    l1 threshold.  Intensities in [0, 1]."""
+    device = resolve_device(device)
+    params = torch.rand(n_sources, 4, generator=gen, dtype=dtype, device=gen.device)
+    return _paint_disks(params.to(device), h, w, background)
+
+
+def _paint_disks(params: torch.Tensor, h: int, w: int, background: float) -> torch.Tensor:
+    """The disks of :func:`extended_emission` from its (n_sources, 4) draws in
+    [0, 1) (centre y, centre x, radius, intensity), painted in order in the
+    draws' dtype and on their device.
+
+    The reference's compiler fuses each ``a + b * p`` into one multiply-add,
+    rounded once; the same sum of the constants in the draws' dtype, formed
+    in float64 and rounded back, gives its numbers bit for bit."""
+    dtype, device = params.dtype, params.device
+    yy = torch.arange(h, dtype=dtype, device=device)[:, None]
+    xx = torch.arange(w, dtype=dtype, device=device)[None, :]
+    img = torch.full((h, w), background, dtype=dtype, device=device)
+    as_dtype = lambda v: float(torch.tensor(v, dtype=dtype))
+    fused = lambda a, b, q: (as_dtype(a) + as_dtype(b) * q.double()).to(dtype)
+    for p in params:
+        cy, cx = p[0] * h, p[1] * w
+        r = fused(0.10, 0.18, p[2]) * min(h, w)
+        amp = fused(0.4, 0.6, p[3])
+        inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        img = torch.where(inside, torch.maximum(img, amp), img)
+    return img.clamp(0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -16,10 +16,17 @@ import torch
 
 from .core.admm import CpadmmState
 from .core.circulant import Circulant, DenseOperator, PartialCirculant
+from .core.compression import CompressorState
 from .core.deblur import DeblurProblem
+from .core.mapmaking import MapMakingProblem
 from .device import resolve_device
 from .dist.fft import col_block, row_block
 from .dist.recovery import DistCpadmmState
+from .ops.plan import PlanConfig
+from .ops.prox import prox_from_dict
+
+# the reference's tail names -> the port's
+_TAILS = {"jnp": "plain", "pallas": "kernel"}
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -55,6 +62,43 @@ def deblur_problem_from_numpy(
         y=_tensor(y, device),
         image=_tensor(image, device),
     )
+
+
+def mapmaking_problem_from_numpy(
+    col, spec, omega, blur_col, blur_spec, y, image, sky, shifts, device=None
+) -> MapMakingProblem:
+    """The reference's ``MapMakingProblem``: its ``deblur`` problem's arrays
+    (the shifted frame stack as ``image``), the true ``sky`` and the
+    per-frame raster ``shifts``."""
+    return MapMakingProblem(
+        deblur=deblur_problem_from_numpy(col, spec, omega, blur_col, blur_spec, y, image,
+                                         device),
+        sky=_tensor(sky, device),
+        shifts=tuple(int(s) for s in shifts),
+    )
+
+
+def compressor_state_from_numpy(col, omega, residual, device=None) -> CompressorState:
+    """The reference's ``CompressorState`` (its spec is plain numbers, and a
+    prox carried by :func:`prox_from_reference_dict`)."""
+    return CompressorState(col=_tensor(col, device), omega=_tensor(omega, device, torch.int64),
+                           residual=_tensor(residual, device))
+
+
+def prox_from_reference_dict(d):
+    """The reference's ``prox.to_dict()`` -> the port's prox (the same
+    kinds and fields)."""
+    return prox_from_dict(d)
+
+
+def plan_config_from_reference_dict(d) -> PlanConfig:
+    """The reference's ``PlanConfig.to_dict()`` -> the port's PlanConfig:
+    the tail ``jnp`` / ``pallas`` becomes ``plain`` / ``kernel``; the
+    hierarchical knobs must be at their defaults
+    (:meth:`PlanConfig.from_dict`)."""
+    d = dict(d)
+    d["tail"] = _TAILS.get(d.get("tail"), d.get("tail"))
+    return PlanConfig.from_dict(d)
 
 
 def plan_parts_from_numpy(spec2d, mask2d, mesh, device=None):

@@ -37,13 +37,15 @@ data come from ``torch.Generator`` seeds (``--seed``), drawn on the CPU so
 that one seed gives the same problem on either device and on every rank;
 they differ from the reference's ``jax.random`` draws, and the default
 checkpoint directories are the port's own so that neither package resumes
-the other's run.  ``--tune`` and the non-l1 priors are not ported yet and
-exit with the ROADMAP item that will bring them.
+the other's run.  ``--prior`` picks the recovery prior (l1, the paper's;
+nonneg-l1, tv or wavelet: the plain step, on a mesh too).  ``--tune`` is
+not ported yet and exits with the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 
@@ -58,6 +60,7 @@ from ..device import resolve_device
 from ..dist import compat
 from ..kernels.wire_pack.ref import WIRE_DTYPES
 from ..ops.plan import plan
+from ..ops.prox import NonNegL1Prox, TVProx, WaveletProx, is_l1
 
 METHODS = ("cpadmm", "ista", "fista")
 # flags of the reference launcher that wait for a later slice: (flag, the
@@ -95,8 +98,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--sensing", default="romberg", choices=("gaussian", "romberg"),
                     help="sensing circulant family (with --deblur)")
     ap.add_argument("--prior", default="l1", choices=("l1", "tv", "wavelet", "nonneg-l1"),
-                    help="recovery prior; only l1 (the paper's soft threshold) "
-                         "is ported yet")
+                    help="recovery prior: l1 (the paper's soft threshold, the "
+                         "kernel steps on the card), or nonneg-l1, tv (needs a "
+                         "square frame) or wavelet (the plain step)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: "
                          "artifacts/torch_recover_ckpt, or "
@@ -125,15 +129,35 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_prior(prior: str):
+def make_prior(prior: str, n: int, size=None):
     """CLI ``--prior`` name -> the prox (``None`` for l1, the paper's soft
-    threshold, which keeps the fused kernel steps eligible)."""
+    threshold, which keeps the fused kernel steps eligible).
+
+    tv needs a 2-D extent: ``size`` (``--size`` under ``--deblur``), else a
+    square ``n``.
+    """
     if prior == "l1":
         return None
-    raise SystemExit(
-        f"--prior {prior} is not ported yet: ROADMAP Queue 1 item 6 (the other "
-        f"priors and scenarios); use --prior l1"
-    )
+    if prior == "nonneg-l1":
+        return NonNegL1Prox()
+    if prior == "wavelet":
+        return WaveletProx()
+    if prior == "tv":
+        if size is not None:
+            return TVProx(shape=(size, size))
+        side = math.isqrt(n)
+        if side * side != n:
+            raise SystemExit(
+                f"--prior tv needs a square frame: n={n} is not a perfect "
+                f"square (use --deblur --size, or a square --n)"
+            )
+        return TVProx(shape=(side, side))
+    raise ValueError(f"unknown prior {prior!r}")
+
+
+def _prior(args):
+    return make_prior(args.prior, args.size * args.size if args.deblur else args.n,
+                      args.size if args.deblur else None)
 
 
 def _generator(seed: int) -> torch.Generator:
@@ -193,7 +217,7 @@ def main(argv=None):
             raise SystemExit(
                 f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}"
             )
-    make_prior(args.prior)
+    _prior(args)  # a bad --prior fails here, before any rank starts
     if args.fake_devices:
         if args.mesh is None:
             raise SystemExit("--fake-devices starts the ranks of a --mesh; pass --mesh too")
@@ -206,7 +230,7 @@ def main(argv=None):
 
 def run(args) -> None:
     """The job on this rank: every rank of a mesh runs it, rank 0 reports."""
-    prox = make_prior(args.prior)
+    prox = _prior(args)
     mesh, batch_axis = parse_mesh(args.mesh, args.device)
     device = mesh.device if mesh is not None else resolve_device(args.device)
     lead = mesh is None or torch.distributed.get_rank() == 0
@@ -242,7 +266,11 @@ def run(args) -> None:
         else:
             pl = plan(op, mesh, n1=args.n1, batch_axis=batch_axis, prox=prox,
                       **plan_knobs(args))
-    say(f"step: tail={pl.tail}" + (" (the hand-written kernels)" if pl.tail == "kernel" else ""))
+    step = f"step: tail={pl.tail}"
+    if pl.tail == "kernel":
+        # the kernel steps bake in the soft threshold; another prior takes the plain step
+        step += " (the hand-written kernels)" if is_l1(prox) else " (l1 only: the plain step runs)"
+    say(step)
     kw = dict(alpha=args.alpha, rho=0.01, sigma=0.01, plan=pl)
     gather = pl.gather_batch if mesh is not None else (lambda t: t)
 

@@ -62,6 +62,7 @@ from ..dist.fft import (
     unlayout_2d,
 )
 from ..kernels.wire_pack.ref import WIRE_DTYPES
+from . import prox as prox_mod
 from . import spectral
 
 TAILS = ("plain", "kernel")
@@ -163,6 +164,55 @@ class PlanConfig:
         if (self.n1 is not None and self.n1 < 1) or (self.n2 is not None and self.n2 < 1):
             raise ValueError(f"n1/n2 must be positive, got {self.n1}/{self.n2}")
         return self
+
+    def to_dict(self) -> dict:
+        """A JSON-safe dict of every knob (the prox by its ``to_dict``)."""
+        d = dataclasses.asdict(self)
+        for key in ("batch_axis", "axis_name"):
+            if isinstance(d[key], tuple):
+                d[key] = list(d[key])
+        d["prox"] = prox_mod.prox_to_dict(self.prox)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PlanConfig":
+        """Inverse of :meth:`to_dict`.  The reference's two hierarchical
+        knobs are accepted at their defaults (``hier_axes=None``,
+        ``inter_wire_dtype='fp32'``): the port has no such exchange yet."""
+        d = dict(d)
+        hier = (d.pop("hier_axes", None), d.pop("inter_wire_dtype", "fp32"))
+        if hier != (None, "fp32"):
+            raise ValueError(
+                f"hier_axes={hier[0]!r} / inter_wire_dtype={hier[1]!r} select the "
+                f"hierarchical (host, device) exchange, which is not ported yet: ROADMAP "
+                f"Queue 1 item 9 step 7"
+            )
+        for key in ("batch_axis", "axis_name"):
+            if isinstance(d.get(key), list):
+                d[key] = tuple(d[key])
+        if d.get("prox") is not None:
+            d["prox"] = prox_mod.prox_from_dict(d["prox"])
+        return cls(**d)
+
+    def describe(self) -> str:
+        """Compact human-readable tag: every knob that changes the step
+        shows (the reference's tag, with the port's tail names)."""
+        parts = [
+            f"n1xn2={self.n1}x{self.n2}" if self.n1 else "n1xn2=auto",
+            f"rfft={'on' if self.rfft else 'off'}",
+            f"overlap={self.overlap}",
+            f"tail={self.tail}",
+        ]
+        if not self.fused:
+            parts.append("unfused")
+        if self.batch_axis is not None:
+            parts.append(f"batch_axis={self.batch_axis}")
+        if self.wire_dtype != "fp32":
+            parts.append(f"wire={self.wire_dtype}")
+        if self.prox is not None:
+            # the prior changes the z-update: every non-default prox shows
+            parts.append(f"prox={self.prox.tag}")
+        return " ".join(parts)
 
 
 class PlannedOperator:
@@ -336,20 +386,18 @@ class ExecutionPlan:
     # -- steppers (consumed by repro_torch.core.solvers) -------------------
     def build_stepper(self, problem, method: str, alpha=1e-4, rho=0.1, sigma=0.1, tau=None,
                       prox=None):
-        """Lower (problem, method) to a ``Stepper`` on this backend."""
-        from .prox import is_l1  # here: ops.prox imports core, whose drivers import this
+        """Lower (problem, method) to a ``Stepper`` on this backend.
 
+        On a mesh an elementwise prior (l1, non-negative l1) acts on this
+        rank's rows as they are; TV and wavelet act on whole signals, so
+        the step hands them this rank's signals gathered (:class:`_LayoutProx`).
+        """
         prox = prox if prox is not None else self.prox
         if not self.is_distributed:
             from ..core.solvers import make_stepper
 
             return make_stepper(problem, method, alpha=alpha, rho=rho, sigma=sigma, tau=tau,
                                 plan=self, prox=prox)
-        if not is_l1(prox):
-            raise NotImplementedError(
-                "only the l1 prior runs on a mesh yet: the other priors and the mesh's "
-                "hybrid prior step are ROADMAP Queue 1 item 6"
-            )
         if method in _ISTA_METHODS:
             return self._ista_stepper(problem, method, alpha, tau, prox)
         if method == "cpadmm":
@@ -371,6 +419,7 @@ class ExecutionPlan:
         tau_v = tau if tau is not None else ista_mod.default_tau(op_rows)
         p = ista_mod.IstaParams(alpha=float(alpha), tau=tau_v)
         step_fn = ista_mod.fista_step if method == "fista" else ista_mod.ista_step
+        prox = prox if prox_mod.is_elementwise(prox) else _LayoutProx(prox, self)
         zeros = torch.zeros_like(y_rows)
         # per-signal momentum, as ista_init: a frozen slot keeps a solo run's schedule
         return Stepper(
@@ -383,7 +432,11 @@ class ExecutionPlan:
 
     def _cpadmm_stepper(self, problem, alpha, rho, sigma, tau, prox=None):
         """Distributed CPADMM: the step functions of
-        :mod:`repro_torch.dist.recovery` on this rank's blocks."""
+        :mod:`repro_torch.dist.recovery` on this rank's blocks.
+
+        A non-elementwise prior takes the reference's hybrid step: the
+        fused transform core (``dist_cpadmm_core``), then the plain tail
+        with the prior on the gathered signals, whatever ``fused`` says."""
         from ..core.solvers import Stepper
         from ..dist.recovery import (
             DistCpadmmParams,
@@ -401,6 +454,8 @@ class ExecutionPlan:
         b_spec = spectral.gram_inverse_spectrum(self.spec2d, p.rho, p.sigma)
         d_diag = torch.where(self.mask2d > 0, 1.0 / (1.0 + p.rho), 1.0 / p.rho).to(pty.dtype)
         step_fn = dist_cpadmm_step_fused if self.fused else dist_cpadmm_step
+        if not prox_mod.is_elementwise(prox):
+            step_fn, prox = dist_cpadmm_step_fused, _LayoutProx(prox, self)
         zeros = torch.zeros_like(pty)
         return Stepper(
             init=lambda: DistCpadmmState(zeros, zeros, zeros, zeros, zeros),
@@ -409,6 +464,27 @@ class ExecutionPlan:
                                    self.wire_dtype, prox=prox),
             extract=self._flat_extract("z"),
         )
+
+
+class _LayoutProx:
+    """A whole-signal prox (TV, wavelet) on this rank's rows of the four-step
+    layout: all-gather the rows over the model axis, ``unlayout_2d`` to the
+    flat signals, apply, ``layout_2d`` back and keep this rank's rows.
+
+    ``layout_2d`` is strided (``A[j1, j2] = x[j1 + n1*j2]``), so a plain
+    reshape would scramble the signal without an error.  Every rank of the
+    model axis repeats the prox on the whole signal (the reference's GSPMD
+    partitions it instead); the batch stays split over the data axis.
+    """
+
+    def __init__(self, prox, plan: "ExecutionPlan"):
+        self._prox, self._plan = prox, plan
+
+    def apply(self, rows: torch.Tensor, gamma) -> torch.Tensor:
+        pl = self._plan
+        flat = unlayout_2d(gather_rows(rows, pl.mesh, pl.axis_name))
+        out = self._prox.apply(flat, gamma)
+        return row_block(layout_2d(out, pl.n1, pl.n2), pl.mesh, pl.axis_name)
 
 
 # the knobs read as plan attributes, as the reference's plan fields do

@@ -120,3 +120,19 @@ def test_port_builders_make_a_recoverable_problem():
         build_multiframe_deblur_problem(g, images[0])
     with pytest.raises(TypeError, match="Mesh"):
         build_deblur_plan(p, mesh=object())
+
+
+def test_shift_circulant_is_roll():
+    from repro.core.circulant import shift_circulant as ref_shift
+    from repro_torch.core.circulant import shift_circulant
+
+    x = torch.arange(8.0)
+    for s in (0, 1, 3, -2, 11):
+        S = shift_circulant(8, s, device="cpu")
+        np.testing.assert_allclose(S.matvec(x).numpy(), torch.roll(x, s).numpy(), atol=1e-6)
+        # the adjoint is the inverse shift (S is a permutation)
+        np.testing.assert_allclose(S.rmatvec(x).numpy(), torch.roll(x, -s).numpy(), atol=1e-6)
+        np.testing.assert_array_equal(S.col.numpy(), np.asarray(ref_shift(8, s).col))
+        assert rel(S.spec, ref_shift(8, s).spec) <= 1e-6
+    with pytest.raises(ValueError, match="n"):
+        shift_circulant(0, 1, device="cpu")

@@ -13,7 +13,8 @@ from repro_torch.device import default_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "matvec_sweep.py"]
+    ROOT / "chip_smoke.py", ROOT / "matvec_sweep.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -39,7 +40,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.configs.registry, repro_torch.configs.minitron_4b, repro_torch.models.lm, "
         "repro_torch.models.steps, repro_torch.kernels.flash_attention.ops, "
         "repro_torch.ops.operator, repro_torch.core.admm, repro_torch.kernels.floor, "
-        "repro_torch.kernels.soft_threshold.ops; "
+        "repro_torch.kernels.soft_threshold.ops, repro_torch.ops.prox, repro_torch.core.mapmaking, "
+        "repro_torch.core.compression; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'triton')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -2,9 +2,9 @@
 
 In-process calls of ``main`` at tiny sizes on the CPU (``--device cpu``),
 mirroring the local cases of ``tests/test_recover_cli.py``: the
-checkpointed resume, the tolerance mode, the deblur workload, the prior
-and method errors.  The reference's distributed and tuning flags are not
-ported yet and must exit naming the ROADMAP item that brings them.
+checkpointed resume, the tolerance mode, the deblur workload, the priors
+and the method errors.  The reference's tuning flag is not ported yet and
+must exit naming the ROADMAP item that brings it.
 """
 
 import pytest
@@ -80,9 +80,41 @@ def test_deblur_workload_checkpointed(tmp_path, capsys):
 
 
 def test_make_prior():
-    assert recover.make_prior("l1") is None
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
-        recover.make_prior("tv")
+    from repro_torch.ops.prox import NonNegL1Prox, TVProx, WaveletProx
+
+    assert recover.make_prior("l1", 256) is None
+    assert isinstance(recover.make_prior("nonneg-l1", 256), NonNegL1Prox)
+    assert isinstance(recover.make_prior("wavelet", 256), WaveletProx)
+    assert recover.make_prior("tv", 256) == TVProx(shape=(16, 16))
+    assert recover.make_prior("tv", 0, size=8) == TVProx(shape=(8, 8))
+    with pytest.raises(SystemExit, match="square"):
+        recover.make_prior("tv", 200)
+
+
+@pytest.mark.parametrize("prior", ["nonneg-l1", "wavelet", "tv"])
+def test_prior_flag_local_sparse_recovery(prior, capsys):
+    recover.main(["--n", "256", "--batch", "1", "--method", "ista", "--iters", "40",
+                  "--tol", "1e-2", "--prior", prior, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"prior={prior}" in out and "per-signal" in out and "tail=plain" in out
+
+
+def test_tv_prior_needs_a_square_frame(tmp_path):
+    with pytest.raises(SystemExit, match="square"):
+        recover.main(["--n", "200", "--prior", "tv", "--device", "cpu", "--fake-devices", "2",
+                      "--mesh", "2", "--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
+
+
+def test_deblur_tv_prior_with_mesh_plan(capfd, tmp_path):
+    """--prior tv builds a TVProx on the frame grid and threads it through
+    build_deblur_plan onto the mesh path (two gloo ranks here)."""
+    recover.main(["--deblur", "--batch", "2", "--size", "16", "--blur-kind", "gaussian",
+                  "--blur-order", "1.0", "--prior", "tv", "--iters", "40", "--chunk", "20",
+                  "--mesh", "1x2", "--fake-devices", "2", "--device", "cpu",
+                  "--ckpt-dir", str(tmp_path / "ck")])
+    out = capfd.readouterr().out
+    assert "prior=tv" in out and out.count("PSNR") == 2
 
 
 def test_method_error_lists_valid_methods(capsys):
@@ -95,9 +127,6 @@ def test_method_error_lists_valid_methods(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--tune"], "Queue 1 item 10"),
     (["--tune", "measure"], "Queue 1 item 10"),
-    (["--prior", "tv"], "Queue 1 item 6"),
-    (["--prior", "wavelet"], "Queue 1 item 6"),
-    (["--prior", "nonneg-l1"], "Queue 1 item 6"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
     with pytest.raises(SystemExit, match=item):
