@@ -64,6 +64,33 @@ no result line):
    (``spawn_fake_devices(4, ..., device="cuda:0")``) on a 2x2 (data x
    model) mesh, the same problem at 200 iterations with ``overlap=2``, fp32
    and bf16 wires, held against a local kernel-step solve;
+7b. Path S — Sec. 6 serving at the serve CLI's defaults: n = 16384, m =
+   n/2, k = n/10, 64 requests from a seeded Poisson stream at 200/s, slots
+   8, round_iters 32, tolerances 3:1 from 1e-3 and 1e-6, max_iters 2000,
+   min_iters 50, CPADMM (alpha 1e-4, rho = sigma = 0.01) on a WallClock:
+   ``warmup`` (the engine captures its round as a CUDA graph), the
+   continuous run (spectral_pointwise and cpadmm_tail counted: once a
+   replayed step each), then ``static_batch_serve`` on the same stream;
+   signals/s, p50/p99, host against device ms a round, the device's idle
+   share; every result against a solo eager ``solve_until`` (x within
+   TOL_PATHS, equal iteration counts), every request converged with MSE <=
+   1e-4; Path S4096: 32 requests of the stream at n = 4096 with
+   ``method="ista"`` (circulant_matvec twice a step, soft_threshold_ista
+   once), held the same way against its solo solves (CPISTA at these
+   settings stops short of 1e-4 in MSE, alone as in the engine, and the
+   reference's does too: printed, not gated); Path S-D1: 32 requests on
+   the one-rank NCCL mesh, an fp32-wire and a bf16-wire bucket (rfft, the
+   kernel tail, eager rounds: cpadmm_tail and both wire_pack kernels
+   counted), fp32 lanes against their solo solve under the same plan, bf16
+   lanes within twice the wire bound;
+7c. Path H — D2's problem on four gloo ranks sharing the card on
+   ``make_hier_mesh(1, 2, 2)`` at ``overlap=2``, 200 iterations: the flat
+   exchange over the factored axis, the two-stage exchange (bit-equal to
+   it) and the two-stage exchange with bf16 inter-host hops (within the
+   wire bound); ms/iter on rank 0 and the bytes a transpose hands each
+   tier; then the serve CLI (``python -m repro_torch.launch.serve``) as a
+   subprocess, ``--n 16384 --requests 16 --compare-static`` and ``--mesh
+   1 --rfft``, its report lines checked;
 8. the recovery CLI (``python -m repro_torch.launch.recover``) as a user
    runs it, with no flag for the step (on the card the plan resolves to
    the kernel step): a checkpointed CPADMM run at its default n = 65536,
@@ -1346,6 +1373,325 @@ def path_d2(dev, seed, size=1024, frames=4, iters=200) -> dict:
     return out
 
 
+# -- Paths S, S4096, S-D1 (Sec. 6 serving), H (the hierarchical exchange) ---
+SERVE_TOLS = (1e-3, 1e-3, 1e-3, 1e-6)  # the serve CLI's default 3:1 mix
+SERVE_KW = dict(alpha=1e-4, rho=0.01, sigma=0.01)  # the serve CLI's defaults
+
+
+def serve_stream(dev, n, requests, method, seed=0):
+    """The serve CLI's defaults: a partial Gaussian operator (m = n/2) from
+    seed ``seed + 1``, a Poisson stream at 200/s, tolerances drawn 3:1 from
+    1e-3 and 1e-6, max_iters 2000, min_iters 50."""
+    import torch
+
+    from repro_torch.core.circulant import partial_gaussian_circulant
+    from repro_torch.serve import synthetic_workload
+
+    op = partial_gaussian_circulant(torch.Generator().manual_seed(seed + 1), n, n // 2,
+                                    normalize=True, device=dev)
+    return op, synthetic_workload(op, requests, rate=200.0, seed=seed, tols=SERVE_TOLS,
+                                  max_iters=2000, min_iters=50, method=method)
+
+
+def _round_clock(engines) -> list:
+    """Wrap each engine's ``run_round`` with the host clock (to its end,
+    which reads the round's age and delta back, so the round has run);
+    -> the list the host ms a round land in."""
+    host = []
+    for eng in engines:
+        run = eng.run_round
+
+        def timed_round(run=run):
+            t0 = time.perf_counter()
+            run()
+            host.append((time.perf_counter() - t0) * 1e3)
+
+        eng.run_round = timed_round
+    return host
+
+
+def _hold_against_solo(name, results, reqs, method, plan=None, bf16=None):
+    """Each served result against a solo eager ``solve_until`` of its request
+    (same contract, rho, sigma, plan; ``bf16`` maps a bf16-wire lane's
+    requests to their plan): x within TOL_PATHS relative (twice the wire
+    bound for a bf16-wire lane) and the same iteration count; -> (the
+    largest relative gap, the largest count gap, per-request MSE by tol)."""
+    from repro_torch.core.solvers import RecoveryProblem, solve_until
+
+    bf16 = bf16 or {}
+    by_id = {r.request_id: r for r in reqs}
+    worst, gap, mse = 0.0, 0, {}
+    for res in results:
+        req = by_id[res.request_id]
+        lane_bf16 = res.request_id in bf16
+        x, used = solve_until(RecoveryProblem(op=req.op, y=req.y), method, tol=req.tol,
+                              max_iters=req.max_iters, min_iters=req.min_iters,
+                              plan=bf16.get(res.request_id, plan), **SERVE_KW)
+        x = x.cpu()
+        rel = ((res.x - x).norm() / x.norm()).item()
+        tol = 2 * WIRE_ERROR_BOUND if lane_bf16 else TOL_PATHS
+        if not rel <= tol:
+            fail(f"Path {name}: {res.request_id} is {rel} from its solo solve (> {tol})")
+        worst = max(worst, rel)
+        gap = max(gap, abs(res.iterations - int(used)))
+        if not lane_bf16 and res.iterations != int(used):
+            fail(f"Path {name}: {res.request_id} took {res.iterations} iterations, its solo "
+                 f"solve {int(used)}")
+        d = res.x - req.x_true.cpu()
+        mse.setdefault(req.tol, []).append((d * d).mean().item())
+    return worst, gap, mse
+
+
+def _serve_report(name, srv, results, reqs, window_s, host_ms, engines):
+    """Print and check a continuous run: the summary line, the recycling
+    counters, host against device ms a round and the device's idle share."""
+    import torch
+
+    from repro_torch.serve import summarize
+
+    s, stats = summarize(results), srv.stats()
+    t = stats["total"]
+    if s["count"] != len(reqs) or s["expired"]:
+        fail(f"Path {name}: {s['count']} results for {len(reqs)} requests, {s['expired']} "
+             f"expired")
+    torch.cuda.synchronize()
+    dev_ms = [a.elapsed_time(b) for eng in engines for a, b in eng.replay_events]
+    busy = sum(dev_ms) / 1e3
+    print(f"Path {name} continuous: {s['signals_per_sec']:.4f} signals/s, p50 "
+          f"{s['p50_latency_s'] * 1e3:.2f} ms, p99 {s['p99_latency_s'] * 1e3:.2f} ms, converged "
+          f"{s['converged']}/{s['count']}, expired {s['expired']}; buckets {stats['buckets']}, "
+          f"admitted {t['admitted']}, recycled {t['recycled']}, rounds {t['rounds']}, "
+          f"slot-iterations {t['slot_iters']}, serve window {window_s * 1e3:.2f} ms")
+    host = sorted(host_ms)
+    line = (f"Path {name} rounds: host ms a round (clock around run_round) median "
+            f"{host[len(host) // 2]:.4f}, mean {sum(host) / len(host):.4f}, max {host[-1]:.4f}")
+    if dev_ms:
+        d = sorted(dev_ms)
+        idle = sum(eng.idle_steps for eng in engines)
+        line += (f"; device ms a round (CUDA events around the replay) median "
+                 f"{d[len(d) // 2]:.4f}, mean {sum(d) / len(d):.4f}, so "
+                 f"{sum(d) / len(d) / engines[0].round_iters:.4f} a step; device idle "
+                 f"{100 * (1 - busy / window_s):.2f}% of the serve window; {idle} of "
+                 f"{t['rounds'] * engines[0].round_iters} replayed steps ran after every "
+                 f"lane had finished")
+    print(line)
+    return s, stats, dev_ms
+
+
+def path_s(dev, n=16384, requests=64, method="cpadmm", name="S") -> dict:
+    """Sec. 6 serving at the serve CLI's defaults on the card: slots 8,
+    round_iters 32, a WallClock; warmup first (it captures the engine's
+    round), then the continuous run with its launches counted, then the
+    static baseline on the same stream and engine; every result against a
+    solo eager solve_until."""
+    from repro_torch.serve import RecoveryServer, WallClock, static_batch_serve, summarize
+
+    op, reqs = serve_stream(dev, n, requests, method)
+    srv = RecoveryServer(slots=8, round_iters=32, clock=WallClock(), **SERVE_KW)
+    t0 = time.perf_counter()
+    srv.warmup(reqs[0])
+    eng = next(iter(srv.engines.values()))
+    print(f"Path {name}: n = {n}, m = {n // 2}, k = {n // 10}, {requests} requests at 200/s, "
+          f"method {method}, slots 8, round_iters 32; engine built, warmed up and captured in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (graphed: {eng.graphed}, step: tail="
+          f"{eng.plan.tail})")
+    if not eng.graphed or eng.plan.tail != "kernel":
+        fail(f"Path {name}: the local engine on the card must replay a captured round on "
+             f"the kernel step")
+    eng.timing = True
+    host_ms = _round_clock([eng])
+    zero_counts()
+    srv.clock = WallClock()
+    t0 = time.perf_counter()
+    results = srv.serve(reqs)
+    window = time.perf_counter() - t0
+    counts = read_counts()
+    s, stats, dev_ms = _serve_report(name, srv, results, reqs, window, host_ms, [eng])
+    steps = stats["total"]["rounds"] * eng.round_iters
+    kernels = (("spectral_pointwise", "cpadmm_tail") if method == "cpadmm"
+               else ("circulant_matvec", "soft_threshold_ista"))
+    per_step = {"spectral_pointwise": 1, "cpadmm_tail": 1, "circulant_matvec": 2,
+                "soft_threshold_ista": 1}
+    want = dict.fromkeys(counts, 0)
+    want.update({k: per_step[k] * steps for k in kernels})
+    print(f"Path {name} launches in the continuous run ({steps} replayed steps): {counts}")
+    if counts != want:
+        fail(f"Path {name} launch counts {counts}; expected {want}")
+    eng.replay_events.clear()
+    host_ms.clear()
+    srv.clock = WallClock()
+    static = summarize(static_batch_serve(reqs, server=srv, clock=WallClock()))
+    ratio = s["signals_per_sec"] / static["signals_per_sec"]
+    print(f"Path {name} static baseline: {static['signals_per_sec']:.4f} signals/s, p50 "
+          f"{static['p50_latency_s'] * 1e3:.2f} ms, p99 {static['p99_latency_s'] * 1e3:.2f} ms; "
+          f"continuous vs static: {ratio:.4f}x signals/s")
+    t0 = time.perf_counter()
+    worst, gap, mse = _hold_against_solo(name, results, reqs, method)
+    print(f"Path {name}: every result against its solo eager solve_until "
+          f"({(time.perf_counter() - t0):.1f} s): x within {worst:.3e} relative, largest "
+          f"iteration-count gap {gap}; MSE against x_true by tol: "
+          + ", ".join(f"{tol:g}: max {max(v):.3e} over {len(v)}" for tol, v in mse.items()))
+    if method == "cpadmm":
+        if s["converged"] != s["count"]:
+            fail(f"Path {name}: {s['count'] - s['converged']} requests did not converge")
+        if max(max(v) for v in mse.values()) > PAPER_TARGET_MSE:
+            fail(f"Path {name}: a request's MSE is above {PAPER_TARGET_MSE}")
+    return dict(counts=counts, summary=s, static=static, ratio=ratio, host_ms=host_ms,
+                dev_ms=dev_ms, worst=worst, gap=gap)
+
+
+def path_s_d1(dev, requests=32) -> dict:
+    """S's stream (n = 16384) on the one-rank NCCL mesh: an fp32-wire bucket
+    and a bf16-wire bucket (rfft, the kernel tail), eager rounds; fp32 lanes
+    against their solo solve under the same plan (TOL_PATHS, equal counts),
+    bf16 lanes within twice the wire bound."""
+    import dataclasses
+
+    from repro_torch.dist.compat import make_mesh
+    from repro_torch.ops.plan import PlanConfig, plan
+    from repro_torch.serve import RecoveryServer, WallClock
+
+    mesh = make_mesh((1,), ("model",))
+    op, base = serve_stream(dev, 16384, requests, "cpadmm")
+    cfgs = [PlanConfig(rfft=True, tail="kernel"),
+            PlanConfig(rfft=True, tail="kernel", wire_dtype="bf16")]
+    reqs = [dataclasses.replace(r, plan_config=cfgs[i % 2]) for i, r in enumerate(base)]
+    srv = RecoveryServer(mesh=mesh, slots=8, round_iters=32, clock=WallClock(), **SERVE_KW)
+    srv.warmup(reqs[0])
+    srv.warmup(reqs[1])
+    engines = list(srv.engines.values())
+    if any(e.graphed for e in engines) or [e.plan.wire_dtype for e in engines] != ["fp32",
+                                                                                   "bf16"]:
+        fail("Path S-D1: the mesh buckets must run eager rounds, one at each wire")
+    host_ms = _round_clock(engines)
+    zero_counts()
+    srv.clock = WallClock()
+    t0 = time.perf_counter()
+    results = srv.serve(reqs)
+    window = time.perf_counter() - t0
+    counts = read_counts()
+    s, stats, _ = _serve_report("S-D1", srv, results, reqs, window, host_ms, engines)
+    print(f"Path S-D1 launches: {counts}")
+    if not (counts["cpadmm_tail"] and counts["pack_wire"] and counts["unpack_wire"]):
+        fail(f"Path S-D1: cpadmm_tail, pack_wire and unpack_wire must all launch: {counts}")
+    plan32 = plan(op, mesh, rfft=True, tail="kernel")
+    plan16 = plan(op, mesh, rfft=True, tail="kernel", wire_dtype="bf16")
+    bf16 = {r.request_id: plan16 for r in reqs if r.plan_config.wire_dtype == "bf16"}
+    worst, gap, mse = _hold_against_solo("S-D1", results, reqs, "cpadmm", plan=plan32,
+                                         bf16=bf16)
+    # a bf16 wire re-rounds each transpose (~2^-9 relative), so a lane's
+    # relative iterate change may never fall below 1e-6: such a lane runs to
+    # max_iters, as its solo solve does; every fp32 lane converges
+    tol_of = {q.request_id: q.tol for q in reqs}
+    stuck = sorted((r.request_id, r.iterations, tol_of[r.request_id]) for r in results
+                   if not r.converged)
+    print(f"Path S-D1: every result against its solo solve_until under its plan: x within "
+          f"{worst:.3e} relative, largest count gap {gap} (bf16 lanes may differ); MSE by "
+          f"tol: " + ", ".join(f"{tol:g}: max {max(v):.3e}" for tol, v in mse.items())
+          + f"; not converged (request, iterations, tol): {stuck}")
+    if any(rid not in bf16 or iters != 2000 for rid, iters, _ in stuck):
+        fail("Path S-D1: every fp32-wire request must converge, and a bf16-wire one that "
+             "does not must run to max_iters")
+    if max(max(v) for v in mse.values()) > PAPER_TARGET_MSE:
+        fail("Path S-D1: a request's MSE is above 1e-4")
+    return dict(counts=counts, summary=s, host_ms=host_ms)
+
+
+def _h_rank(seed, size, frames, iters):
+    """One rank of Path H: D2's problem on make_hier_mesh(1, 2, 2), the flat
+    exchange over the factored axis, the two-stage exchange, and the
+    two-stage exchange with bf16 inter-host hops; overlap 2, rfft, the
+    kernel tail.  -> gathered x-hats, launch counts, ms/iter, the bytes a
+    transpose hands each tier."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import fft as D
+    from repro_torch.dist.compat import make_hier_mesh, rank_device
+    from repro_torch.ops.plan import plan
+
+    dev = rank_device()
+    prob, p = sec7_problem(dev, seed, size, frames)
+    mesh = make_hier_mesh(1, 2, 2)
+    knobs = dict(n1=size, n2=size, rfft=True, overlap=2, tail="kernel")
+    plans = {"flat": plan(p.op, mesh, axis_name=("host", "device"), **knobs),
+             "hier": plan(p.op, mesh, hier_axes=(2, 2), **knobs),
+             "hier-inter-bf16": plan(p.op, mesh, hier_axes=(2, 2), inter_wire_dtype="bf16",
+                                     **knobs)}
+    out = {}
+    for name, pl in plans.items():
+        zero_counts()
+        dist.barrier()
+        x, _, ms_iter = timed_solve(prob, pl, iters, iters, **SEC7_KW)
+        counts = read_counts()
+        D.reset_wire_bytes()
+        pl.operator.matvec(prob.x_true)  # one matvec of the frames: two transposes
+        out[name] = dict(x=x, counts=counts, ms_iter=ms_iter,
+                         wires=(pl.wire_dtype, pl.inter_wire_dtype),
+                         bytes={k: v // 2 for k, v in D.WIRE_BYTES.items()})
+    return out
+
+
+def path_h(dev, seed, size=1024, frames=4, iters=200) -> dict:
+    """Four gloo ranks sharing the card on a (1, 2, 2) hierarchical mesh."""
+    import torch
+
+    from repro_torch.dist.compat import spawn_fake_devices
+
+    t0 = time.perf_counter()
+    ranks = spawn_fake_devices(4, _h_rank, seed, size, frames, iters, device=str(dev))
+    r0 = ranks[0]
+    counts = {}
+    for name, got in r0.items():
+        summed = {k: sum(r[name]["counts"][k] for r in ranks) for k in got["counts"]}
+        for k, v in summed.items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"Path H {name}: (data, host, device) = (1, 2, 2), wires {got['wires']}, "
+              f"{iters} iters, {got['ms_iter']:.4f} ms/iter on rank 0 (host clock), bytes a "
+              f"transpose on rank 0 by tier {got['bytes']}, launches summed over ranks "
+              f"{summed}")
+        if not bool(torch.isfinite(got["x"]).all()):
+            fail(f"Path H {name}: non-finite x-hat")
+    if not torch.equal(r0["hier"]["x"], r0["flat"]["x"]):
+        fail("Path H: the fp32 two-stage exchange is not bit-equal to the flat exchange")
+    rel = ((r0["hier-inter-bf16"]["x"] - r0["hier"]["x"]).norm() / r0["hier"]["x"].norm()).item()
+    print(f"Path H: fp32 hierarchical == flat bit for bit; bf16 inter-host hops vs fp32 "
+          f"norm-rel {rel:.3e} (bound {WIRE_ERROR_BOUND}); {time.perf_counter() - t0:.2f} s")
+    if r0["hier-inter-bf16"]["wires"] != ("fp32", "bf16") or not 0 < rel <= WIRE_ERROR_BOUND:
+        fail(f"Path H: the bf16 inter-host run is {rel} from fp32 or fell back")
+    flat_b, hier_b = r0["flat"]["bytes"], r0["hier"]["bytes"]
+    if hier_b["intra"] != flat_b["flat"] or 2 * hier_b["inter"] != flat_b["flat"]:
+        fail(f"Path H: tier bytes {hier_b} against the flat exchange's {flat_b}")
+    return dict(counts=counts, ms={k: v["ms_iter"] for k, v in r0.items()}, rel=rel)
+
+
+def run_serve_cli(args: list) -> str:
+    """``python -m repro_torch.launch.serve *args`` as its own process; its
+    standard output, echoed; the reference's report lines must be there."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    print(f"$ python -m repro_torch.launch.serve {' '.join(args)}   "
+          f"[{time.perf_counter() - t0:.2f} s, exit {proc.returncode}]\n{proc.stdout.rstrip()}")
+    if proc.returncode != 0:
+        fail(f"serve CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    for line in ("serving ", "continuous: ", "signals/s", "buckets ", "recycled "):
+        if line not in proc.stdout:
+            fail(f"serve CLI: no {line!r} in its output")
+    return proc.stdout
+
+
+def serve_cli_phase() -> None:
+    out = run_serve_cli(["--n", "16384", "--requests", "16", "--compare-static"])
+    if "static baseline: " not in out or "continuous vs static: " not in out:
+        fail("serve CLI: --compare-static printed no baseline or ratio")
+    out = run_serve_cli(["--n", "16384", "--requests", "16", "--mesh", "1", "--rfft"])
+    if "mesh=1 (plan API)" not in out:
+        fail("serve CLI: --mesh 1 did not report the plan API")
+
+
 def timed_calls(fn, iters: int) -> tuple[float, float]:
     """(device ms, host ms) per call of ``fn``, for calls too long to queue
     behind :func:`timed`'s device spin (a prefill issues ~1000 launches, more
@@ -1758,6 +2104,7 @@ LIBRARY_CALLS = {
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1795,6 +2142,14 @@ def main() -> int:
     m = path_m(dev, 6)
     md1 = path_md1(dev, m.pop("problem"))
     d2 = path_d2(dev, 1)
+    t_serve = time.perf_counter()
+    s = path_s(dev)
+    s_below = path_s(dev, n=below, requests=32, method="ista", name=f"S{below}")
+    sd1 = path_s_d1(dev)
+    h = path_h(dev, 1)
+    serve_cli_phase()
+    print(f"Paths S, S{below}, S-D1, H and the serve CLI took "
+          f"{time.perf_counter() - t_serve:.1f} s")
     cli = cli_phase()
     cli_priors = cli_priors_phase()
     examples_phase()
@@ -1812,6 +2167,8 @@ def main() -> int:
                "C": c["kernel"]["counts"], f"B{below}": b_below["kernel"]["counts"],
                f"C{below}": c_below["kernel"]["counts"], "F": f["kernel"]["counts"],
                "D1": d1_counts, "M": m_counts, "MD1": md1_counts, "D2": d2["counts"],
+               "S": s["counts"], f"S{below}": s_below["counts"], "S-D1": sd1["counts"],
+               "H": h["counts"],
                "CLI": cli["counts"], "CLI priors": cli_priors["counts"], "E1": e1["counts"],
                "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"]}
 
@@ -1838,6 +2195,7 @@ def main() -> int:
                 "library_ms": None if r["library_ms"] is None else r["library_ms"][0],
             } for r in checks[name]],
         })
+    print(f"chip_smoke: every phase done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     torch.distributed.destroy_process_group()  # Path D1's world of one
     print(card)

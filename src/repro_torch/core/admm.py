@@ -108,8 +108,10 @@ def cpadmm_setup(op: PartialCirculant, y: torch.Tensor, p: CpadmmParams) -> Cpad
     with zero imaginary part, and the real operand the spectral kernel takes.
     """
     b_spec = op.gram_inverse_spectrum(p.rho, p.sigma).real.contiguous()
+    # index_fill_ takes the value as a kernel argument: no host-to-device
+    # copy, so the setup can run inside a captured CUDA graph (serve/engine.py)
     d_diag = torch.full((op.n,), 1.0 / p.rho, dtype=y.dtype, device=y.device)
-    d_diag[op.omega] = 1.0 / (1.0 + p.rho)
+    d_diag.index_fill_(0, op.omega, 1.0 / (1.0 + p.rho))
     return CpadmmConst(b_spec=b_spec, d_diag=d_diag, Pty=op.project_back(y))
 
 

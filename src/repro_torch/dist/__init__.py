@@ -4,6 +4,8 @@ Port of ``repro/dist`` over ``torch.distributed`` (NCCL on the card, gloo
 on the CPU and for ranks that share one card).  Module map:
 
     compat     ranks, meshes and process groups: ``Mesh``, ``make_mesh``,
+               ``make_hier_mesh`` (data x host x device, with a joint group
+               over the (host, device) transform axis),
                ``init_distributed`` (torchrun, or a world of one),
                ``spawn_fake_devices`` (gloo ranks in child processes).
     fft        the four-step n = n1 x n2 FFT on each rank's blocks:
@@ -12,7 +14,10 @@ on the CPU and for ranks that share one card).  Module map:
                (``make_distributed_fft``, ``make_distributed_rfft``,
                ``make_distributed_matvec``); ``overlap=K`` chunks each
                transpose, ``wire_dtype`` demotes its payload through the
-               ``wire_pack`` kernels.
+               ``wire_pack`` kernels; ``hier=True`` on a (host, device)
+               axis runs each transpose as the two-stage exchange (an
+               intra-host all-to-all, then inter-host hops carrying 1/H of
+               the flat bytes each, ``inter_wire_dtype`` on those hops).
     recovery   the CPADMM step functions (paper Alg. 3) on that layout:
                ``dist_cpadmm_step`` (six all-to-alls an iteration) and
                ``dist_cpadmm_step_fused`` (two).  No driver here:
@@ -20,9 +25,9 @@ on the CPU and for ranks that share one card).  Module map:
                onto these steps and the ``repro_torch.core.solvers``
                drivers run them.
 
-Not ported yet (ROADMAP Queue 1 item 9 step 7): the hierarchical two-stage
-exchange of the reference's ``(host, device)`` meshes.  The reference's
-``sharding`` module belongs to the LM substrate (item 11).
+The reference's ``cpadmm_block`` and its deprecated ``make_dist_cpadmm``
+shim come with the tuner (ROADMAP Queue 1 item 10); its ``sharding``
+module belongs to the LM substrate (item 11).
 """
 
 _LAZY_MODULES = ("compat", "fft", "recovery")
@@ -32,6 +37,7 @@ _LAZY_MODULES = ("compat", "fft", "recovery")
 _LAZY_SYMBOLS = {
     "Mesh": "compat",
     "make_mesh": "compat",
+    "make_hier_mesh": "compat",
     "init_distributed": "compat",
     "spawn_fake_devices": "compat",
     "MODEL_AXIS": "compat",

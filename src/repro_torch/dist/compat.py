@@ -21,6 +21,14 @@ Three ways to start the ranks:
 
 A world size that is not the product of the mesh shape raises; the mesh is
 never shrunk and never moved to the CPU.
+
+A hierarchical mesh (:func:`make_hier_mesh`) has the axes ``("data",
+"host", "device")`` and a transform axis that factors over the ``(host,
+device)`` pair: ``size``, ``index`` and ``group`` take that pair as one
+axis of ``H x D`` ranks, sharded *device-major* (the rank at host ``h``,
+device ``d`` holds block ``d * H + h``), the order in which an intra-host
+all-to-all is the right first stage of the two-stage exchange
+(:mod:`repro_torch.dist.fft`).
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from ..device import resolve_device
 
 MODEL_AXIS = "model"  # the mesh axis a signal's rows and columns shard over
 DATA_AXIS = "data"  # the mesh axis a leading batch of signals shards over
+HOST_AXIS = "host"  # the slow tier of a hierarchical mesh (between hosts)
+DEVICE_AXIS = "device"  # the fast tier of a hierarchical mesh (within a host)
 
 _RANK_DEVICE: Optional[torch.device] = None  # set when this process joins a group
 _MESHES: dict = {}
@@ -55,21 +65,46 @@ class Mesh:
     coords: Tuple[int, ...]  # this rank's coordinate on each axis
     groups: tuple  # one process group per axis, ranks ordered by coordinate
     device: torch.device  # where this rank's tensors live
+    pair_groups: dict = dataclasses.field(default_factory=dict)  # (host, device) -> group
 
     def _axis(self, name: str) -> int:
         if name not in self.axis_names:
             raise ValueError(f"mesh axis {name!r} not in {self.axis_names}")
         return self.axis_names.index(name)
 
-    def size(self, name: str) -> int:
+    def size(self, name) -> int:
+        """The extent of axis ``name``; of a (host, device) pair, H x D."""
+        if isinstance(name, tuple):
+            return math.prod(self.size(a) for a in name)
         return self.axis_sizes[self._axis(name)]
 
-    def index(self, name: str) -> int:
-        """This rank's coordinate on axis ``name``."""
+    def index(self, name) -> int:
+        """This rank's coordinate on axis ``name``; on a (host, device) pair
+        its block ``d * H + h`` (device-major)."""
+        if isinstance(name, tuple):
+            host, dev = name
+            return self.index(dev) * self.size(host) + self.index(host)
         return self.coords[self._axis(name)]
 
-    def group(self, name: str):
+    def group(self, name):
+        if isinstance(name, tuple):
+            if name not in self.pair_groups:
+                raise ValueError(f"this mesh has no joint group over {name}; build it with "
+                                 f"make_hier_mesh")
+            return self.pair_groups[name]
         return self.groups[self._axis(name)]
+
+    def group_order(self, name):
+        """The blocks the ranks of ``group(name)`` hold, in group-rank order:
+        ``None`` where group rank and block agree.  torch orders a group's
+        ranks by global rank (host-major, ``h * D + d``), and the pair's
+        blocks are device-major."""
+        if not isinstance(name, tuple):
+            return None
+        H, D = self.size(name[0]), self.size(name[1])
+        if H == 1 or D == 1:
+            return None
+        return [(g % D) * H + g // D for g in range(H * D)]
 
 
 def rank_device() -> torch.device:
@@ -114,9 +149,10 @@ def init_distributed(device=None) -> torch.device:
     return dev
 
 
-def make_mesh(shape, names, device=None) -> Mesh:
+def make_mesh(shape, names, device=None, pairs=()) -> Mesh:
     """A mesh of ``shape`` with axis ``names`` over the default group,
     joining it first (:func:`init_distributed`) when this process has not.
+    ``pairs``: (host, device) axis pairs that also get a joint group.
 
     Raises ``ValueError`` when the world size is not ``prod(shape)``.
     """
@@ -131,26 +167,50 @@ def make_mesh(shape, names, device=None) -> Mesh:
             f"world has {world}: start that many ranks (torchrun --nproc-per-node, or "
             f"--fake-devices) or pick a mesh of {world}"
         )
-    key = (shape, names)
+    pairs = tuple(tuple(p) for p in pairs)
+    key = (shape, names, pairs)
     if key not in _MESHES:
         coords = _coords(rank, shape)
-        groups = []
-        for a in range(len(shape)):
-            mine = None
-            others = [range(s) for i, s in enumerate(shape) if i != a]
-            for rest in itertools.product(*others):
-                members = []
-                for c in range(shape[a]):
-                    full = list(rest)
-                    full.insert(a, c)
-                    members.append(_rank_of(full, shape))
-                # every rank creates every group, in one order (torch requires it)
-                g = dist.group.WORLD if world == 1 else dist.new_group(members)
-                if rank in members:
-                    mine = g
-            groups.append(mine)
-        _MESHES[key] = Mesh(names, shape, coords, tuple(groups), dev)
+        groups = [_axis_group(rank, world, shape, (a,)) for a in range(len(shape))]
+        joint = {p: _axis_group(rank, world, shape, tuple(names.index(a) for a in p))
+                 for p in pairs}
+        _MESHES[key] = Mesh(names, shape, coords, tuple(groups), dev, joint)
     return _MESHES[key]
+
+
+def make_hier_mesh(data: int, host: int, device: int, on=None) -> Mesh:
+    """A ``data x host x device`` mesh for the hierarchical two-stage
+    transpose, with a joint group over the ``(host, device)`` transform axis.
+
+    Ranks are laid out row-major, so the ``device`` tier is innermost: the
+    ``host * device`` consecutive ranks of one data slice form ``host``
+    groups of ``device`` neighbours, as consecutive ranks on one machine
+    do under ``torchrun``.  ``on`` is :func:`make_mesh`'s
+    ``device``.
+    """
+    return make_mesh((data, host, device), (DATA_AXIS, HOST_AXIS, DEVICE_AXIS),
+                     device=on, pairs=((HOST_AXIS, DEVICE_AXIS),))
+
+
+def _axis_group(rank: int, world: int, shape, axes):
+    """This rank's group over the mesh axes ``axes`` (the other coordinates
+    fixed).  Every rank creates every group, in one order (torch requires
+    it); torch orders a group's ranks by global rank."""
+    mine = None
+    others = [i for i in range(len(shape)) if i not in axes]
+    for rest in itertools.product(*(range(shape[i]) for i in others)):
+        members = []
+        for inner in itertools.product(*(range(shape[a]) for a in axes)):
+            full = [0] * len(shape)
+            for i, c in zip(others, rest):
+                full[i] = c
+            for a, c in zip(axes, inner):
+                full[a] = c
+            members.append(_rank_of(full, shape))
+        g = dist.group.WORLD if world == 1 else dist.new_group(sorted(members))
+        if rank in members:
+            mine = g
+    return mine
 
 
 def _coords(rank: int, shape) -> Tuple[int, ...]:
@@ -168,15 +228,22 @@ def _rank_of(coords, shape) -> int:
     return r
 
 
-def gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+def gather_cat(t: torch.Tensor, group, dim: int, order=None) -> torch.Tensor:
     """All-gather ``t`` over ``group`` and concatenate along ``dim``, in
-    group-rank order (= mesh coordinate); a group of one returns ``t``."""
+    group-rank order (= mesh coordinate), or in block order when ``order``
+    (:meth:`Mesh.group_order`) gives each group rank's block; a group of one
+    returns ``t``."""
     size = dist.get_world_size(group)
     if size == 1:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(size)]
     dist.all_gather(parts, t, group=group)
+    if order is not None:
+        by_block = [None] * size
+        for g, block in enumerate(order):
+            by_block[block] = parts[g]
+        parts = by_block
     return torch.cat(parts, dim=dim)
 
 

@@ -20,7 +20,9 @@ spectrum columns, so every cross-rank byte is a transpose all-to-all.
                             forward and the two inverse transforms each
                             stacked into one: two all-to-alls per iteration.
 
-``rfft=True`` runs both on the half-spectrum transforms.  ``tail='kernel'``
+``rfft=True`` runs both on the half-spectrum transforms; ``hier=True`` on
+a (host, device) ``axis_name`` runs every transpose as the two-stage
+hierarchical exchange (``inter_wire_dtype`` on its inter-host hops).  ``tail='kernel'``
 with the l1 prior runs the elementwise tail as the fused Triton
 ``cpadmm_tail`` on the local blocks; the frequency-domain x-update stays
 plain tensor code, as the reference keeps it in jnp.
@@ -38,15 +40,17 @@ from .compat import MODEL_AXIS
 from .fft import fft2_local, ifft2_local, irfft2_local, rfft2_local
 
 
-def _transforms(rfft: bool, n2: int, cdtype, mesh, axis_name: str, overlap: int = 1,
-                wire_dtype: str = "fp32"):
+def _transforms(rfft: bool, n2: int, cdtype, mesh, axis_name, overlap: int = 1,
+                wire_dtype: str = "fp32", hier: bool = False, inter_wire_dtype: str = "fp32"):
     """(forward, inverse) pair: real row block <-> spectrum column block."""
+    kw = dict(overlap=overlap, wire_dtype=wire_dtype, hier=hier,
+              inter_wire_dtype=inter_wire_dtype)
     if rfft:
-        fwd = lambda r: rfft2_local(r, mesh, axis_name, overlap, wire_dtype)
-        inv = lambda F2: irfft2_local(F2, n2, mesh, axis_name, overlap, wire_dtype)
+        fwd = lambda r: rfft2_local(r, mesh, axis_name, **kw)
+        inv = lambda F2: irfft2_local(F2, n2, mesh, axis_name, **kw)
     else:
-        fwd = lambda r: fft2_local(r.to(cdtype), mesh, axis_name, overlap, wire_dtype)
-        inv = lambda F2: ifft2_local(F2, mesh, axis_name, overlap, wire_dtype).real
+        fwd = lambda r: fft2_local(r.to(cdtype), mesh, axis_name, **kw)
+        inv = lambda F2: ifft2_local(F2, mesh, axis_name, **kw).real
     return fwd, inv
 
 
@@ -98,9 +102,9 @@ class DistCpadmmState(NamedTuple):
 
 
 def dist_cpadmm_step(spec, b_spec, d_diag, pty, state: DistCpadmmState, p: DistCpadmmParams,
-                     mesh, axis_name: str = MODEL_AXIS, rfft: bool = False, overlap: int = 1,
-                     tail: str = "plain", wire_dtype: str = "fp32",
-                     prox=None) -> DistCpadmmState:
+                     mesh, axis_name=MODEL_AXIS, rfft: bool = False, overlap: int = 1,
+                     tail: str = "plain", wire_dtype: str = "fp32", prox=None,
+                     hier: bool = False, inter_wire_dtype: str = "fp32") -> DistCpadmmState:
     """One paper-faithful Alg. 3 iteration on this rank's blocks.
 
     spec / b_spec: the spectrum columns of C and B (half layout when
@@ -108,7 +112,7 @@ def dist_cpadmm_step(spec, b_spec, d_diag, pty, state: DistCpadmmState, p: DistC
     P^T y.  Mirrors ``core.admm.cpadmm_step`` line for line.
     """
     fwd, inv = _transforms(rfft, state.x.shape[-1], spec.dtype, mesh, axis_name, overlap,
-                           wire_dtype)
+                           wire_dtype, hier, inter_wire_dtype)
     apply = lambda s, r: inv(s * fwd(r))
     rhs = p.rho * apply(spec.conj(), state.v + state.mu) + p.sigma * (state.z - state.nu)
     x = apply(b_spec, rhs)
@@ -118,26 +122,28 @@ def dist_cpadmm_step(spec, b_spec, d_diag, pty, state: DistCpadmmState, p: DistC
 
 
 def dist_cpadmm_step_fused(spec, b_spec, d_diag, pty, state: DistCpadmmState,
-                           p: DistCpadmmParams, mesh, axis_name: str = MODEL_AXIS,
+                           p: DistCpadmmParams, mesh, axis_name=MODEL_AXIS,
                            rfft: bool = False, overlap: int = 1, tail: str = "plain",
-                           wire_dtype: str = "fp32", prox=None) -> DistCpadmmState:
+                           wire_dtype: str = "fp32", prox=None, hier: bool = False,
+                           inter_wire_dtype: str = "fp32") -> DistCpadmmState:
     """Fused Alg. 3 iteration: two all-to-alls, one elementwise tail."""
     x, cx = dist_cpadmm_core(spec, b_spec, state.v + state.mu, state.z - state.nu, p, mesh,
-                             axis_name, rfft, overlap, wire_dtype)
+                             axis_name, rfft, overlap, wire_dtype, hier, inter_wire_dtype)
     v, z, mu, nu = _tail(tail, prox)(x, cx, d_diag, pty, state.mu, state.nu, p)
     return DistCpadmmState(x=x, v=v, z=z, mu=mu, nu=nu)
 
 
 def dist_cpadmm_core(spec, b_spec, vmu, znu, p: DistCpadmmParams, mesh,
-                     axis_name: str = MODEL_AXIS, rfft: bool = False, overlap: int = 1,
-                     wire_dtype: str = "fp32"):
+                     axis_name=MODEL_AXIS, rfft: bool = False, overlap: int = 1,
+                     wire_dtype: str = "fp32", hier: bool = False,
+                     inter_wire_dtype: str = "fp32"):
     """The fused step's transform core: ``(v + mu, z - nu) -> (x, C x)``.
 
     One stacked forward transform, the fused local B·C^T multiply, one
     stacked inverse transform.
     """
     fwd_t, inv_t = _transforms(rfft, vmu.shape[-1], spec.dtype, mesh, axis_name, overlap,
-                               wire_dtype)
+                               wire_dtype, hier, inter_wire_dtype)
     w, zf = fwd_t(torch.stack([vmu, znu]))
     xf = b_spec * (p.rho * spec.conj() * w + p.sigma * zf)  # the spectrum of x
     x, cx = inv_t(torch.stack([xf, spec * xf]))

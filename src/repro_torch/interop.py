@@ -93,8 +93,9 @@ def prox_from_reference_dict(d):
 
 def plan_config_from_reference_dict(d) -> PlanConfig:
     """The reference's ``PlanConfig.to_dict()`` -> the port's PlanConfig:
-    the tail ``jnp`` / ``pallas`` becomes ``plain`` / ``kernel``; the
-    hierarchical knobs must be at their defaults
+    the tail ``jnp`` / ``pallas`` becomes ``plain`` / ``kernel``; every
+    other knob, the hierarchical ``hier_axes`` / ``inter_wire_dtype`` and a
+    (host, device) ``axis_name`` included, carries over as it is
     (:meth:`PlanConfig.from_dict`)."""
     d = dict(d)
     d["tail"] = _TAILS.get(d.get("tail"), d.get("tail"))

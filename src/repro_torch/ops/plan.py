@@ -34,10 +34,17 @@ Knobs (one frozen :class:`PlanConfig`):
                 iteration instead of 6)
     batch_axis  the mesh axis a leading batch of signals is split over
     n1, n2      the four-step factorization (auto near sqrt(n))
-    axis_name   the mesh axis the transforms split over
+    axis_name   the mesh axis the transforms split over, or a (host,
+                device) pair of axes (a factored axis, device-major)
     wire_dtype  'fp32' / 'bf16' / 'fp16': the transpose payload precision,
                 guarded by a one-matvec probe that falls back to 'fp32'
                 past :data:`WIRE_ERROR_BOUND`
+    hier_axes   (H, D): run every transpose as the two-stage hierarchical
+                exchange over the (host, device) pair (one intra-host
+                all-to-all, then point-to-point hops between hosts carrying
+                1/H of the flat exchange's bytes each); None = the flat
+                exchange
+    inter_wire_dtype  the payload precision of those inter-host hops alone
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from ..dist.compat import MODEL_AXIS, Mesh, gather_cat
+from ..dist.compat import DEVICE_AXIS, HOST_AXIS, MODEL_AXIS, Mesh, gather_cat
 from ..dist.fft import (
     col_block,
     gather_rows,
@@ -107,6 +114,9 @@ def _factorize(n: int, n1: Optional[int], n2: Optional[int], p: int, rfft: bool)
     return n1, n2
 
 
+_TUPLE_KNOBS = ("batch_axis", "axis_name", "hier_axes")  # JSON lists in to_dict
+
+
 @dataclasses.dataclass(frozen=True)
 class PlanConfig:
     """Every knob of an execution plan, in one frozen hashable value."""
@@ -121,6 +131,8 @@ class PlanConfig:
     n2: Optional[int] = None
     axis_name: Any = MODEL_AXIS
     wire_dtype: str = "fp32"
+    hier_axes: Any = None  # (H, D): two-stage transpose over (host, device)
+    inter_wire_dtype: str = "fp32"  # the inter-host hop payload of the two-stage path
 
     def validate(self, distributed: bool = False) -> "PlanConfig":
         """THE validation site for plan knobs; returns self for chaining."""
@@ -139,11 +151,27 @@ class PlanConfig:
             raise ValueError(
                 f"wire_dtype must be one of {sorted(WIRE_DTYPES)}, got {self.wire_dtype!r}"
             )
-        if not isinstance(self.axis_name, str):
+        if self.inter_wire_dtype not in WIRE_DTYPES:
             raise ValueError(
-                f"axis_name must be one mesh-axis name, got {self.axis_name!r} (the "
-                f"hierarchical (host, device) exchange is not ported yet: ROADMAP "
-                f"Queue 1 item 9 step 7)"
+                f"inter_wire_dtype must be one of {sorted(WIRE_DTYPES)}, got "
+                f"{self.inter_wire_dtype!r}"
+            )
+        if not (isinstance(self.axis_name, str) or (
+            isinstance(self.axis_name, tuple) and len(self.axis_name) == 2
+            and all(isinstance(a, str) for a in self.axis_name)
+        )):
+            raise ValueError(
+                f"axis_name must be one mesh-axis name or a (host, device) pair of "
+                f"names, got {self.axis_name!r}"
+            )
+        if self.hier_axes is not None and not (
+            isinstance(self.hier_axes, tuple) and len(self.hier_axes) == 2
+            and all(isinstance(v, int) and v >= 1 for v in self.hier_axes)
+        ):
+            raise ValueError(
+                f"hier_axes must be a (H, D) tuple of positive ints — the (host, "
+                f"device) factorization of the transform axis — or None for the flat "
+                f"exchange; got {self.hier_axes!r}"
             )
         if not distributed and self.wire_dtype != "fp32":
             raise ValueError(
@@ -152,6 +180,22 @@ class PlanConfig:
                 f"transforms — a local (mesh=None) plan has no wire to "
                 f"compress and would silently ignore it; pass a mesh or "
                 f"leave wire_dtype='fp32' (valid values: "
+                f"{sorted(WIRE_DTYPES)})"
+            )
+        if not distributed and self.hier_axes is not None:
+            raise ValueError(
+                f"hier_axes={self.hier_axes!r} factors the transform axis of a "
+                f"*distributed* (host, device) mesh for the two-stage hierarchical "
+                f"transpose — a local (mesh=None) plan has no mesh axes to factor; pass "
+                f"a hierarchical mesh (repro_torch.dist.compat.make_hier_mesh) or leave "
+                f"hier_axes=None (valid values: None or a (H, D) tuple)"
+            )
+        if self.hier_axes is None and self.inter_wire_dtype != "fp32":
+            raise ValueError(
+                f"inter_wire_dtype={self.inter_wire_dtype!r} compresses the inter-host "
+                f"hops of the *hierarchical* two-stage transpose — without hier_axes "
+                f"there is no inter-host tier and it would be silently ignored; set "
+                f"hier_axes=(H, D) or leave inter_wire_dtype='fp32' (valid values: "
                 f"{sorted(WIRE_DTYPES)})"
             )
         if not distributed and (self.rfft or self.overlap != 1 or self.batch_axis is not None):
@@ -168,7 +212,7 @@ class PlanConfig:
     def to_dict(self) -> dict:
         """A JSON-safe dict of every knob (the prox by its ``to_dict``)."""
         d = dataclasses.asdict(self)
-        for key in ("batch_axis", "axis_name"):
+        for key in _TUPLE_KNOBS:
             if isinstance(d[key], tuple):
                 d[key] = list(d[key])
         d["prox"] = prox_mod.prox_to_dict(self.prox)
@@ -176,18 +220,10 @@ class PlanConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "PlanConfig":
-        """Inverse of :meth:`to_dict`.  The reference's two hierarchical
-        knobs are accepted at their defaults (``hier_axes=None``,
-        ``inter_wire_dtype='fp32'``): the port has no such exchange yet."""
+        """Inverse of :meth:`to_dict` (the reference's dict too, with the
+        port's tail names): JSON lists become the tuples they were."""
         d = dict(d)
-        hier = (d.pop("hier_axes", None), d.pop("inter_wire_dtype", "fp32"))
-        if hier != (None, "fp32"):
-            raise ValueError(
-                f"hier_axes={hier[0]!r} / inter_wire_dtype={hier[1]!r} select the "
-                f"hierarchical (host, device) exchange, which is not ported yet: ROADMAP "
-                f"Queue 1 item 9 step 7"
-            )
-        for key in ("batch_axis", "axis_name"):
+        for key in _TUPLE_KNOBS:
             if isinstance(d.get(key), list):
                 d[key] = tuple(d[key])
         if d.get("prox") is not None:
@@ -209,6 +245,12 @@ class PlanConfig:
             parts.append(f"batch_axis={self.batch_axis}")
         if self.wire_dtype != "fp32":
             parts.append(f"wire={self.wire_dtype}")
+        if self.hier_axes is not None:
+            parts.append(f"hier={self.hier_axes[0]}x{self.hier_axes[1]}")
+        elif isinstance(self.axis_name, tuple):
+            parts.append("hier=flat")  # a factored axis, one flat exchange
+        if self.inter_wire_dtype != "fp32":
+            parts.append(f"inter_wire={self.inter_wire_dtype}")
         if self.prox is not None:
             # the prior changes the z-update: every non-default prox shows
             parts.append(f"prox={self.prox.tag}")
@@ -297,6 +339,11 @@ class ExecutionPlan:
         return self.mesh is not None
 
     @property
+    def hier(self) -> bool:
+        """Whether transposes run as the two-stage hierarchical exchange."""
+        return self.hier_axes is not None
+
+    @property
     def operator(self):
         """The original operator on one device, the mask-form planned
         operator on a mesh."""
@@ -313,7 +360,7 @@ class ExecutionPlan:
         """One circulant application on this rank's rows (two transposes)."""
         local = rmatvec_local if self.rfft else matvec_local
         return local(self.spec2d, rows, self.mesh, self.axis_name, transpose, self.overlap,
-                     self.wire_dtype)
+                     self.wire_dtype, self.hier, self.inter_wire_dtype)
 
     def local_batch(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's signals of a flat (B, n) array: a slice over the data
@@ -461,7 +508,8 @@ class ExecutionPlan:
             init=lambda: DistCpadmmState(zeros, zeros, zeros, zeros, zeros),
             step=lambda s: step_fn(self.spec2d, b_spec, d_diag, pty, s, p, self.mesh,
                                    self.axis_name, self.rfft, self.overlap, self.tail,
-                                   self.wire_dtype, prox=prox),
+                                   self.wire_dtype, prox=prox, hier=self.hier,
+                                   inter_wire_dtype=self.inter_wire_dtype),
             extract=self._flat_extract("z"),
         )
 
@@ -489,7 +537,7 @@ class _LayoutProx:
 
 # the knobs read as plan attributes, as the reference's plan fields do
 for _knob in ("tail", "prox", "rfft", "overlap", "fused", "batch_axis", "n1", "n2",
-              "axis_name", "wire_dtype"):
+              "axis_name", "wire_dtype", "hier_axes", "inter_wire_dtype"):
     setattr(ExecutionPlan, _knob, property(lambda self, k=_knob: getattr(self.config, k)))
 
 
@@ -499,11 +547,10 @@ def _wire_guard(wire_plan: ExecutionPlan) -> ExecutionPlan:
     back to fp32 (``RuntimeWarning``) when the relative error exceeds
     :data:`WIRE_ERROR_BOUND` or is not finite (fp16 overflow).  Every rank
     takes the same decision."""
-    if wire_plan.wire_dtype == "fp32":
+    if (wire_plan.wire_dtype, wire_plan.inter_wire_dtype) == ("fp32", "fp32"):
         return wire_plan
-    ref_plan = dataclasses.replace(
-        wire_plan, config=dataclasses.replace(wire_plan.config, wire_dtype="fp32")
-    )
+    ref_plan = dataclasses.replace(wire_plan, config=dataclasses.replace(
+        wire_plan.config, wire_dtype="fp32", inter_wire_dtype="fp32"))
     n = wire_plan.n1 * wire_plan.n2
     x = torch.randn(n, generator=torch.Generator().manual_seed(0))
     x = (x / x.norm()).to(wire_plan.mask2d.device)
@@ -515,9 +562,11 @@ def _wire_guard(wire_plan: ExecutionPlan) -> ExecutionPlan:
     dist.all_reduce(ok, op=dist.ReduceOp.MIN)
     if ok.item() < 1.0:
         warnings.warn(
-            f"wire_dtype={wire_plan.wire_dtype!r} failed the precision guard: relative "
+            f"wire_dtype={wire_plan.wire_dtype!r} / inter_wire_dtype="
+            f"{wire_plan.inter_wire_dtype!r} failed the precision guard: relative "
             f"matvec error {err:.3e} exceeds the bound {bound:.1e} "
-            f"(REPRO_WIRE_ERROR_BOUND) on some rank — falling back to fp32 wires",
+            f"(REPRO_WIRE_ERROR_BOUND) on some rank — falling back to fp32 wires on "
+            f"both tiers",
             RuntimeWarning,
             stacklevel=3,
         )
@@ -550,34 +599,71 @@ def resolve_tail(tail: Optional[str], op=None, device=None) -> str:
     return "kernel" if device is not None and torch.device(device).type == "cuda" else "plain"
 
 
-def _check_mesh(mesh, cfg: PlanConfig) -> None:
+def _check_mesh(mesh, cfg: PlanConfig) -> PlanConfig:
+    """Check ``cfg`` against the mesh; -> ``cfg`` with its transform axis
+    resolved (:func:`_resolve_axes`)."""
     if not isinstance(mesh, Mesh):
         raise TypeError(
             f"mesh must be a repro_torch.dist.compat.Mesh (make_mesh), got {type(mesh).__name__}"
         )
-    for name in (cfg.axis_name, cfg.batch_axis):
+    axes, hier_axes = _resolve_axes(cfg, mesh)
+    names = (axes,) if isinstance(axes, str) else axes
+    for name in names + (cfg.batch_axis,):
         if name is not None and name not in mesh.axis_names:
             raise ValueError(f"axis {name!r} not in mesh axes {mesh.axis_names}")
+    return dataclasses.replace(cfg, axis_name=axes, hier_axes=hier_axes)
+
+
+def _resolve_axes(cfg: PlanConfig, mesh):
+    """The mesh half of the hierarchical validation (the shape half is
+    :meth:`PlanConfig.validate`): the transform axis — one mesh axis, or the
+    (host, device) pair when the plan is hierarchical or the config names a
+    factored axis — and ``hier_axes`` checked against the mesh's extents.
+    Returns ``(axis_name, hier_axes)``."""
+    if cfg.hier_axes is None and not isinstance(cfg.axis_name, tuple):
+        return cfg.axis_name, None
+    axes = cfg.axis_name if isinstance(cfg.axis_name, tuple) else (HOST_AXIS, DEVICE_AXIS)
+    missing = [a for a in axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(
+            f"hierarchical plans shard the transform over the mesh-axis pair {axes}, but "
+            f"this mesh has axes {tuple(mesh.axis_names)} (missing {missing}); build the "
+            f"mesh with repro_torch.dist.compat.make_hier_mesh(data, host, device) or pass "
+            f"axis_name=(host_axis, device_axis) naming existing axes"
+        )
+    extents = (mesh.size(axes[0]), mesh.size(axes[1]))
+    if cfg.hier_axes is not None and tuple(cfg.hier_axes) != extents:
+        raise ValueError(
+            f"hier_axes={cfg.hier_axes} does not factor this mesh's transform extent: axes "
+            f"{axes} have extents {extents} (H x D = {extents[0] * extents[1]}); valid "
+            f"value: hier_axes={extents}"
+        )
+    return axes, cfg.hier_axes
 
 
 def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail=None,
          fused=True, batch_axis=None, axis_name=MODEL_AXIS, wire_dtype="fp32",
-         prox=None) -> ExecutionPlan:
+         hier_axes=None, inter_wire_dtype="fp32", prox=None) -> ExecutionPlan:
     """Lower ``op`` to an execution plan (see module docstring).
 
     With ``mesh=None`` the identity lowering; with a :class:`Mesh`, ``op``
     must be a (partial) circulant, whose stored half spectrum is laid out
     into this rank's four-step spectrum columns.  ``tail=None`` resolves
-    from the operands' device (:func:`resolve_tail`).
+    from the operands' device (:func:`resolve_tail`).  ``hier_axes=(H, D)``
+    on a :func:`~repro_torch.dist.compat.make_hier_mesh` mesh runs every
+    transpose as the two-stage exchange over the (host, device) pair;
+    ``axis_name=("host", "device")`` without it runs the flat exchange over
+    that factored axis.
     """
     tail = resolve_tail(tail, op) if mesh is None else resolve_tail(
         tail, device=getattr(mesh, "device", None))
     cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
                      batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
+                     hier_axes=hier_axes, inter_wire_dtype=inter_wire_dtype,
                      prox=prox).validate(distributed=mesh is not None)
     if mesh is None:
         return ExecutionPlan(op=op, config=cfg)
-    _check_mesh(mesh, cfg)
+    cfg = _check_mesh(mesh, cfg)
     if hasattr(op, "circ"):  # PartialCirculant: mask = indicator of omega
         circ, omega = op.circ, op.omega
     elif hasattr(op, "spec") and hasattr(op, "col"):  # full Circulant
@@ -608,7 +694,8 @@ def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail=None,
 
 def plan_from_parts(mesh, spec2d, mask2d, *, n1=None, n2=None, rfft=False, overlap=1,
                     tail=None, fused=True, batch_axis=None, axis_name=MODEL_AXIS,
-                    wire_dtype="fp32", prox=None) -> ExecutionPlan:
+                    wire_dtype="fp32", hier_axes=None, inter_wire_dtype="fp32",
+                    prox=None) -> ExecutionPlan:
     """A distributed plan from this rank's blocks instead of an operator:
     ``spec2d`` its spectrum columns (in the ``rfft`` layout), ``mask2d`` its
     rows of the 0/1 measurement mask (``repro_torch.interop.
@@ -620,13 +707,14 @@ def plan_from_parts(mesh, spec2d, mask2d, *, n1=None, n2=None, rfft=False, overl
     tail = resolve_tail(tail, device=spec2d.device)
     cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
                      batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
+                     hier_axes=hier_axes, inter_wire_dtype=inter_wire_dtype,
                      prox=prox).validate(distributed=True)
     if cfg.n1 is None or cfg.n2 is None:
         raise ValueError(
             "plan_from_parts has no operator to infer n from: pass a "
             "concrete n1 x n2 factorization"
         )
-    _check_mesh(mesh, cfg)
+    cfg = _check_mesh(mesh, cfg)
     norm = spec2d.abs().max().reshape(1)
     dist.all_reduce(norm, op=dist.ReduceOp.MAX, group=mesh.group(cfg.axis_name))
     return ExecutionPlan(config=cfg, mesh=mesh, spec2d=spec2d, mask2d=mask2d,

@@ -37,6 +37,12 @@ CONFIGS = {
     "tv": (dict(prox=TVProx(shape=(8, 8), iters=5)), dict(prox=RefTV(shape=(8, 8), iters=5))),
     "wavelet": (dict(prox=WaveletProx(levels=1, wavelet="db4"), n1=N1, n2=N2),
                 dict(prox=RefWavelet(levels=1, wavelet="db4"), n1=N1, n2=N2)),
+    "hier-inter-wire": (dict(rfft=True, n1=N1, n2=N2, hier_axes=(2, 4),
+                             axis_name=("host", "device"), inter_wire_dtype="bf16"),
+                        dict(rfft=True, n1=N1, n2=N2, hier_axes=(2, 4),
+                             axis_name=("host", "device"), inter_wire_dtype="bf16")),
+    "factored-flat": (dict(rfft=True, axis_name=("host", "device")),
+                      dict(rfft=True, axis_name=("host", "device"))),
 }
 
 
@@ -82,19 +88,19 @@ def test_reference_dict_rebuilds_the_port_config(name):
     assert interop.plan_config_from_reference_dict(d) == PlanConfig(**knobs)
 
 
-def test_hier_knobs_only_at_their_defaults():
-    """The port has no hierarchical exchange: the reference's hier_axes and
-    inter_wire_dtype are taken at their defaults and refused otherwise,
-    naming the ROADMAP item that ports them."""
-    base = PlanConfig(rfft=True).to_dict()
-    ok = dict(base, hier_axes=None, inter_wire_dtype="fp32")
-    assert PlanConfig.from_dict(ok) == PlanConfig(rfft=True)
-    for bad in (dict(base, hier_axes=[2, 4]), dict(base, inter_wire_dtype="bf16")):
-        with pytest.raises(ValueError, match="item 9 step 7"):
-            PlanConfig.from_dict(bad)
-    ref = RefConfig(rfft=True, n1=N1, n2=N2, hier_axes=(2, 4), axis_name=("host", "device"))
-    with pytest.raises(ValueError, match="item 9 step 7"):
-        interop.plan_config_from_reference_dict(json.loads(json.dumps(ref.to_dict())))
+def test_reference_hier_dicts_round_trip():
+    """The reference's hierarchical dicts (a two-stage plan with demoted
+    inter-host hops, a factored axis on the flat exchange) rebuild the port's
+    config through interop and survive the port's own JSON round trip."""
+    for ref_knobs in (dict(rfft=True, n1=N1, n2=N2, hier_axes=(2, 4), overlap=2,
+                           axis_name=("host", "device"), inter_wire_dtype="bf16"),
+                      dict(axis_name=("host", "device"), wire_dtype="fp16")):
+        ref = RefConfig(**ref_knobs)
+        cfg = interop.plan_config_from_reference_dict(json.loads(json.dumps(ref.to_dict())))
+        assert cfg == PlanConfig(**ref_knobs)
+        assert isinstance(cfg.axis_name, tuple)
+        assert PlanConfig.from_dict(json.loads(json.dumps(cfg.to_dict()))) == cfg
+        assert cfg.describe() == _ref_describe(ref)
 
 
 def test_execution_plan_config_round_trips():

@@ -13,7 +13,7 @@ from repro_torch.core.compression import compressed_mean, compression_wire_bytes
 from repro_torch.core.mapmaking import build_mapmaking_plan, solve_mapmaking
 from repro_torch.core.solvers import RecoveryProblem, solve
 from repro_torch.dist.compat import make_mesh
-from repro_torch.ops.plan import plan
+from repro_torch.ops.plan import PlanConfig, plan
 
 
 def _lead(out):
@@ -75,3 +75,204 @@ def compression_program(ranks, dim, ratio, steps=30):
         accum += out
     err_avg = float((accum / steps - g_mean).norm() / g_mean.norm())
     return dict(err=err, err_avg=err_avg, out=out, wire=compression_wire_bytes(spec))
+
+
+def _serve_op(n1, n2, seed=1):
+    """The serving programs' operator: partial Gaussian, m = n/2, CPU."""
+    from repro_torch.core.circulant import partial_gaussian_circulant
+
+    n = n1 * n2
+    return partial_gaussian_circulant(torch.Generator().manual_seed(seed), n, n // 2,
+                                      normalize=True, device="cpu")
+
+
+def _served(results):
+    return {r.request_id: dict(x=r.x, iterations=r.iterations, converged=r.converged,
+                               expired=r.deadline_expired, bucket=r.bucket)
+            for r in results}
+
+
+def serve_mesh_program(n1, n2, rho):
+    """``tests/dist_progs/serve_prog.py`` on a gloo model axis: 6 requests,
+    half pinning the rfft plan and half the full-complex one, through 2
+    slots a bucket on ``ManualClock``; then a ``WallClock`` run whose
+    deadlines lapse mid-solve.  Every rank returns its results."""
+    import dataclasses
+
+    from repro_torch.serve import ManualClock, RecoveryServer, WallClock, synthetic_workload
+
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("model",))
+    op = _serve_op(n1, n2)
+    cfg = {True: PlanConfig(rfft=True, n1=n1, n2=n2), False: PlanConfig(rfft=False, n1=n1, n2=n2)}
+    base = synthetic_workload(op, 6, rate=1000.0, seed=5, tols=(1e-3, 1e-5), max_iters=400)
+    reqs = [dataclasses.replace(r, plan_config=cfg[bool(i % 2)]) for i, r in enumerate(base)]
+    srv = RecoveryServer(mesh=mesh, slots=2, round_iters=32, rho=rho, sigma=rho,
+                         clock=ManualClock())
+    out = dict(results=_served(srv.serve(reqs)), stats=srv.stats())
+    # a wall clock: each rank's own differs, rank 0's decides; the deadlines
+    # lapse while the lanes are still far from their (unreachable) tolerance
+    late = synthetic_workload(op, 4, rate=1000.0, seed=6, tols=(1e-12,), max_iters=100000,
+                              deadline_slack=0.5)
+    wall = RecoveryServer(mesh=mesh, slots=2, round_iters=8, rho=rho, sigma=rho,
+                          clock=WallClock())
+    out["wall"] = _served(wall.serve(late))
+    return out
+
+
+def serve_wire_program(n1, n2, rho):
+    """``tests/test_serve.py``'s bf16-wire case on a gloo mesh: a mixed
+    fp32 / bf16-wire stream in two buckets, each result beside its solo
+    ``solve_until`` under the same plan (rank 0 returns)."""
+    import dataclasses
+
+    from repro_torch.core.solvers import solve_until
+    from repro_torch.serve import ManualClock, RecoveryServer, synthetic_workload
+
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("model",))
+    op = _serve_op(n1, n2)
+    cfgs = {"w32": PlanConfig(rfft=True, n1=n1, n2=n2),
+            "w16": PlanConfig(rfft=True, n1=n1, n2=n2, wire_dtype="bf16")}
+    reqs = []
+    for tag, cfg in cfgs.items():
+        for r in synthetic_workload(op, 3, rate=1000.0, seed=7, tols=(1e-3,), max_iters=600):
+            reqs.append(dataclasses.replace(r, request_id=f"{tag}-{r.request_id}",
+                                            plan_config=cfg))
+    srv = RecoveryServer(mesh=mesh, slots=2, round_iters=16, rho=rho, sigma=rho,
+                         clock=ManualClock())
+    results = _served(srv.serve(reqs))
+    plans = {tag: plan(op, mesh, rfft=True, n1=n1, n2=n2, wire_dtype=cfg.wire_dtype)
+             for tag, cfg in cfgs.items()}
+    solo = {}
+    for req in reqs:
+        x, used = solve_until(RecoveryProblem(op=op, y=req.y), "cpadmm", tol=req.tol,
+                              max_iters=req.max_iters, min_iters=req.min_iters, rho=rho,
+                              sigma=rho, plan=plans[req.request_id.split("-")[0]])
+        solo[req.request_id] = dict(x=x, iterations=int(used))
+    return _lead(dict(results=results, solo=solo, stats=srv.stats(),
+                      wires={t: p.wire_dtype for t, p in plans.items()}))
+
+
+def hier_program(shape, iters):
+    """``tests/dist_progs/hier_prog.py`` on gloo ranks, a ``(data, host,
+    device)`` mesh: the hierarchical exchange against the flat one (on the
+    same factored mesh and on a plain ``(data, model)`` mesh) for matvec,
+    rmatvec and every overlap K; each tier's bytes for one matvec; CPADMM
+    solves with fp32 hops, bf16 hops and bf16 on both tiers."""
+    from repro_torch.data.synthetic import sparse_signal
+    from repro_torch.dist import fft as D
+    from repro_torch.dist.compat import make_hier_mesh
+
+    data, H, Dv = shape
+    n1, n2 = 32, 32
+    n = n1 * n2
+    mesh = make_hier_mesh(data, H, Dv)
+    flat_mesh = make_mesh((data, H * Dv), ("data", "model"))
+    op = _serve_op(n1, n2)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(n, generator=gen)
+    x_true = sparse_signal(torch.Generator().manual_seed(0), n, n // 10, device="cpu")
+    yfull = op.project_back(op.matvec(x_true))
+    prob = RecoveryProblem(op=op, y=op.matvec(x_true), x_true=x_true)
+    out = {}
+    for rfft in (False, True):
+        for K in (1, 2, 4):
+            kw = dict(n1=n1, n2=n2, rfft=rfft, overlap=K)
+            single = plan(op, flat_mesh, **kw)
+            flat = plan(op, mesh, axis_name=("host", "device"), **kw)
+            hier = plan(op, mesh, hier_axes=(H, Dv), **kw)
+            ref = single.matvec(x)
+            out[rfft, K] = dict(
+                flat=bool(torch.equal(flat.matvec(x), ref)),
+                hier=bool(torch.equal(hier.matvec(x), ref)),
+                rmatvec=bool(torch.equal(hier.rmatvec(yfull), single.rmatvec(yfull))),
+                describe=hier.config.describe(), axis_name=hier.axis_name)
+            if K == 1:
+                for name, pl in (("flat", flat), ("hier", hier)):
+                    D.reset_wire_bytes()
+                    pl.matvec(x)
+                    out[rfft, "bytes", name] = dict(D.WIRE_BYTES)
+    base = dict(n1=n1, n2=n2, rfft=True, overlap=2)
+    kw = dict(iters=iters, record_every=iters, alpha=1e-4, rho=0.01, sigma=0.01)
+    solves = {
+        "flat": plan(op, mesh, axis_name=("host", "device"), **base),
+        "hier": plan(op, mesh, hier_axes=(H, Dv), **base),
+        "inter16": plan(op, mesh, hier_axes=(H, Dv), inter_wire_dtype="bf16", **base),
+        "both16": plan(op, mesh, hier_axes=(H, Dv), wire_dtype="bf16",
+                       inter_wire_dtype="bf16", **base),
+    }
+    for name, pl in solves.items():
+        out["solve", name] = solve(prob, "cpadmm", plan=pl, **kw)[0]
+        out["wires", name] = (pl.wire_dtype, pl.inter_wire_dtype)
+    for name in ("hier", "inter16"):
+        D.reset_wire_bytes()
+        solves[name].matvec(x)
+        out["bytes", name] = dict(D.WIRE_BYTES)
+    return _lead(out)
+
+
+def hier_degenerate_program(x, factorizations, n1, n2):
+    """``tests/test_dist_equiv.py``'s and ``tests/test_plan.py``'s
+    hierarchical cases on one gloo rank: the (1, 1, 1) (data, host, device)
+    mesh runs the whole two-stage code path (device-major ranks, the pair's
+    index, the reorder) with no inter-host hop.  -> the flat and the
+    hierarchical transforms of ``x`` cut to each factorization, every
+    overlap K, a batch of 3 on the data axis, both matvecs, the plan
+    layer's refusals on a mesh, and a CPADMM solve on each plan."""
+    from repro_torch.dist import fft as D
+    from repro_torch.dist.compat import make_hier_mesh
+
+    hier = make_hier_mesh(1, 1, 1)
+    flat = make_mesh((1,), ("model",))
+    flat2 = make_mesh((1, 1), ("data", "model"))
+    pair = ("host", "device")
+    x = torch.from_numpy(x)
+    out = {}
+    for f1, f2 in factorizations:
+        a = D.layout_2d(x[:f1 * f2], f1, f2)
+        for K in (1, 2, 3):
+            f, i = D.make_distributed_fft(flat, overlap=K)
+            fh, ih = D.make_distributed_fft(hier, axis_name=pair, overlap=K, hier=True)
+            r, ir = D.make_distributed_rfft(flat, f2, overlap=K)
+            rh, irh = D.make_distributed_rfft(hier, f2, axis_name=pair, overlap=K, hier=True)
+            ac = a.to(torch.complex64)
+            out[f1, f2, K] = dict(fft=(fh(ac), f(ac)), ifft=(ih(fh(ac)), i(f(ac))),
+                                  rfft=(rh(a), r(a)), irfft=(irh(rh(a)), ir(r(a))))
+    for f1, f2 in ((32, 16), (15, 16)):
+        xb = D.layout_2d(torch.stack([x[:f1 * f2], -x[:f1 * f2], 2 * x[:f1 * f2]]), f1, f2)
+        r, ir = D.make_distributed_rfft(flat2, f2, overlap=2)
+        rh, irh = D.make_distributed_rfft(hier, f2, axis_name=pair, overlap=2, hier=True)
+        out["batch", f1, f2] = dict(rfft=(rh(xb), r(xb)), irfft=(irh(rh(xb)), ir(r(xb))))
+    op = _serve_op(n1, n2)
+    a = D.layout_2d(x[:n1 * n2], n1, n2)
+    col = D.layout_2d(op.circ.col, n1, n2)
+    for rfft in (False, True):
+        spec = (D.make_distributed_rfft(flat, n2)[0](col) if rfft
+                else D.make_distributed_fft(flat)[0](col.to(torch.complex64)))
+        mv = D.make_distributed_matvec(flat, rfft=rfft)
+        mvh = D.make_distributed_matvec(hier, axis_name=pair, rfft=rfft, hier=True)
+        out["matvec", rfft] = [(mvh(spec, a, t), mv(spec, a, t)) for t in (False, True)]
+
+    def refusal(**kw):
+        try:
+            plan(op, kw.pop("mesh"), n1=n1, n2=n2, **kw)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    out["refusals"] = dict(
+        inter_wire=refusal(mesh=flat, inter_wire_dtype="bf16"),
+        extents=refusal(mesh=hier, hier_axes=(2, 2)),
+        no_pair=refusal(mesh=flat, hier_axes=(1, 1)),
+    )
+    from repro_torch.data.synthetic import sparse_signal
+
+    x_true = sparse_signal(torch.Generator().manual_seed(0), n1 * n2, n1 * n2 // 10,
+                           device="cpu")
+    prob = RecoveryProblem(op=op, y=op.matvec(x_true), x_true=x_true)
+    kw = dict(iters=40, record_every=40, alpha=1e-4, rho=0.01, sigma=0.01)
+    pf = plan(op, flat, n1=n1, n2=n2, rfft=True)
+    ph = plan(op, hier, n1=n1, n2=n2, rfft=True, hier_axes=(1, 1))
+    out["solve"] = dict(hier=ph.hier, axis_name=ph.axis_name,
+                        x=(solve(prob, "cpadmm", plan=ph, **kw)[0],
+                           solve(prob, "cpadmm", plan=pf, **kw)[0]))
+    return out
