@@ -47,6 +47,23 @@ no result line):
    tail="kernel")``, 600 fused iterations with fp32 and with bf16 wires,
    held against Path A's kernel-step x-hat (the bf16 wire runs both
    ``wire_pack`` kernels around every transpose);
+6a. Path T — the plan autotuner (``repro_torch.ops.tune``) on Path D1's
+   problem and mesh: a kernel-tail bf16-wire block walked with the launch
+   counters zeroed around the walk (the kernels the walk heard must equal
+   the counters); ``plan(op, mesh, tune=True, batch=4)`` on a fresh store
+   (candidates, walked groups, the model's top 5 with its terms as the
+   store entry keeps them, wall time),
+   ``tune="measure"`` (the measured top 2, the pick beside the model's, the
+   kernels launched while tuning: cpadmm_tail > 0), the same call warm (one
+   cache hit, nothing scored or measured, the same config), then the tuned
+   plan's 600-iteration solve against Path A's kernel step, its ms/iter
+   beside D1's fp32 plan (the launches of the three tune calls and of the
+   solve read apart, each after its own zeroing); Path T-D2: the
+   measure-mode tune on D2's four gloo ranks (2x2): one config on every
+   rank, the store written once; after each, every wire-kernel signature
+   the tune launched replayed bit-exact against the plain version; then
+   ``--tune measure`` through the recovery CLI twice (the second run hits
+   the store) and ``--tune`` through the serve CLI, as subprocesses;
 6b. Path M — Sec. 7 map-making (Herschel-style) at Path A's frame size: an
    ``extended_emission`` sky of 1024x1024 seen at 4 dithered offsets (0, 1,
    W, W + 1) through one optic (gaussian PSF sigma 1.5, romberg sensing,
@@ -566,23 +583,38 @@ def check_wire(dev, gen, results) -> None:
     columns and unpacks the received chunks joined along the rows (forward
     transpose), and packs (2, 2, 1024, 129) cut along its rows, a ragged
     129-column chunk of its 257, and unpacks them joined along the columns
-    (inverse transpose)."""
+    (inverse transpose).
+
+    The tuner's candidates (Paths T and T-D2, bf16 wires only) send more:
+    D1's full-complex (2, 4, 1024, 1024) payload, and on D2's 2x2 mesh at
+    1024^2 frames a rank's full-complex and rfft payloads, all four frames
+    or two (the batch on the data axis), each at K = 1.  The tunes' other
+    shapes (K > 1 chunks, the unbatched exchanges) are replayed after each
+    tune (:func:`replay_wire_calls`)."""
     import torch
 
     from repro_torch.kernels.wire_pack.ops import WIRE_DTYPES, pack_wire, unpack_wire
     from repro_torch.kernels.wire_pack.ref import pack_wire_ref, unpack_wire_ref
 
-    # (label, payload shape, groups, pack axis, unpack axis)
-    cases = (("path D1: (2, 4, 1024, 513), 1 rank", (2, 4, 1024, 513), 1, -1, -2),
-             ("path D2 forward: (2, 2, 256, 514), 2 ranks", (2, 2, 256, 514), 2, -1, -2),
-             ("path D2 inverse: (2, 2, 1024, 129), 2 ranks", (2, 2, 1024, 129), 2, -2, -1),
-             ("ragged L=1000, special values", (1000,), None, -1, -1))
-    for label, shape, groups, p_axis, u_axis in cases:
+    every, tuner = ("bf16", "fp16", "fp32"), ("bf16",)  # the main path's wire first
+    # (label, payload shape, groups, pack axis, unpack axis, wires)
+    cases = (("path D1: (2, 4, 1024, 513), 1 rank", (2, 4, 1024, 513), 1, -1, -2, every),
+             ("path D2 forward: (2, 2, 256, 514), 2 ranks", (2, 2, 256, 514), 2, -1, -2, every),
+             ("path D2 inverse: (2, 2, 1024, 129), 2 ranks", (2, 2, 1024, 129), 2, -2, -1, every),
+             ("ragged L=1000, special values", (1000,), None, -1, -1, every),
+             ("path T full complex: (2, 4, 1024, 1024), 1 rank", (2, 4, 1024, 1024), 1, -1, -2,
+              tuner)) + tuple(
+        (f"path T-D2 {way}, {kind}{batch}: {shape}, 2 ranks", shape, 2, p_ax, u_ax, tuner)
+        for kind, cols in (("full complex", 1024), ("rfft", 514))
+        for batch, frames in (("", 4), (", batch on data", 2))
+        for way, shape, p_ax, u_ax in (("forward", (2, frames, 512, cols), -1, -2),
+                                       ("inverse", (2, frames, 1024, cols // 2), -2, -1)))
+    for label, shape, groups, p_axis, u_axis, wires in cases:
         z = torch.randn(*shape, generator=gen, device=dev, dtype=torch.complex64)
         if shape == (1000,):
             z = _special_values(z)
         n = z.numel()
-        for wire in ("bf16", "fp16", "fp32"):  # the main path's wire first
+        for wire in wires:
             dt = WIRE_DTYPES[wire]
             pk = lambda z=z, w=wire: pack_wire(z, w, groups=groups, axis=p_axis)
             pr = lambda z=z, w=wire: pack_wire_ref(z, w, groups=groups, axis=p_axis)
@@ -1119,6 +1151,279 @@ def path_d1(dev, seed, x_a, size=1024, frames=4, iters=600) -> dict:
         if counts != want:
             fail(f"Path D1 ({wire}) launch counts {counts}; expected {want}")
     return out
+
+
+# -- Paths T, T-D2: the plan autotuner (repro_torch.ops.tune) on D1's problem --
+TUNE_BATCH = 4  # D1's frames: the tuning workload's batch
+
+
+def _print_ranking(label, ranking) -> None:
+    from repro_torch.ops.plan import PlanConfig
+
+    for r in ranking:
+        t = r["detail"]
+        print(f"  {label} {PlanConfig.from_dict(r['config']).describe()}: memory "
+              f"{t['memory_s'] * 1e3:.4f}, collective {t['collective_s'] * 1e3:.4f}, launches "
+              f"{t['launches']} -> {t['launch_s'] * 1e3:.4f}, modeled total "
+              f"{t['modeled_total_s'] * 1e3:.4f} ms a block")
+
+
+@contextlib.contextmanager
+def recorded_wire_calls():
+    """Record every ``pack_wire`` / ``unpack_wire`` call the mesh exchange
+    makes inside the block: yields a set that fills with (kernel, shape,
+    wire, groups or grouped, axis), the arguments that fix a launch's
+    geometry.  The calls themselves go through unchanged and are counted as
+    ever."""
+    import torch
+
+    from repro_torch.dist import fft
+    from repro_torch.kernels.wire_pack.ops import WIRE_DTYPES
+
+    calls, pack, unpack = set(), fft.pack_wire, fft.unpack_wire
+    wire_of = {dt: name for name, dt in WIRE_DTYPES.items()}
+
+    def pack_recorded(z, wire_dtype, groups=None, axis=-1):
+        calls.add(("pack_wire", tuple(z.shape), wire_dtype, groups, axis % z.ndim))
+        return pack(z, wire_dtype, groups=groups, axis=axis)
+
+    def unpack_recorded(w, out_dtype=torch.complex64, grouped=False, axis=-1):
+        chunk_ndim = w.ndim - (2 if grouped else 1)
+        calls.add(("unpack_wire", tuple(w.shape), wire_of[w.dtype], grouped, axis % chunk_ndim))
+        return unpack(w, out_dtype, grouped=grouped, axis=axis)
+
+    fft.pack_wire, fft.unpack_wire = pack_recorded, unpack_recorded
+    try:
+        yield calls
+    finally:
+        fft.pack_wire, fft.unpack_wire = pack, unpack
+
+
+def replay_wire_calls(dev, seed, calls, label) -> None:
+    """Call the wire kernels again at every recorded signature, on fresh
+    random inputs of its shape, and hold each bit-exact against its plain
+    version: a kernel wrong at a shape that only a tuning candidate sends
+    (a K > 1 chunk, another factorization) could otherwise win a tune
+    unseen, since the tune's blocks run on zeros and drop their results.
+    Called after the path's counts are read, so these launches are not the
+    path's."""
+    import torch
+
+    from repro_torch.kernels.wire_pack.ops import WIRE_DTYPES, pack_wire, unpack_wire
+    from repro_torch.kernels.wire_pack.ref import pack_wire_ref, unpack_wire_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, shape, wire, split, axis in sorted(calls, key=repr):
+        if name == "pack_wire":
+            z = torch.randn(*shape, generator=gen, device=dev, dtype=torch.complex64)
+            got = pack_wire(z, wire, groups=split, axis=axis)
+            want = pack_wire_ref(z, wire, groups=split, axis=axis)
+        else:
+            w = torch.randn(*shape, generator=gen, device=dev).to(WIRE_DTYPES[wire])
+            got = unpack_wire(w, grouped=split, axis=axis)
+            want = unpack_wire_ref(w, grouped=split, axis=axis)
+        if not torch.equal(got, want):
+            fail(f"{label}: {name} at {shape} ({wire}, {split}, axis {axis}) is not bit-equal "
+                 f"to its plain version")
+    kinds = [c[0] for c in calls]
+    print(f"{label}: the wire kernels' {len(calls)} launch signatures (pack_wire "
+          f"{kinds.count('pack_wire')}, unpack_wire {kinds.count('unpack_wire')}) replayed on "
+          f"fresh inputs, each bit-exact against its plain version")
+
+
+def _walk_matches_counters(p, mesh) -> dict:
+    """A kernel-tail, bf16-wire block of D1's plan walked with the launch
+    counters zeroed around the walk alone: the kernels the walk heard must be
+    the wrappers' own counts."""
+    from repro_torch.launch.cost_walk import walk
+    from repro_torch.ops import tune
+    from repro_torch.ops.plan import plan
+
+    pl = plan(p.op, mesh, rfft=True, tail="kernel", wire_dtype="bf16")
+    operands = tune._block_operands(pl, TUNE_BATCH)
+    pl.cpadmm_block(1)(*operands)
+    zero_counts()
+    cost = walk(pl.cpadmm_block(tune.SCORE_ITERS), *operands)
+    counts = {k: v for k, v in read_counts().items() if v}
+    print(f"Path T walk: a kernel-tail bf16-wire block of {tune.SCORE_ITERS} iterations, "
+          f"{cost.launches} launches, {cost.bytes / 1e6:.3f} MB, {cost.flops / 1e9:.4f} GFLOP, "
+          f"wire {cost.collective_bytes}; kernels heard {cost.kernel_launches}, counted {counts}")
+    if cost.kernel_launches != counts or not counts.get("cpadmm_tail"):
+        fail(f"Path T: the walk heard {cost.kernel_launches}, the wrappers counted {counts}")
+    return counts
+
+
+def path_t(dev, seed, x_a, d1, size=1024, frames=4, iters=600) -> dict:
+    """The plan autotuner on D1's problem and one-rank NCCL mesh: model mode
+    on a fresh store, measure mode, the same call warm, then the tuned plan's
+    600-iteration solve against Path A's kernel step.  The counts are zeroed
+    before the model-mode call and read after the warm one (the tune's
+    launches, ``counts``), then zeroed again around the solve
+    (``solve_counts``); the wire kernels' signatures of both are replayed
+    against their plain versions afterwards."""
+    import torch
+
+    from repro_torch.core.deblur import deblur_metrics
+    from repro_torch.dist.compat import make_mesh
+    from repro_torch.ops import tune
+    from repro_torch.ops.plan import plan
+
+    prob, p = sec7_problem(dev, seed, size, frames)
+    mesh = make_mesh((1,), ("model",), device=dev)
+    _walk_matches_counters(p, mesh)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as store_dir, \
+            recorded_wire_calls() as wire_calls:
+        opts = {"cache": tune.PlanCache(str(Path(store_dir) / "plan_cache.json"))}
+        zero_counts()
+        t0 = time.perf_counter()
+        tune.reset_counters()
+        model = plan(p.op, mesh, tune=True, batch=TUNE_BATCH, tune_opts=opts)
+        model_s = time.perf_counter() - t0
+        entry = next(iter(opts["cache"].entries().values()))
+        groups = len({tune._group_key(c)
+                      for c in tune.candidate_configs(p.op, mesh, batch=TUNE_BATCH)})
+        print(f"Path T model mode: {entry['candidates']} candidates in {groups} walked groups "
+              f"({tune.COUNTERS['scored']} walks), tune wall time {model_s:.3f} s, pick "
+              f"{model.config.describe()}")
+        _print_ranking("model top 5:", entry["ranking"])
+        if entry["ranking"][0]["config"] != model.config.to_dict():
+            fail(f"Path T: the model's pick {model.config} is not its ranking's first "
+                 f"{entry['ranking'][0]['config']}")
+        tune.reset_counters()
+        before = read_counts()
+        t0 = time.perf_counter()
+        measured = plan(p.op, mesh, tune="measure", batch=TUNE_BATCH, tune_opts=opts)
+        measure_s = time.perf_counter() - t0
+        during = {k: v - before[k] for k, v in read_counts().items()}
+        entry = next(iter(opts["cache"].entries().values()))
+        print(f"Path T measure mode: {dict(tune.COUNTERS)}, tune wall time {measure_s:.3f} s, "
+              f"pick {measured.config.describe()} (the model's pick: "
+              f"{'the same' if measured.config == model.config else 'another'})")
+        for m in entry["measured_top_k"]:
+            print(f"  measured {m['s'] * 1e3:.4f} ms a {tune.SCORE_ITERS}-iteration block: "
+                  f"{tune.PlanConfig.from_dict(m['config']).describe()}")
+        print(f"Path T launches during the measure-mode tune (walks, warm-ups, timed blocks): "
+              f"cpadmm_tail {during['cpadmm_tail']}, pack_wire {during['pack_wire']}, "
+              f"unpack_wire {during['unpack_wire']}")
+        if not during["cpadmm_tail"] > 0:
+            fail(f"Path T: the measure-mode tune launched no cpadmm_tail ({during})")
+        tune.reset_counters()
+        t0 = time.perf_counter()
+        warm = plan(p.op, mesh, tune="measure", batch=TUNE_BATCH, tune_opts=opts)
+        warm_s = time.perf_counter() - t0
+        print(f"Path T warm: {dict(tune.COUNTERS)}, {warm_s * 1e3:.3f} ms, "
+              f"{warm.config.describe()}")
+        if tune.COUNTERS != {"scored": 0, "measured": 0, "cache_hits": 1, "cache_misses": 0} \
+                or warm.config != measured.config:
+            fail(f"Path T: the warm call {dict(tune.COUNTERS)} / {warm.config} did not hit "
+                 f"the stored {measured.config}")
+        tune_counts = read_counts()
+        print(f"Path T launches of the three tune calls (model, measure, warm) {tune_counts}")
+        zero_counts()
+        x, _, ms_iter = timed_solve(prob, measured, iters, iters, **SEC7_KW)
+        counts = read_counts()
+    replay_wire_calls(dev, seed, wire_calls, "Path T")
+    diff = ((x - x_a).norm() / x_a.norm()).item()
+    tol = TOL_PATHS if measured.wire_dtype == "fp32" else WIRE_ERROR_BOUND
+    print(f"Path T tuned solve: {measured.config.describe()}, {iters} iters, {ms_iter:.4f} "
+          f"ms/iter (solve, host clock) beside D1's fp32 plan {d1['fp32']['ms_iter']:.4f}, "
+          f"PSNR dB {deblur_metrics(p, x)['psnr_db'].tolist()}, x-hat vs Path A kernel step "
+          f"norm-rel {diff:.3e} (tol {tol:.0e}); the solve's launches {counts}")
+    if x.shape != x_a.shape or not bool(torch.isfinite(x).all()):
+        fail(f"Path T result has shape {tuple(x.shape)} or non-finite values")
+    if not diff <= tol:
+        fail(f"Path T's tuned solve disagrees with Path A: {diff} > {tol}")
+    return dict(counts=tune_counts, solve_counts=counts, model=model.config,
+                measured=measured.config, ms_iter=ms_iter, tune_s=(model_s, measure_s, warm_s),
+                diff=diff)
+
+
+def _t_d2_rank(seed, size, frames, store):
+    """One rank of Path T-D2: the measure-mode tune on D2's 2x2 mesh; its
+    pick, counters, store writes and launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.compat import make_mesh, rank_device
+    from repro_torch.ops import tune
+    from repro_torch.ops.plan import plan
+
+    class CountingCache(tune.PlanCache):
+        puts = 0
+
+        def put(self, key, entry):
+            type(self).puts += 1
+            super().put(key, entry)
+
+    _, p = sec7_problem(rank_device(), seed, size, frames)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cache = CountingCache(store)
+    zero_counts()
+    tune.reset_counters()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with recorded_wire_calls() as wire_calls:
+        pl = plan(p.op, mesh, tune="measure", batch=frames, tune_opts={"cache": cache})
+    return dict(config=pl.config.to_dict(), counters=dict(tune.COUNTERS), puts=cache.puts,
+                counts=read_counts(), wall_s=time.perf_counter() - t0,
+                wire_calls=sorted(wire_calls, key=repr))
+
+
+def path_t_d2(dev, seed, size=1024, frames=4) -> dict:
+    """Path T-D2: the measure-mode tune on four gloo ranks sharing the card
+    (2x2): every rank must return one config, and the store is written once."""
+    from repro_torch.dist.compat import spawn_fake_devices
+    from repro_torch.ops import tune
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_dir:
+        store = str(Path(store_dir) / "plan_cache.json")
+        ranks = spawn_fake_devices(4, _t_d2_rank, seed, size, frames, store, device=str(dev))
+        entries = tune.PlanCache(store).entries()
+    r0 = ranks[0]
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+    print(f"Path T-D2: 4 gloo ranks on one card, mesh 2x2, measure mode: pick "
+          f"{tune.PlanConfig.from_dict(r0['config']).describe()}, counters {r0['counters']}, "
+          f"tune wall time on rank 0 {r0['wall_s']:.3f} s, store writes by rank "
+          f"{[r['puts'] for r in ranks]}, launches summed over ranks {counts}")
+    if any(r["config"] != r0["config"] for r in ranks):
+        fail(f"Path T-D2: the ranks picked different configs {[r['config'] for r in ranks]}")
+    if [r["puts"] for r in ranks] != [1, 0, 0, 0] or len(entries) != 1:
+        fail(f"Path T-D2: the store was written {[r['puts'] for r in ranks]} times "
+             f"({len(entries)} entries)")
+    replay_wire_calls(dev, seed, {c for r in ranks for c in r["wire_calls"]}, "Path T-D2")
+    return dict(counts=counts, config=r0["config"], wall_s=r0["wall_s"])
+
+
+def tune_cli_phase() -> None:
+    """``--tune`` through both CLIs as subprocesses on one store: the
+    recovery CLI's measure-mode deblur run twice (the second must hit the
+    store), then the serve CLI on a one-rank mesh."""
+    import os
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        old = os.environ.get("REPRO_TORCH_PLAN_CACHE")
+        os.environ["REPRO_TORCH_PLAN_CACHE"] = str(Path(d) / "plan_cache.json")
+        try:
+            runs = [run_cli_process(["--deblur", "--size", "512", "--mesh", "1", "--rfft",
+                                     "--tune", "measure", "--ckpt-dir", str(Path(d) / run)])
+                    for run in ("first", "second")]
+            serve_out = run_serve_cli(["--n", "16384", "--requests", "16", "--mesh", "1",
+                                       "--tune"])
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_TORCH_PLAN_CACHE")
+            else:
+                os.environ["REPRO_TORCH_PLAN_CACHE"] = old
+    tuned = [[ln for ln in out.splitlines() if ln.startswith("tuned plan [measure]: ")]
+             for out in runs]
+    if [len(t) for t in tuned] != [1, 1] or not tuned[0][0].endswith("(tuned, stored)") \
+            or tuned[1][0] != tuned[0][0].replace("(tuned, stored)", "(cache hit)"):
+        fail(f"tune CLI: the recovery CLI's tuned plans were {tuned}")
+    if any(out.count("PSNR") != 4 for out in runs):
+        fail("tune CLI: a --tune deblur run reported no PSNR for its 4 frames")
+    if not any(ln.startswith("tuned plan [model]: ") for ln in serve_out.splitlines()):
+        fail("tune CLI: the serve CLI reported no tuned plan")
 
 
 # Sec. 7 map-making (Herschel-style): the paper's application at users' size
@@ -2139,6 +2444,11 @@ def main() -> int:
     c_below = path_c(dev, torch.Generator().manual_seed(3), n=below, name=f"C{below}")
     f = path_f(dev, b)
     d1 = path_d1(dev, 1, a["kernel"]["x"])
+    t_tune = time.perf_counter()
+    t = path_t(dev, 1, a["kernel"]["x"], d1)
+    t_d2 = path_t_d2(dev, 1)
+    tune_cli_phase()
+    print(f"Paths T, T-D2 and the --tune CLIs took {time.perf_counter() - t_tune:.1f} s")
     m = path_m(dev, 6)
     md1 = path_md1(dev, m.pop("problem"))
     d2 = path_d2(dev, 1)
@@ -2166,7 +2476,8 @@ def main() -> int:
     by_path = {"A": a["kernel"]["counts"], "B": b["kernel"]["counts"],
                "C": c["kernel"]["counts"], f"B{below}": b_below["kernel"]["counts"],
                f"C{below}": c_below["kernel"]["counts"], "F": f["kernel"]["counts"],
-               "D1": d1_counts, "M": m_counts, "MD1": md1_counts, "D2": d2["counts"],
+               "D1": d1_counts, "T": t["counts"], "T solve": t["solve_counts"],
+               "T-D2": t_d2["counts"], "M": m_counts, "MD1": md1_counts, "D2": d2["counts"],
                "S": s["counts"], f"S{below}": s_below["counts"], "S-D1": sd1["counts"],
                "H": h["counts"],
                "CLI": cli["counts"], "CLI priors": cli_priors["counts"], "E1": e1["counts"],

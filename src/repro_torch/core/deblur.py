@@ -111,9 +111,9 @@ def build_multiframe_deblur_problem(
     return DeblurProblem(op=single.op, blur=single.blur, y=single.op.matvec(x), image=images)
 
 
-def build_deblur_plan(problem: DeblurProblem, mesh=None, *, n1=None, n2=None, rfft=False,
-                      overlap=1, tail=None, fused=True, batch_axis=None,
-                      axis_name=MODEL_AXIS, wire_dtype="fp32", prox=None):
+def build_deblur_plan(problem: DeblurProblem, mesh=None, *, tune=False, batch=None, n1=None,
+                      n2=None, rfft=None, overlap=None, tail=None, fused=None, batch_axis=None,
+                      axis_name=None, wire_dtype=None, prox=None):
     """Lower the joint operator ``A = P (C B)`` to a backend.
 
     With ``mesh=None`` the identity lowering; with a mesh, the composed
@@ -124,22 +124,33 @@ def build_deblur_plan(problem: DeblurProblem, mesh=None, *, n1=None, n2=None, rf
     mesh axis, and a frame stack goes on the mesh's ``data`` axis when it
     has one.  ``tail=None`` resolves from the operands' device
     (:func:`repro_torch.ops.plan.resolve_tail`): the kernels on the card.
+
+    ``tune=True`` / ``tune="measure"`` leaves the choice to the plan
+    autotuner (:mod:`repro_torch.ops.tune`): the knobs passed become pins,
+    the frame stack sizes the tuning batch, and the image's (H, W) grid is
+    offered as an extra candidate factorization.
     """
     knobs = dict(rfft=rfft, overlap=overlap, tail=tail, fused=fused, wire_dtype=wire_dtype,
                  prox=prox)
-    if mesh is None:
+    if mesh is None and not tune:
         # the single validation site rejects distributed-only knobs without a mesh
         return _plan(problem.op, batch_axis=batch_axis, **knobs)
-    if not isinstance(mesh, Mesh):
+    if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a repro_torch.dist.compat.Mesh (make_mesh), got "
                         f"{type(mesh).__name__}")
+    frames = problem.image.ndim > 2
     h, w = problem.image.shape[-2:]
+    if tune:
+        if batch is None and frames:
+            batch = math.prod(problem.image.shape[:-2])
+        return _plan(problem.op, mesh, tune=tune, batch=batch,
+                     tune_opts={"extra_factorizations": [(h, w)]}, n1=n1, n2=n2,
+                     batch_axis=batch_axis, axis_name=axis_name, **knobs)
     if n1 is None and n2 is None:
-        p = mesh.size(axis_name)
+        p = mesh.size(axis_name if axis_name is not None else MODEL_AXIS)
         if h % p == 0 and (rfft or w % p == 0):
             n1, n2 = h, w
-    if (batch_axis is None and problem.image.ndim > 2 and "data" in mesh.axis_names
-            and axis_name != "data"):
+    if batch_axis is None and frames and "data" in mesh.axis_names and axis_name != "data":
         batch_axis = "data"
     return _plan(problem.op, mesh, n1=n1, n2=n2, batch_axis=batch_axis, axis_name=axis_name,
                  **knobs)

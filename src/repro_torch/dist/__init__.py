@@ -25,9 +25,11 @@ on the CPU and for ranks that share one card).  Module map:
                onto these steps and the ``repro_torch.core.solvers``
                drivers run them.
 
-The reference's ``cpadmm_block`` and its deprecated ``make_dist_cpadmm``
-shim come with the tuner (ROADMAP Queue 1 item 10); its ``sharding``
-module belongs to the LM substrate (item 11).
+The iteration block the tuner walks and times is
+``repro_torch.ops.plan.ExecutionPlan.cpadmm_block``.  The deprecated
+``recovery.make_dist_cpadmm`` shim is reachable by its full path only, not
+from this package; the reference's ``sharding`` module belongs to the LM
+substrate (ROADMAP Queue 1 item 11).
 """
 
 _LAZY_MODULES = ("compat", "fft", "recovery")

@@ -30,6 +30,7 @@ plain tensor code, as the reference keeps it in jnp.
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -37,7 +38,7 @@ import torch
 from ..core.admm import cpadmm_tail
 from ..ops.prox import is_l1
 from .compat import MODEL_AXIS
-from .fft import fft2_local, ifft2_local, irfft2_local, rfft2_local
+from .fft import fft2_local, ifft2_local, irfft2_local, layout_2d, rfft2_local, unlayout_2d
 
 
 def _transforms(rfft: bool, n2: int, cdtype, mesh, axis_name, overlap: int = 1,
@@ -162,3 +163,49 @@ def make_dist_spectrum(mesh, axis_name: str = MODEL_AXIS, rfft: bool = False):
 
     return to_spec
 
+
+
+def make_dist_cpadmm(mesh, n1: int, n2: int, iters: int, fused: bool = False,
+                     axis_name=MODEL_AXIS, rfft: bool = False, batch_axis=None,
+                     overlap: int = 1, tail=None, wire_dtype: str = "fp32"):
+    """DEPRECATED shim: ``solver(spec2d, mask2d, y2d, alpha, rho, sigma)``.
+
+    .. deprecated:: 0.1.0
+        Will be removed in repro_torch 0.2.0.  Not exported from
+        ``repro_torch.dist``: reachable only by this full path until then.
+
+    The unified path is::
+
+        pl = repro_torch.ops.plan.plan(op, mesh, rfft=..., overlap=..., tail=...)
+        z, trace = repro_torch.core.solvers.solve(problem, "cpadmm", plan=pl)
+
+    The shim keeps the old call working: it builds a plan from this rank's
+    blocks (``plan_from_parts``: ``spec2d`` its spectrum columns, ``mask2d``
+    its mask rows) and runs the same ``solve`` on ``y2d``, the (..., n1, n2)
+    layout of the scattered measurements ``P^T y``; it returns the recovered
+    signals in that layout, whole, on every rank.  ``tail=None`` resolves
+    from the blocks' device, as the plan does.
+    """
+    warnings.warn(
+        "make_dist_cpadmm is deprecated and will be removed in repro_torch 0.2.0: build a "
+        "repro_torch.ops.plan.plan and call repro_torch.core.solvers.solve(..., "
+        "method='cpadmm', plan=...) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    if batch_axis is not None and batch_axis not in mesh.axis_names:
+        raise ValueError(f"batch_axis {batch_axis!r} not in mesh axes {mesh.axis_names}")
+
+    def run(spec2d, mask2d, y2d, alpha, rho, sigma):
+        from ..core.solvers import RecoveryProblem, solve
+        from ..ops.plan import plan_from_parts
+
+        pl = plan_from_parts(mesh, spec2d, mask2d, n1=n1, n2=n2, rfft=rfft, overlap=overlap,
+                             tail=tail, fused=fused, batch_axis=batch_axis,
+                             axis_name=axis_name, wire_dtype=wire_dtype)
+        prob = RecoveryProblem(op=pl.operator, y=unlayout_2d(y2d))
+        z, _ = solve(prob, "cpadmm", iters=iters, record_every=iters, alpha=float(alpha),
+                     rho=float(rho), sigma=float(sigma), plan=pl)
+        return layout_2d(pl.gather_batch(z), n1, n2)
+
+    return run

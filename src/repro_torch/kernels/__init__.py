@@ -19,7 +19,22 @@ the kernel or raises — it never falls back.
 ``floor`` (Triton, and ``csrc/floor.cu``) holds two empty kernels, one by
 each route, whose time is the floor under every kernel's; only
 ``chip_smoke.py`` launches them.
+
+A kernel launch goes around the torch dispatcher, so each wrapper also
+reports it (:func:`report_launch`) to the cost walk of
+:mod:`repro_torch.launch.cost_walk`, when one is running.
 """
+
+# set by repro_torch.launch.cost_walk.walk while it runs, None otherwise
+_launch_hook = None
+
+
+def report_launch(kernel: str, *tensors) -> None:
+    """Tell a running cost walk that ``kernel`` launched once and moved the
+    bytes of ``tensors``, its operands and results, each once (the count
+    ``chip_smoke.py`` bounds the kernel's time with); a no-op otherwise."""
+    if _launch_hook is not None:
+        _launch_hook(kernel, sum(t.numel() * t.element_size() for t in tensors))
 
 
 def require_cuda_operands(kernel: str, operands: dict, dtypes: dict) -> None:

@@ -6,7 +6,7 @@ import ctypes
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import banded_circulant_matvec_ref
 
 TILE = 1024  # outputs per block of the CUDA kernel (csrc/banded_conv.cu)
@@ -56,6 +56,7 @@ def blur_apply(taps: torch.Tensor, x: torch.Tensor, *, order: int) -> torch.Tens
     if err != 0:
         raise RuntimeError(f"banded_conv kernel launch failed: cudaError {err}")
     blur_apply.launches += 1
+    report_launch("banded_conv", taps[:order], x, y)
     return y
 
 

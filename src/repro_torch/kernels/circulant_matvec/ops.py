@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import circulant_matvec_fft, circulant_matvec_ref
 
 FFT_CROSSOVER = 1 << 13
@@ -71,6 +71,7 @@ def circulant_matvec_direct(col: torch.Tensor, x: torch.Tensor, *, transpose: bo
     if err != 0:
         raise RuntimeError(f"circulant_matvec kernel launch failed: cudaError {err}")
     circulant_matvec_direct.launches += 1
+    report_launch("circulant_matvec", col, x, y)
     return y
 
 

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import cpadmm_tail_ref
 
 
@@ -42,6 +42,7 @@ def fused_cpadmm_tail(x, cx, d_diag, pty, mu, nu, rho, gamma, tau1, tau2):
             flat(x), flat(cx), flat(mu), flat(nu), rho, gamma, tau1, tau2,
         )
     fused_cpadmm_tail.launches += 1
+    report_launch("cpadmm_tail", d_diag, pty, x, cx, mu, nu, *outs)
     return tuple(o.reshape(x.shape) for o in outs)
 
 

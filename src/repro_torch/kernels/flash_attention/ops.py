@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)  # the SIMT kernel's template instances
@@ -102,6 +102,7 @@ def flash_attention_sm90(q, k, v, *, causal: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90 kernel launch failed: cudaError {err}")
     flash_attention_sm90.launches += 1
+    report_launch("flash_attention_sm90", q, k, v, o)
     return o
 
 
@@ -119,6 +120,7 @@ def flash_attention_simt(q, k, v, *, causal: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention_simt.launches += 1
+    report_launch("flash_attention_simt", q, k, v, o)
     return o
 
 

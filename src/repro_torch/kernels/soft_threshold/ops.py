@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import admm_threshold_dual_update_ref, ista_step_update_ref, ista_threshold_update_ref
 
 
@@ -46,6 +46,7 @@ def fused_ista_update(x: torch.Tensor, delta: torch.Tensor, gamma, *, tau=None) 
         out = ista_update(x, delta, _scalar_operand("gamma", gamma, x),
                           None if tau is None else _scalar_operand("tau", tau, x))
     fused_ista_update.launches += 1
+    report_launch("soft_threshold_ista", x, delta, out)
     return out
 
 
@@ -71,6 +72,7 @@ def fused_admm_update(x: torch.Tensor, nu: torch.Tensor, gamma, tau2):
         out = admm_update(x, nu, _scalar_operand("gamma", gamma, x),
                           _scalar_operand("tau2", tau2, x))
     fused_admm_update.launches += 1
+    report_launch("soft_threshold_admm", x, nu, *out)
     return out
 
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import cpadmm_spectral_update_ref
 
 
@@ -40,6 +40,7 @@ def spectral_update(c_spec, b_spec, vm_spec, zn_spec, rho, sigma) -> torch.Tenso
             c_spec, b_spec, vm_spec.reshape(-1, nf), zn_spec.reshape(-1, nf), rho, sigma
         )
     spectral_update.launches += 1
+    report_launch("spectral_pointwise", c_spec, b_spec, vm_spec, zn_spec, out)
     return out.reshape(batch + (nf,))
 
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import require_cuda_operands
+from .. import report_launch, require_cuda_operands
 from .ref import (
     WIRE_DTYPES,
     pack_geometry,
@@ -42,6 +42,7 @@ def pack_wire(z: torch.Tensor, wire_dtype: str, groups=None, axis: int = -1) -> 
     with torch.cuda.device(z.device):
         out = pack(z, dt, o, g, i)
     pack_wire.launches += 1
+    report_launch("pack_wire", z, out)
     return out.reshape(shape)
 
 
@@ -79,6 +80,7 @@ def unpack_wire(w: torch.Tensor, out_dtype=torch.complex64, grouped: bool = Fals
     with torch.cuda.device(w.device):
         out = unpack(w, o, g, i)
     unpack_wire.launches += 1
+    report_launch("unpack_wire", w, out)
     return out.reshape(shape)
 
 

@@ -38,8 +38,13 @@ that one seed gives the same problem on either device and on every rank;
 they differ from the reference's ``jax.random`` draws, and the default
 checkpoint directories are the port's own so that neither package resumes
 the other's run.  ``--prior`` picks the recovery prior (l1, the paper's;
-nonneg-l1, tv or wavelet: the plain step, on a mesh too).  ``--tune`` is
-not ported yet and exits with the ROADMAP item that will bring it.
+nonneg-l1, tv or wavelet: the plain step, on a mesh too).  ``--tune``
+(the cost model) or ``--tune measure`` (the model, then the top candidates
+timed) asks the plan autotuner (:mod:`repro_torch.ops.tune`) for the plan:
+only the flags given explicitly become pins, so a default ``--overlap 1``
+leaves the overlap open.  A warm store answers at once, and the report says
+so.  Without a mesh there is nothing distributed to tune: the flags are the
+plan.
 """
 
 from __future__ import annotations
@@ -59,13 +64,11 @@ from ..data.synthetic import paper_regime, sparse_signal, starfield
 from ..device import resolve_device
 from ..dist import compat
 from ..kernels.wire_pack.ref import WIRE_DTYPES
+from ..ops import tune as tune_mod
 from ..ops.plan import plan
 from ..ops.prox import NonNegL1Prox, TVProx, WaveletProx, is_l1
 
 METHODS = ("cpadmm", "ista", "fista")
-# flags of the reference launcher that wait for a later slice: (flag, the
-# value that means "not given", the ROADMAP item that ports it)
-UNPORTED = (("tune", None, "Queue 1 item 10 (tuner)"),)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -124,8 +127,11 @@ def _parser() -> argparse.ArgumentParser:
                          "fallback past the plan layer's precision bound")
     ap.add_argument("--fake-devices", type=int, default=0,
                     help="start N gloo ranks here, all on --device (with --mesh)")
-    # the reference launcher's tuning flag, not ported yet
-    ap.add_argument("--tune", nargs="?", const="model", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tune", nargs="?", const="model", default=None,
+                    choices=("model", "measure"),
+                    help="autotune the plan (repro_torch.ops.tune): bare --tune ranks "
+                         "candidates by the cost model, --tune measure also times the "
+                         "best; the winner is stored, so a warm run skips the search")
     return ap
 
 
@@ -184,8 +190,14 @@ def parse_mesh(mesh_arg, device):
 
 
 def plan_knobs(args) -> dict:
-    """The plan knobs the CLI flags set."""
-    return dict(rfft=args.rfft, overlap=args.overlap, wire_dtype=args.wire_dtype)
+    """The plan knobs the CLI flags set.  Under ``--tune`` only the flags
+    given explicitly: each is a pin, and a default must leave its knob open
+    to the tuner (a default ``--overlap 1`` pinned would never try K > 1)."""
+    if not args.tune:
+        return dict(rfft=args.rfft, overlap=args.overlap, wire_dtype=args.wire_dtype)
+    knobs = dict(rfft=args.rfft or None, overlap=args.overlap if args.overlap != 1 else None,
+                 wire_dtype=args.wire_dtype if args.wire_dtype != "fp32" else None)
+    return {k: v for k, v in knobs.items() if v is not None}
 
 
 def build_deblur_workload(args, device):
@@ -212,11 +224,6 @@ def report_deblur(dp, x_hat) -> None:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    for flag, unset, item in UNPORTED:
-        if getattr(args, flag) != unset:
-            raise SystemExit(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}"
-            )
     _prior(args)  # a bad --prior fails here, before any rank starts
     if args.fake_devices:
         if args.mesh is None:
@@ -234,6 +241,7 @@ def run(args) -> None:
     mesh, batch_axis = parse_mesh(args.mesh, args.device)
     device = mesh.device if mesh is not None else resolve_device(args.device)
     lead = mesh is None or torch.distributed.get_rank() == 0
+    tune_mod.reset_counters()
     say = print if lead else (lambda *a, **k: None)
     where = f", mesh={args.mesh}" if mesh is not None else ""
     if args.ckpt_dir is None:
@@ -247,7 +255,8 @@ def run(args) -> None:
             f"{args.size}x{args.size} (n={n}), blur L={args.blur_order}, "
             f"m={dp.op.m}, sensing={args.sensing}, method={args.method}, "
             f"prior={args.prior}, device={device}{where}")
-        pl = build_deblur_plan(dp, mesh, n1=args.n1, batch_axis=batch_axis, prox=prox,
+        pl = build_deblur_plan(dp, mesh, tune=args.tune or False, n1=args.n1,
+                               batch_axis=None if args.tune else batch_axis, prox=prox,
                                **plan_knobs(args))
     else:
         n = args.n
@@ -262,10 +271,14 @@ def run(args) -> None:
         prob = RecoveryProblem(op=op, y=op.matvec(x_true), x_true=x_true)
         if mesh is None:
             # the single validation site rejects --rfft/--overlap/--wire-dtype without --mesh
-            pl = plan(op, prox=prox, **plan_knobs(args))
+            pl = plan(op, tune=args.tune or False, prox=prox, **plan_knobs(args))
         else:
-            pl = plan(op, mesh, n1=args.n1, batch_axis=batch_axis, prox=prox,
-                      **plan_knobs(args))
+            pl = plan(op, mesh, tune=args.tune or False, batch=args.batch, n1=args.n1,
+                      batch_axis=batch_axis, prox=prox, **plan_knobs(args))
+    if args.tune:
+        store = "" if mesh is None else (
+            " (cache hit)" if tune_mod.COUNTERS["cache_hits"] else " (tuned, stored)")
+        say(f"tuned plan [{args.tune}]: {pl.config.describe()}{store}")
     step = f"step: tail={pl.tail}"
     if pl.tail == "kernel":
         # the kernel steps bake in the soft threshold; another prior takes the plain step

@@ -18,10 +18,12 @@ baseline and reports the throughput ratio.
 the card), ``--fake-devices N`` starts N gloo ranks here, all on
 ``--device``, and every rank runs the same scheduler on rank 0's clock.
 ``--rfft``, ``--overlap`` and ``--n1`` set the mesh buckets' plan (the
-reference parses them and leaves them unused).
+reference parses them and leaves them unused).  ``--tune`` (or ``--tune
+measure``) asks the plan autotuner (:mod:`repro_torch.ops.tune`) for each
+mesh bucket's plan instead, as the reference's server does: a warm store
+answers at once, and the report says whether it did.
 Everything runs on the CUDA card unless ``--device cpu`` is given; there a
-local bucket's round is a captured CUDA graph.  ``--tune`` is not ported
-yet and exits with the ROADMAP item that will bring it.
+local bucket's round is a captured CUDA graph.
 
 Reports signals/sec, p50/p99 latency, convergence/expiry counts, and the
 recycling statistics.
@@ -39,9 +41,9 @@ from ..core.circulant import partial_gaussian_circulant
 from ..data.synthetic import paper_regime
 from ..device import resolve_device
 from ..dist import compat
+from ..ops import tune as tune_mod
 from ..ops.plan import PlanConfig, resolve_tail
 from ..serve import RecoveryServer, WallClock, static_batch_serve, summarize, synthetic_workload
-from ..serve.server import TUNE_NOT_PORTED
 from .recover import mesh_axes, parse_mesh
 
 METHODS = ("cpadmm", "ista", "fista")
@@ -85,7 +87,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--n1", type=int, default=None)
     ap.add_argument("--tune", nargs="?", const="model", default=None,
                     choices=("model", "measure"),
-                    help="autotune each bucket's plan (not ported yet)")
+                    help="autotune each mesh bucket's plan (repro_torch.ops.tune): bare "
+                         "--tune ranks candidates by the cost model, --tune measure also "
+                         "times the best; warm runs hit the plan store")
     ap.add_argument("--fake-devices", type=int, default=0,
                     help="start N gloo ranks here, all on --device (with --mesh)")
     ap.add_argument("--device", default=None,
@@ -97,8 +101,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.tune is not None:
-        raise SystemExit(f"--tune: {TUNE_NOT_PORTED}")
     if args.fake_devices:
         if args.mesh is None:
             raise SystemExit("--fake-devices starts the ranks of a --mesh; pass --mesh too")
@@ -124,7 +126,7 @@ def run(args) -> None:
         priorities=args.priorities, deadline_slack=args.deadline_slack,
         method=args.method,
     )
-    if mesh is not None:
+    if mesh is not None and not args.tune:
         cfg = PlanConfig(rfft=args.rfft, overlap=args.overlap, n1=args.n1,
                          tail=resolve_tail(None, device=device))
         reqs = [dataclasses.replace(r, plan_config=cfg) for r in reqs]
@@ -134,8 +136,14 @@ def run(args) -> None:
 
     srv = RecoveryServer(mesh=mesh, slots=args.slots, round_iters=args.round_iters,
                          alpha=args.alpha, rho=args.rho, sigma=args.sigma,
-                         clock=WallClock())
+                         tune=args.tune or False, clock=WallClock())
+    tune_mod.reset_counters()
     srv.warmup(reqs[0])
+    if args.tune and mesh is not None:
+        hits = tune_mod.COUNTERS["cache_hits"]
+        for eng in srv.engines.values():
+            say(f"tuned plan [{args.tune}]: {eng.plan.config.describe()} "
+                f"({'cache hit' if hits else 'tuned, stored'})")
     srv.clock = WallClock()
     results = srv.serve(reqs)
     s = summarize(results)

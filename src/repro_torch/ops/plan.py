@@ -45,6 +45,10 @@ Knobs (one frozen :class:`PlanConfig`):
                 1/H of the flat exchange's bytes each); None = the flat
                 exchange
     inter_wire_dtype  the payload precision of those inter-host hops alone
+
+``plan(op, mesh, tune=True | "measure")`` leaves the knobs not passed to the
+autotuner (:mod:`repro_torch.ops.tune`), which walks and times
+:meth:`ExecutionPlan.cpadmm_block`, this rank's iteration block.
 """
 
 from __future__ import annotations
@@ -479,18 +483,9 @@ class ExecutionPlan:
 
     def _cpadmm_stepper(self, problem, alpha, rho, sigma, tau, prox=None):
         """Distributed CPADMM: the step functions of
-        :mod:`repro_torch.dist.recovery` on this rank's blocks.
-
-        A non-elementwise prior takes the reference's hybrid step: the
-        fused transform core (``dist_cpadmm_core``), then the plain tail
-        with the prior on the gathered signals, whatever ``fused`` says."""
+        :mod:`repro_torch.dist.recovery` on this rank's blocks."""
         from ..core.solvers import Stepper
-        from ..dist.recovery import (
-            DistCpadmmParams,
-            DistCpadmmState,
-            dist_cpadmm_step,
-            dist_cpadmm_step_fused,
-        )
+        from ..dist.recovery import DistCpadmmParams, DistCpadmmState
 
         y_full = self._scattered_measurements(problem)
         pty = row_block(layout_2d(y_full, self.n1, self.n2), self.mesh, self.axis_name)
@@ -500,18 +495,59 @@ class ExecutionPlan:
         # Alg. 3 line 2 on this rank's blocks: both inner inverses are pointwise
         b_spec = spectral.gram_inverse_spectrum(self.spec2d, p.rho, p.sigma)
         d_diag = torch.where(self.mask2d > 0, 1.0 / (1.0 + p.rho), 1.0 / p.rho).to(pty.dtype)
-        step_fn = dist_cpadmm_step_fused if self.fused else dist_cpadmm_step
-        if not prox_mod.is_elementwise(prox):
-            step_fn, prox = dist_cpadmm_step_fused, _LayoutProx(prox, self)
+        step = self._cpadmm_step(p, prox)
         zeros = torch.zeros_like(pty)
         return Stepper(
             init=lambda: DistCpadmmState(zeros, zeros, zeros, zeros, zeros),
-            step=lambda s: step_fn(self.spec2d, b_spec, d_diag, pty, s, p, self.mesh,
-                                   self.axis_name, self.rfft, self.overlap, self.tail,
-                                   self.wire_dtype, prox=prox, hier=self.hier,
-                                   inter_wire_dtype=self.inter_wire_dtype),
+            step=lambda s: step(self.spec2d, b_spec, d_diag, pty, s),
             extract=self._flat_extract("z"),
         )
+
+    def _cpadmm_step(self, p, prox):
+        """``step(spec, b_spec, d_diag, pty, state) -> state``: one CPADMM
+        iteration under this plan's knobs.  A non-elementwise prior takes the
+        reference's hybrid step: the fused transform core
+        (``dist_cpadmm_core``), then the plain tail with the prior on the
+        gathered signals, whatever ``fused`` says."""
+        from ..dist.recovery import dist_cpadmm_step, dist_cpadmm_step_fused
+
+        step_fn = dist_cpadmm_step_fused if self.fused else dist_cpadmm_step
+        if not prox_mod.is_elementwise(prox):
+            step_fn, prox = dist_cpadmm_step_fused, _LayoutProx(prox, self)
+
+        def step(spec, b_spec, d_diag, pty, state):
+            return step_fn(spec, b_spec, d_diag, pty, state, p, self.mesh, self.axis_name,
+                           self.rfft, self.overlap, self.tail, self.wire_dtype, prox=prox,
+                           hier=self.hier, inter_wire_dtype=self.inter_wire_dtype)
+
+        return step
+
+    # -- the iteration block (the tuner's unit of cost) ---------------------
+    def cpadmm_block(self, iters: int, alpha=1e-4, rho=0.01, sigma=0.01, tau=1.0):
+        """``block(spec, b_spec, d_diag, pty, state) -> state``: ``iters``
+        CPADMM iterations of this rank's step under the plan's knobs (the
+        6-exchange or the fused step; the hybrid step for TV and wavelet).
+
+        A pure function of its operands, all this rank's blocks: the
+        spectrum columns of C and B, the rows of ``d_diag``, and ``pty`` and
+        the state's five leaves, whose leading batch is this rank's share of
+        the signals over ``batch_axis``.  It runs eagerly: NCCL cannot sit
+        inside a captured graph here.  :mod:`repro_torch.ops.tune` walks and
+        times it.
+        """
+        if not self.is_distributed:
+            raise ValueError("cpadmm_block runs a mesh plan's step; this plan is local")
+        from ..dist.recovery import DistCpadmmParams
+
+        step = self._cpadmm_step(DistCpadmmParams(*(float(v) for v in (
+            alpha, rho, sigma, tau, tau))), self.prox)
+
+        def block(spec, b_spec, d_diag, pty, state):
+            for _ in range(iters):
+                state = step(spec, b_spec, d_diag, pty, state)
+            return state
+
+        return block
 
 
 class _LayoutProx:
@@ -641,26 +677,8 @@ def _resolve_axes(cfg: PlanConfig, mesh):
     return axes, cfg.hier_axes
 
 
-def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail=None,
-         fused=True, batch_axis=None, axis_name=MODEL_AXIS, wire_dtype="fp32",
-         hier_axes=None, inter_wire_dtype="fp32", prox=None) -> ExecutionPlan:
-    """Lower ``op`` to an execution plan (see module docstring).
-
-    With ``mesh=None`` the identity lowering; with a :class:`Mesh`, ``op``
-    must be a (partial) circulant, whose stored half spectrum is laid out
-    into this rank's four-step spectrum columns.  ``tail=None`` resolves
-    from the operands' device (:func:`resolve_tail`).  ``hier_axes=(H, D)``
-    on a :func:`~repro_torch.dist.compat.make_hier_mesh` mesh runs every
-    transpose as the two-stage exchange over the (host, device) pair;
-    ``axis_name=("host", "device")`` without it runs the flat exchange over
-    that factored axis.
-    """
-    tail = resolve_tail(tail, op) if mesh is None else resolve_tail(
-        tail, device=getattr(mesh, "device", None))
-    cfg = PlanConfig(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
-                     batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
-                     hier_axes=hier_axes, inter_wire_dtype=inter_wire_dtype,
-                     prox=prox).validate(distributed=mesh is not None)
+def _plan_with_config(op, mesh, cfg: PlanConfig) -> ExecutionPlan:
+    """Lower ``op`` under a validated ``cfg`` (its tail resolved)."""
     if mesh is None:
         return ExecutionPlan(op=op, config=cfg)
     cfg = _check_mesh(mesh, cfg)
@@ -690,6 +708,47 @@ def plan(op, mesh=None, *, n1=None, n2=None, rfft=False, overlap=1, tail=None,
         norm_bound=op.operator_norm_bound(),
     )
     return _wire_guard(built)
+
+
+def plan(op, mesh=None, *, tune=False, batch=None, tune_opts=None, n1=None, n2=None,
+         rfft=None, overlap=None, tail=None, fused=None, batch_axis=None, axis_name=None,
+         wire_dtype=None, hier_axes=None, inter_wire_dtype=None, prox=None) -> ExecutionPlan:
+    """Lower ``op`` to an execution plan (see module docstring).
+
+    With ``mesh=None`` the identity lowering; with a :class:`Mesh`, ``op``
+    must be a (partial) circulant, whose stored half spectrum is laid out
+    into this rank's four-step spectrum columns.  A knob left ``None`` takes
+    :class:`PlanConfig`'s default; ``tail=None`` resolves from the operands'
+    device (:func:`resolve_tail`).  ``hier_axes=(H, D)`` on a
+    :func:`~repro_torch.dist.compat.make_hier_mesh` mesh runs every
+    transpose as the two-stage exchange over the (host, device) pair;
+    ``axis_name=("host", "device")`` without it runs the flat exchange over
+    that factored axis.
+
+    ``tune=True`` (the cost model) or ``tune="measure"`` (the cost model,
+    then the top candidates timed) asks :mod:`repro_torch.ops.tune` to pick
+    the config instead: every knob passed (not ``None``) becomes a pin of
+    the candidate space, ``batch`` sizes the tuning workload (its leading
+    batch of signals) and ``tune_opts`` goes to
+    :func:`~repro_torch.ops.tune.tuned_config` (``cache=``, ``top_k=``, ...).
+    """
+    knobs = dict(n1=n1, n2=n2, rfft=rfft, overlap=overlap, tail=tail, fused=fused,
+                 batch_axis=batch_axis, axis_name=axis_name, wire_dtype=wire_dtype,
+                 hier_axes=hier_axes, inter_wire_dtype=inter_wire_dtype, prox=prox)
+    given = {k: v for k, v in knobs.items() if v is not None}
+    if tune:
+        from . import tune as tune_mod
+
+        mode = tune if isinstance(tune, str) else "model"
+        cfg = tune_mod.tuned_config(op, mesh, mode=mode, batch=batch, pins=given,
+                                    **(tune_opts or {}))
+        if mesh is None and tail is None:  # a local tune is its pins: the step follows op
+            cfg = dataclasses.replace(cfg, tail=resolve_tail(None, op))
+    else:
+        given["tail"] = resolve_tail(tail, op) if mesh is None else resolve_tail(
+            tail, device=getattr(mesh, "device", None))
+        cfg = PlanConfig(**given)
+    return _plan_with_config(op, mesh, cfg.validate(distributed=mesh is not None))
 
 
 def plan_from_parts(mesh, spec2d, mask2d, *, n1=None, n2=None, rfft=False, overlap=1,

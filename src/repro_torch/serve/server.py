@@ -19,8 +19,11 @@ harvest, the arrival cut of :meth:`serve`) must agree on all ranks: each
 clock read takes rank 0's time, broadcast to every rank
 (:func:`mesh_now`), or the ranks' collectives fall out of step.
 
-The reference's ``tune=`` (a plan from the autotuner's cache) is not
-ported: a truthy ``tune`` raises.
+``tune=True`` / ``"measure"`` plans a mesh bucket with the autotuner
+(:mod:`repro_torch.ops.tune`) for a batch of ``slots`` signals: a warm
+store answers in milliseconds once any earlier run tuned the workload.
+A request's own ``plan_config`` wins over it, and a local bucket is not
+tuned (nothing distributed to tune), as in the reference.
 """
 
 from __future__ import annotations
@@ -36,8 +39,6 @@ import torch
 from ..ops.plan import PlanConfig, plan
 from .engine import BatchEngine
 from .request import Clock, RecoveryRequest, RecoveryResult, WallClock
-
-TUNE_NOT_PORTED = "the plan autotuner is not ported yet: ROADMAP Queue 1 item 10 (tuner)"
 
 
 def operator_fingerprint(op) -> str:
@@ -91,8 +92,6 @@ class RecoveryServer:
         tune: Any = False,
         clock: Optional[Clock] = None,
     ):
-        if tune:
-            raise ValueError(f"tune={tune!r}: {TUNE_NOT_PORTED}")
         self.mesh = mesh
         self.slots = int(slots)
         self.round_iters = int(round_iters)
@@ -131,6 +130,8 @@ class RecoveryServer:
         if eng is None:
             if req.plan_config is not None:
                 pl = plan(req.op, self.mesh, **_plan_knobs(req.plan_config))
+            elif self.tune and self.mesh is not None:
+                pl = plan(req.op, self.mesh, tune=self.tune, batch=self.slots)
             else:
                 pl = plan(req.op, self.mesh)
             eng = BatchEngine(

@@ -20,7 +20,7 @@ child processes, a (1, 2, 2) and a (2, 2, 2) (data, host, device) mesh:
   fp32; demoting both tiers is no better.
 
 The reference's tuner case (``tuned_config`` picks the hierarchical plan)
-waits for the tuner (ROADMAP Queue 1 item 10).
+is ``tests/test_torch_tune.py::test_model_picks_hier_on_a_two_host_mesh``.
 """
 
 import json

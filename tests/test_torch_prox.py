@@ -10,10 +10,9 @@ computed output: l1 and non-negative l1 bit for bit, TV and wavelet within
 1e-6 relative, solves within 1e-5.  The mesh cases run on 1, 2 and 2x2 gloo
 ranks (``spawn_fake_devices``), one spawned program per mesh shape.
 
-Left out: the reference's tuner and serve cases (``test_tuner_candidates_
-carry_prox_pin``, ``test_serve_buckets_split_on_prox``), which wait for
-ROADMAP Queue 1 items 10 and 8.  The decode cases live in
-``tests/test_torch_compression.py``.
+The reference's tuner and serve cases (``test_tuner_candidates_carry_prox_
+pin``, ``test_serve_buckets_split_on_prox``) close the file.  The decode
+cases live in ``tests/test_torch_compression.py``.
 """
 
 import json
@@ -385,3 +384,40 @@ def test_planned_mesh_none_vs_l1_bitwise_and_hybrid_unfused(mesh, mesh_runs):
     for method in ("ista", "cpadmm"):
         assert torch.equal(r["none", method], r["l1", method])
     assert torch.equal(r["tv", "unfused"], r["tv", "cpadmm"])
+
+
+# -- the tuner and the server -------------------------------------------------
+
+
+def test_tuner_candidates_carry_prox_pin(problems):
+    from repro_torch.dist.compat import Mesh
+    from repro_torch.ops.tune import cache_key, candidate_configs
+
+    # a mesh's names and extents alone: all that enumeration and the key read
+    mesh = Mesh(("model",), (1,), (0,), (None,), torch.device("cpu"))
+    op = problems[1].op
+    prox = TVProx(shape=(16, 16))
+    cands = candidate_configs(op, mesh, pins={"prox": prox})
+    assert cands and all(c.prox == prox for c in cands)
+    # distinct prox pins key distinct store entries
+    k_tv = cache_key(op, mesh, 2, {"prox": prox})
+    k_l1 = cache_key(op, mesh, 2, {"prox": L1Prox()})
+    k_none = cache_key(op, mesh, 2, {})
+    assert len({k_tv, k_l1, k_none}) == 3
+
+
+def test_serve_buckets_split_on_prox(problems):
+    """Requests differing only in the plan config's prox never share an engine."""
+    from repro_torch.serve import RecoveryRequest, RecoveryServer
+
+    op = problems[1].op
+    y = torch.zeros((op.m,))
+    server = RecoveryServer(slots=2)
+
+    def req(rid, cfg):
+        return RecoveryRequest(request_id=rid, op=op, y=y, plan_config=cfg)
+
+    k_l1 = server.bucket_key(req("a", PlanConfig()))
+    k_tv = server.bucket_key(req("b", PlanConfig(prox=TVProx(shape=(16, 16)))))
+    k_wv = server.bucket_key(req("c", PlanConfig(prox=WaveletProx())))
+    assert len({k_l1, k_tv, k_wv}) == 3

@@ -3,8 +3,8 @@
 In-process calls of ``main`` at tiny sizes on the CPU (``--device cpu``),
 mirroring the local cases of ``tests/test_recover_cli.py``: the
 checkpointed resume, the tolerance mode, the deblur workload, the priors
-and the method errors.  The reference's tuning flag is not ported yet and
-must exit naming the ROADMAP item that brings it.
+and the method errors; and ``--tune`` / ``--tune measure`` on a one-rank
+gloo mesh, whose second run reports the plan store's hit.
 """
 
 import pytest
@@ -125,14 +125,43 @@ def test_method_error_lists_valid_methods(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tune"], "Queue 1 item 10"),
-    (["--tune", "measure"], "Queue 1 item 10"),
+    (["--tune"], "model"),
+    (["--tune", "measure"], "measure"),
 ])
-def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
-    with pytest.raises(SystemExit, match=item):
-        recover.main(["--n", "256", "--iters", "10", "--device", "cpu",
-                      "--ckpt-dir", str(tmp_path / "ck"), *flags])
-    assert not (tmp_path / "ck").exists()
+def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path, capfd,
+                                                      monkeypatch):
+    """``--tune`` and ``--tune measure`` run (they exited naming the tuner's
+    ROADMAP item before it was ported): on a one-rank mesh the first run
+    tunes and stores the plan, the second reports the cache hit and the
+    same plan, and both recover."""
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "plan_cache.json"))
+    reports = []
+    for run in ("first", "second"):
+        recover.main(["--n", "256", "--iters", "40", "--chunk", "20", "--device", "cpu",
+                      "--mesh", "1", "--fake-devices", "1",
+                      "--ckpt-dir", str(tmp_path / run), *flags])
+        out = capfd.readouterr().out
+        assert "per-signal MSE" in out
+        reports += [ln for ln in out.splitlines() if ln.startswith(f"tuned plan [{item}]: ")]
+    assert len(reports) == 2 and reports[0].endswith("(tuned, stored)")
+    assert reports[1] == reports[0].replace("(tuned, stored)", "(cache hit)")
+
+
+def test_tune_pins_only_the_flags_given(tmp_path, capfd, monkeypatch):
+    """Under ``--tune`` an explicit flag is a pin and a default is not: a
+    deblur run with ``--rfft --wire-dtype bf16`` keeps both, and a local run
+    takes its flags as the plan."""
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "plan_cache.json"))
+    recover.main(["--deblur", "--size", "16", "--batch", "2", "--iters", "20", "--chunk", "20",
+                  "--mesh", "1", "--fake-devices", "1", "--rfft", "--wire-dtype", "bf16",
+                  "--tune", "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")])
+    out = capfd.readouterr().out
+    tuned = next(ln for ln in out.splitlines() if ln.startswith("tuned plan [model]: "))
+    assert "rfft=on" in tuned and "wire=bf16" in tuned and out.count("PSNR") == 2
+    recover.main(["--n", "256", "--iters", "20", "--chunk", "20", "--tune", "--device", "cpu",
+                  "--ckpt-dir", str(tmp_path / "local")])
+    assert "tuned plan [model]: n1xn2=auto rfft=off overlap=1 tail=plain\n" in \
+        capfd.readouterr().out
 
 
 @pytest.mark.parametrize("flags,error,match", [

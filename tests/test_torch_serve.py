@@ -13,7 +13,8 @@ and the hierarchical bucket tags.  Beyond the mirror:
 * ``tests/dist_progs/serve_prog.py``'s contract on 2 gloo ranks, plus a
   ``WallClock`` deadline run on the mesh that must end with both ranks
   agreeing (rank 0's clock decides);
-* ``tune=`` names the ROADMAP item that will port the tuner;
+* ``tune=`` plans a mesh bucket with the autotuner, and a fresh server on
+  the same store hits it (one gloo rank);
 * on the card (``gpu``; skips here): the engine's captured round against an
   eager ``solve_until``.
 """
@@ -354,11 +355,19 @@ def test_mesh_server_on_two_gloo_ranks():
     assert all(expired and not conv for _, expired, conv in wall[0].values())
 
 
-def test_tune_names_the_tuner_item():
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
-        RecoveryServer(tune="model")
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
-        static_batch_serve([], tune=True)
+def test_tune_names_the_tuner_item(tmp_path):
+    """``tune=`` runs (it raised before the tuner was ported): a mesh bucket
+    is planned by the autotuner, a fresh server on the same store hits it,
+    and both serve every request alike (one gloo rank)."""
+    RecoveryServer(tune="model")  # a local server takes it and plans untuned
+    out = spawn_fake_devices(1, progs.serve_tune_program, 16, 16,
+                             str(tmp_path / "plan_cache.json"))[0]
+    cold, warm = out["cold"], out["warm"]
+    assert cold["counters"]["cache_misses"] == 1 and cold["counters"]["scored"] > 0
+    assert warm["counters"] == {"scored": 0, "measured": 0, "cache_hits": 1, "cache_misses": 0}
+    assert len(cold["plans"]) == 1 and warm["plans"] == cold["plans"]
+    assert warm["iterations"] == cold["iterations"] and all(cold["converged"])
+    assert out["static"] == 0
 
 
 # -- on the card ------------------------------------------------------------

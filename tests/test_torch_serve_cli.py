@@ -3,8 +3,9 @@
 Mirrors ``tests/test_serve_cli.py`` on the CPU (``--device cpu``): local
 engines with the static comparison, and a one-rank mesh (gloo) with
 deadlines and priorities.  The launcher's output lines are the reference's;
-``--tune`` exits naming the ROADMAP item that will port the tuner, and the
-launcher needs a card unless told ``--device cpu``.
+``--tune`` plans the mesh bucket with the autotuner, a warm second run
+reporting its cache hit; the launcher needs a card unless told ``--device
+cpu``.
 """
 
 import pytest
@@ -38,9 +39,20 @@ def test_serve_mesh_plan_with_deadlines(capfd):
     assert "buckets 1" in out
 
 
-def test_serve_tune_names_the_tuner_item():
-    with pytest.raises(SystemExit, match="Queue 1 item 10"):
-        serve.main(["--n", "256", "--requests", "2", "--tune", "--device", "cpu"])
+def test_serve_tune_names_the_tuner_item(capfd, monkeypatch, tmp_path):
+    """``--tune`` runs (it exited naming the tuner's ROADMAP item before the
+    tuner was ported): the first run tunes and stores, the second hits."""
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "plan_cache.json"))
+    args = ["--n", "256", "--requests", "3", "--slots", "2", "--rate", "500", "--max-iters",
+            "200", "--mesh", "1", "--fake-devices", "1", "--device", "cpu", "--tune"]
+    serve.main(args)
+    first = capfd.readouterr().out
+    serve.main(args)
+    second = capfd.readouterr().out
+    tuned = [ln for ln in first.splitlines() if ln.startswith("tuned plan [model]: ")]
+    assert len(tuned) == 1 and tuned[0].endswith("(tuned, stored)")
+    assert tuned[0].replace("(tuned, stored)", "(cache hit)") in second
+    assert "continuous:" in second and "buckets 1" in second
 
 
 def test_serve_needs_a_card_unless_told_cpu(monkeypatch):

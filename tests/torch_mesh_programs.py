@@ -276,3 +276,218 @@ def hier_degenerate_program(x, factorizations, n1, n2):
                         x=(solve(prob, "cpadmm", plan=ph, **kw)[0],
                            solve(prob, "cpadmm", plan=pf, **kw)[0]))
     return out
+
+
+# -- the plan autotuner (repro_torch.ops.tune) --------------------------------
+def _tune_store(path):
+    """A plan store on ``path`` that counts its writes on this rank."""
+    from repro_torch.ops import tune
+
+    class CountingCache(tune.PlanCache):
+        puts = 0
+
+        def put(self, key, entry):
+            type(self).puts += 1
+            super().put(key, entry)
+
+    return CountingCache(path)
+
+
+def _ref_problem(a):
+    op = interop.partial_circulant_from_numpy(a["col"], a["spec"], a["omega"], device="cpu")
+    return op, RecoveryProblem(op=op, y=torch.from_numpy(a["y"]),
+                               x_true=torch.from_numpy(a["x_true"]))
+
+
+def tune_one_rank_program(a, store, kw, iters):
+    """``tests/test_tune.py``'s cases that walk or time a block, on a
+    one-rank model axis: each case's counters and picks, and a measure-tuned
+    plan's solve beside the untuned plan's."""
+    from repro_torch.core.circulant import partial_gaussian_circulant
+    from repro_torch.ops import tune
+
+    mesh = make_mesh((1,), ("model",))
+    op, prob = _ref_problem(a)
+    n1, n2 = a["n1n2"]
+    cache = tune.PlanCache(store)
+    out = {}
+
+    def case(name, fn):
+        tune.reset_counters()
+        out[name] = fn()
+        out[name + "/counters"] = dict(tune.COUNTERS)
+
+    # a warm store: the same config with no scoring
+    case("cold", lambda: tune.tuned_config(op, mesh, batch=2, cache=cache))
+    case("warm", lambda: tune.tuned_config(op, mesh, batch=2, cache=cache))
+    # a model entry does not serve a measure request; a measure entry serves both
+    model_cache = tune.PlanCache(store + ".modes")
+    case("model", lambda: tune.tuned_config(op, mesh, mode="model", batch=2, cache=model_cache))
+    case("measure", lambda: tune.tuned_config(op, mesh, mode="measure", batch=2,
+                                              cache=model_cache))
+    case("both", lambda: (tune.tuned_config(op, mesh, mode="model", batch=2, cache=model_cache),
+                          tune.tuned_config(op, mesh, mode="measure", batch=2,
+                                            cache=model_cache)))
+    case("pinned", lambda: tune.tuned_config(op, mesh, batch=2, pins={"rfft": False},
+                                             cache=tune.PlanCache(store + ".pinned")))
+    # the model's ranking on walked blocks
+    side = 1024  # the paper's Sec. 7 frame, n = 2^20: a few tenths of a second a walk here
+    big = partial_gaussian_circulant(torch.Generator().manual_seed(1), side * side,
+                                     side * side // 2, normalize=True, device="cpu")
+    case("rfft", lambda: [(s, c.rfft) for s, c, _ in tune.score_candidates(
+        big, mesh, [PlanConfig(rfft=False, n1=side, n2=side),
+                    PlanConfig(rfft=True, n1=side, n2=side)], batch=1, iters=2)])
+    case("overlap", lambda: [(s, c.overlap) for s, c, _ in tune.score_candidates(
+        op, mesh, [PlanConfig(rfft=True, overlap=K, n1=n1, n2=n2) for K in (1, 2, 4, 8)],
+        batch=1, iters=2)])
+    case("wire", lambda: [(s, c.wire_dtype) for s, c, _ in tune.score_candidates(
+        op, mesh, [PlanConfig(rfft=True, n1=n1, n2=n2, wire_dtype=w) for w in ("bf16", "fp32")],
+        batch=1, iters=2)])
+    # a measure-tuned plan solves as the untuned plan does; its warm rebuild
+    tuned_cache = tune.PlanCache(store + ".measure")
+    tune.reset_counters()
+    pl = plan(op, mesh, tune="measure", batch=2, tune_opts={"cache": tuned_cache})
+    out["measured"] = tune.COUNTERS["measured"]
+    out["tuned/x"] = solve(prob, "cpadmm", iters=iters, record_every=iters, plan=pl, **kw)[0]
+    out["untuned/x"] = solve(prob, "cpadmm", iters=iters, record_every=iters,
+                             plan=plan(op, mesh), **kw)[0]
+    out["tuned/wire"] = pl.wire_dtype
+    out["tuned/config"] = pl.config
+    out["rebuilt/config"] = plan(op, mesh, tune="measure", batch=2,
+                                 tune_opts={"cache": tuned_cache}).config
+    return out
+
+
+def tune_autotune_program(a, store, kw, iters):
+    """``tests/dist_progs/autotune_prog.py`` on a gloo model axis: the
+    model-tuned plan's solve beside the untuned plan's, the same under an
+    fp32 wire pin, the all-to-all bytes of an rfft and a full-complex
+    matvec, and a warm store.  Every rank returns its configs and the
+    store writes it made; rank 0 also the solves."""
+    from repro_torch.dist import fft as D
+    from repro_torch.ops import tune
+
+    p = torch.distributed.get_world_size()
+    mesh = make_mesh((p,), ("model",))
+    op, prob = _ref_problem(a)
+    n1, n2 = a["n1n2"]
+    cache = _tune_store(store)
+    tune.reset_counters()
+    tuned = plan(op, mesh, tune=True, tune_opts={"cache": cache})
+    cold = dict(tune.COUNTERS)
+    solve_kw = dict(iters=iters, record_every=iters, **kw)
+    out = dict(tuned=tuned.config, cold=cold)
+    out["x/default"] = solve(prob, "cpadmm", plan=plan(op, mesh, n1=n1, n2=n2), **solve_kw)[0]
+    out["x/tuned"] = solve(prob, "cpadmm", plan=tuned, **solve_kw)[0]
+    pinned = plan(op, mesh, tune=True, wire_dtype="fp32", tune_opts={"cache": cache})
+    out["pinned"] = pinned.config
+    out["x/pinned"] = solve(prob, "cpadmm", plan=pinned, **solve_kw)[0]
+    x = torch.randn(n1 * n2, generator=torch.Generator().manual_seed(3))
+    for rfft in (False, True):
+        pl = plan(op, mesh, n1=n1, n2=n2, rfft=rfft)
+        D.reset_wire_bytes()
+        pl.matvec(x)
+        out[f"a2a/{rfft}"] = D.WIRE_BYTES["flat"]
+    tune.reset_counters()
+    out["warm"] = plan(op, mesh, tune=True, tune_opts={"cache": cache}).config
+    out["warm/counters"] = dict(tune.COUNTERS)
+    out["puts"] = type(cache).puts
+    if torch.distributed.get_rank():
+        out = {k: v for k, v in out.items() if not k.startswith("x/")}
+    return out
+
+
+def tune_hier_program(n1, n2, batch, store, score_iters):
+    """``tests/dist_progs/hier_prog.py``'s tuner case on a (2, 2, 2) (data,
+    host, device) mesh: the cost model picks the hierarchical exchange with
+    nothing but the factorization, rfft and fused pinned; every rank
+    returns its pick."""
+    from repro_torch.dist.compat import make_hier_mesh
+    from repro_torch.ops import tune
+
+    mesh = make_hier_mesh(2, 2, 2)
+    return tune.tuned_config(_serve_op(n1, n2), mesh, batch=batch, score_iters=score_iters,
+                             cache=tune.PlanCache(store),
+                             pins={"n1": n1, "n2": n2, "rfft": True, "fused": True})
+
+
+def shim_program(a, kw, iters):
+    """``tests/test_plan.py``'s shim case on one gloo rank: the deprecated
+    ``make_dist_cpadmm`` against the plan route it wraps."""
+    import warnings
+
+    from repro_torch.dist.fft import layout_2d, unlayout_2d
+    from repro_torch.dist.recovery import make_dist_cpadmm
+
+    mesh = make_mesh((1,), ("model",))
+    op, prob = _ref_problem(a)
+    n1, n2 = a["n1n2"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solver = make_dist_cpadmm(mesh, n1, n2, iters, fused=True, rfft=True)
+    pl = plan(op, mesh, n1=n1, n2=n2, rfft=True)
+    z_shim = solver(pl.spec2d, pl.mask2d, layout_2d(op.project_back(prob.y), n1, n2),
+                    kw["alpha"], kw["rho"], kw["sigma"])
+    z_plan = solve(prob, "cpadmm", iters=iters, record_every=iters, plan=pl, **kw)[0]
+    return dict(shim=unlayout_2d(z_shim), plan=z_plan,
+                warned=[(w.category.__name__, str(w.message)) for w in caught])
+
+
+def serve_tune_program(n1, n2, store):
+    """``RecoveryServer(tune=...)`` on a gloo model axis, twice on one
+    store: the first server tunes its mesh bucket, a fresh one finds the
+    stored plan.  Every rank returns its bucket plans and counters."""
+    import os
+
+    from repro_torch.ops import tune
+    from repro_torch.serve import (
+        ManualClock,
+        RecoveryServer,
+        static_batch_serve,
+        synthetic_workload,
+    )
+
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = store
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("model",))
+    op = _serve_op(n1, n2)
+    reqs = synthetic_workload(op, 4, rate=1000.0, seed=5, tols=(1e-3,), max_iters=200)
+    out = {}
+    for run in ("cold", "warm"):
+        tune.reset_counters()
+        srv = RecoveryServer(mesh=mesh, slots=2, round_iters=16, rho=0.01, sigma=0.01,
+                             tune="model", clock=ManualClock())
+        results = srv.serve(reqs)
+        out[run] = dict(plans=[e.plan.config for e in srv.engines.values()],
+                        counters=dict(tune.COUNTERS), converged=[r.converged for r in results],
+                        iterations=[r.iterations for r in results])
+    out["static"] = len(static_batch_serve([], mesh=mesh, tune=True))
+    return out
+
+
+def kernel_walk_program(side, frames):
+    """On one gloo rank holding its blocks on the card: walk a kernel-tail
+    block (fp32 and bf16 wires) and hold the kernels the walk heard against
+    the wrappers' own launch counters over the same call."""
+    from repro_torch.core.circulant import partial_gaussian_circulant
+    from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
+    from repro_torch.kernels.wire_pack.ops import pack_wire, unpack_wire
+    from repro_torch.launch.cost_walk import walk
+    from repro_torch.ops import tune
+
+    mesh = make_mesh((1,), ("model",))
+    n = side * side
+    op = partial_gaussian_circulant(torch.Generator().manual_seed(1), n, n // 2,
+                                    normalize=True, device=mesh.device)
+    wrappers = {"cpadmm_tail": fused_cpadmm_tail, "pack_wire": pack_wire,
+                "unpack_wire": unpack_wire}
+    out = {}
+    for wire in ("fp32", "bf16"):
+        pl = plan(op, mesh, rfft=True, tail="kernel", wire_dtype=wire)
+        operands = tune._block_operands(pl, frames)
+        pl.cpadmm_block(1)(*operands)
+        before = {k: w.launches for k, w in wrappers.items()}
+        cost = walk(pl.cpadmm_block(4), *operands)
+        counted = {k: w.launches - before[k] for k, w in wrappers.items()}
+        out[wire] = dict(heard=cost.kernel_launches, counted={k: v for k, v in counted.items()
+                                                               if v})
+    return out
