@@ -13,8 +13,10 @@ no result line):
    plain PyTorch version on the card, at the shapes the main path gives
    it, and time kernel, plain version, the library yardstick where one
    exists, against the kernel's bound and floor (flash attention: the bf16
-   tensor-core kernel and the float32 SIMT kernel, also at the reference
-   tests' shapes, a ragged S and D = 256; the soft-threshold pair as CPISTA
+   tensor-core kernel and the float32 SIMT kernel at Paths E1, G1, G2, G3
+   and E5's shapes and the training CLI's SMOKE head (bf16, D = 8), also at
+   the reference tests' shapes, a ragged S, D = 16 and D = 256; the
+   soft-threshold pair as CPISTA
    and dense ADMM call them, and at the grid settings swept beside the
    committed one); sweep the direct matvec against the FFT path, n = 1024
    ... 32768 at B = 8 and 1, beside the dispatch's FFT_CROSSOVER;
@@ -118,9 +120,11 @@ no result line):
    run twice to resume; then ``--prior nonneg-l1``, ``wavelet`` and ``tv``
    at n = 65536 = 256^2, B = 4 (no kernel launch), and ``--deblur --size
    512 --prior tv`` as a subprocess;
-8b. the five ``examples/torch_*.py`` as subprocesses at their defaults, and
-   the distributed one again with ``--fake-devices 4``: each must exit 0,
-   and the quickstart must recover with both methods;
+8b. the six ``examples/torch_*.py`` as subprocesses at their defaults (the
+   training example ``torch_train_lm.py`` among them: 200 steps of a ~40M
+   parameter widened codeqwen), and the distributed one again with
+   ``--fake-devices 4``: each must exit 0, and the quickstart must recover
+   with both methods;
 9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
    128, vocab 256000; float32 parameters, bf16 compute) initialised on the
    card from a seed, prefilling 4 prompts of 2048 tokens through
@@ -135,7 +139,44 @@ no result line):
 12. Path E3 — minitron-4b's width cut to 2 layers in float32, initialised
    once on the CPU: a prefill on the CPU (plain attention) against the same
    prefill on the card (the float32 SIMT kernel), 1e-4 norm-relative;
-13. one JSON line with every kernel's launches, error, times, bound and
+12b. Path G3 — E3's parameters: ``loss_fn``'s loss and every gradient leaf on
+   the CPU (plain attention, autograd) against the card (the float32 SIMT
+   kernel forward under ``FlashAttentionFn``, the plain recompute backward,
+   TF32 off), batch 2 x 64, no optimizer step: the loss within TOL_CARD_CPU,
+   each leaf within TOL_CARD_CPU_GRAD, 4 SIMT launches (remat: two a layer);
+13. Path G1 — dense training at full width: minitron-4b FULL cut to 4 layers
+   (1.90 B parameters, ~34 GB of state), initialised on the card from a
+   seed, 10 steps of ``make_train_step`` at 4 x 2048 tokens (AdamW warmup 3,
+   total 10), each step's batch from (seed, step) as the launcher draws it;
+   step 1's gradient taken first must reach every leaf; device and host ms a
+   step, tokens/s, peak memory, the bound (operations at 989 TFLOP/s plus the
+   optimizer's bytes at 3.35 TB/s); an 11th step under torch.profiler, cut
+   by CUDA events between the train step's own two halves
+   (``train_step.gradient``, ``train_step.apply``) into gradient and
+   optimizer (the kernel's share from the profile), and, as an isolated
+   estimate, ``FlashAttentionFn``'s backward at a layer's shape alone (the
+   plain recompute); gated on finite losses and gradient norms, the loss at
+   step 10 below step 1's, 80 sm90 launches (4 layers x 2 x 10 steps);
+14. Path G2 — MoE training at full width: moonshot-v1-16b-a3b FULL cut to 3
+   layers (one dense, two of 64 routed top-6 experts + 2 shared; 1.93 B
+   parameters), the same 10 steps and figures, plus aux a step, the dropped
+   share of (token, choice) pairs in each MoE layer (from a forward outside
+   the timed steps, before and after them) and, as an isolated estimate,
+   ``moe_ffn``'s forward and backward at a layer's shape alone; the same
+   gates, 60 sm90 launches; then one trained
+   MoE layer's routing of 8192 tokens on the card against the CPU: equal ids
+   wherever the k-th choice is decided by more than ROUTING_MARGIN (1e-4),
+   the tokens under it counted;
+15. Path E5 — G2's trained model: ``make_prefill_step`` on 4 x 2048 prompts
+   (3 sm90 launches), ``greedy_generate`` on 4 prompts of 32 tokens, 16 new;
+   gated on finiteness, shapes and launches only (an MoE decode routes B
+   tokens a step under capacity 1: it does not agree with a prefill, on the
+   reference either);
+16. the training CLI (``python -m repro_torch.launch.train --arch
+   minitron-4b --smoke --steps 20 --ckpt-every 10``, the SMOKE head D = 8
+   on the SIMT kernel) as a subprocess, then again: the second run must
+   resume from step 20;
+17. one JSON line with every kernel's launches, error, times, bound and
    floor, then the device line ``{"ok": true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
@@ -206,6 +247,16 @@ TOL_PREFILL_DECODE = 5e-2
 # Path E3: float32 on the card (kernel, cuBLAS with TF32 off) against float32
 # on the CPU (plain attention), 2 layers at full width.
 TOL_CARD_CPU = 1e-4
+# Path G3: the float32 gradient of minitron-4b's width (2 layers, 2 x 64
+# tokens) on the card against the CPU's, leaf by leaf, norm-relative.  Both
+# sides differentiate the same plain functions (the attention's backward is
+# _attend_chunked on both); the forward's attention differs (the float32 SIMT
+# kernel against the plain version, within TOL_FLASH's 2e-5 of its scale),
+# and every gradient downstream of it carries that relative difference; the
+# float32 sums in another order (cuBLAS against MKL, TF32 off) add ~2^-24
+# sqrt(n) ~ 6e-6 at n = 9216.  So 2e-5 (5.3e-6 measured at the worst leaf, the
+# embedding table, on an H100 80GB HBM3 at 700 W).
+TOL_CARD_CPU_GRAD = 2e-5
 PAPER_TARGET_MSE = 1e-4
 # a bf16-wire solve against its fp32 twin: the plan layer's own guard bound
 # (repro_torch.ops.plan.WIRE_ERROR_BOUND), as the reference's
@@ -650,12 +701,15 @@ def check_flash(dev, gen, results) -> None:
     which routes bf16 at D in SM90_HEAD_DIMS to the tensor-core kernel and
     the rest to the SIMT kernel; the routed kernel's counter must move.
 
-    The tensor-core kernel: Path E1's prefill shape first (minitron-4b: bf16,
-    B = 4, S = 2048, H = 24 over KH = 8, D = 128, causal), then D = 64, a
-    ragged GQA (8, 1) S = 1000, a full (non-causal) S = 300 and D = 256
-    (gemma-7b's head).  The SIMT kernel: E1's shape in float32 first, then
+    The tensor-core kernel: Paths E1 and G1's shape first (minitron-4b: bf16,
+    B = 4, S = 2048, H = 24 over KH = 8, D = 128, causal), then Paths G2 and
+    E5's (moonshot-v1-16b-a3b: H = KH = 16), D = 64, a ragged GQA (8, 1) S =
+    1000, a full (non-causal) S = 300 and D = 256 (gemma-7b's head).  The
+    SIMT kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, the
+    training CLI's (minitron-4b SMOKE, bf16, B = 16, S = 256, H = 6 over KH
+    = 2, D = 8) and D = 16 (the other SMOKE heads) in bf16, then
     tests/test_flash_attention.py's float32 shapes, its GQA mappings, a
-    ragged causal S = 1000 and D = 256.  Each is held against the plain
+    ragged causal S = 1000, D = 8, 16 and 256.  Each is held against the plain
     version in float32 (TOL_FLASH, TOL_FLASH_ROW) and timed against the plain
     version in its own dtype.  The library yardstick is
     scaled_dot_product_attention on (B, H, S, D) views with enable_gqa (never
@@ -668,16 +722,22 @@ def check_flash(dev, gen, results) -> None:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     # (label, dtype, B, S, H, KH, D, causal)
-    cases = [("path E1: minitron-4b prefill", torch.bfloat16, 4, 2048, 24, 8, 128, True),
+    cases = [("paths E1, G1: minitron-4b", torch.bfloat16, 4, 2048, 24, 8, 128, True),
+             ("paths G2, E5: moonshot-v1-16b-a3b", torch.bfloat16, 4, 2048, 16, 16, 128, True),
              ("D=64", torch.bfloat16, 2, 512, 4, 2, 64, True),
              ("ragged GQA", torch.bfloat16, 2, 1000, 8, 1, 128, True),
              ("full", torch.bfloat16, 1, 300, 4, 4, 128, False),
              ("D=256", torch.bfloat16, 2, 512, 4, 2, 256, True),
-             ("path E1's shape", torch.float32, 4, 2048, 24, 8, 128, True)]
+             ("path E1's shape", torch.float32, 4, 2048, 24, 8, 128, True),
+             ("path G3", torch.float32, 2, 64, 24, 8, 128, True),
+             ("train CLI: minitron-4b SMOKE", torch.bfloat16, 16, 256, 6, 2, 8, True),
+             ("D=16", torch.bfloat16, 2, 256, 4, 4, 16, True)]
     cases += [("tests' shape", torch.float32, 2, s, 2, 2, 64, c)
               for s in (256, 512, 768) for c in (True, False)]
     cases += [("GQA", torch.float32, 2, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
     cases += [("ragged", torch.float32, 2, 1000, 4, 2, 64, True),
+              ("D=8", torch.float32, 2, 300, 6, 2, 8, True),
+              ("D=16", torch.float32, 1, 300, 4, 2, 16, False),
               ("D=256", torch.float32, 2, 512, 4, 2, 256, True)]
     for label, dt, b, s, h, kh, d, causal in cases:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
@@ -2208,7 +2268,418 @@ def path_e3(dev, seed, batch=2, seq=256) -> dict:
     want_counts.update(flash_attention_simt=cfg.n_layers)
     if counts != want_counts:
         fail(f"Path E3 launch counts {counts}; expected {want_counts}")
-    return dict(counts=counts, err=err)
+    return dict(counts=counts, err=err, cfg=cfg, params=params, params_dev=params_dev)
+
+
+def moonshot(n_layers=None):
+    import dataclasses
+
+    from repro_torch.configs.registry import full_config
+
+    cfg = full_config("moonshot-v1-16b-a3b")
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """The operations one train step needs at ``cfg``: each product of the
+    layers and the head 2 FLOP a weight and token a pass, in four passes
+    (forward, the layer remat's or the chunked head's recompute, two
+    backward); an MoE layer's routed experts counted at the k each token
+    chose, its shared experts and router whole; causal attention's Q.K^T and
+    P.V over half the square, in the same four passes."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn_w = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    per_token = cfg.vocab_padded * d  # the unembedding
+    for kind in cfg.layer_kinds():
+        if kind == "dense":
+            per_token += attn_w + (3 if cfg.mlp_variant == "glu" else 2) * d * cfg.d_ff
+        else:
+            expert = 3 * d * cfg.d_ff_expert
+            per_token += attn_w + d * cfg.n_experts + (cfg.top_k + cfg.n_shared_experts) * expert
+    attn = 4 * batch * cfg.n_heads * seq * seq * hd / 2 * cfg.n_layers
+    return 4 * (2 * batch * seq * per_token + attn)
+
+
+def grad_leaves(params, grads) -> dict:
+    """{path: gradient}: ``grads`` in ``lm.tree_items`` order (``steps.grads_of``'s)."""
+    from repro_torch.models.lm import tree_items
+
+    return {"/".join(map(str, path)): g for (path, _), g in zip(tree_items(params), grads)}
+
+
+def missing_gradients(params, grads) -> list:
+    """Leaves other than ``router_bias`` whose gradient is None or all zero."""
+    return [path for path, g in grad_leaves(params, grads).items()
+            if not path.endswith("router_bias") and (g is None or not bool(g.abs().amax() > 0))]
+
+
+def drop_shares(cfg, params, tokens) -> list:
+    """The share of (token, choice) pairs over capacity in each MoE layer's
+    routing, from one forward of ``tokens`` without a gradient (kept out of
+    the timed steps: it reads each routing's keep mask back)."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    shares, real_slots = [], moe.dispatch_slots
+
+    def counting_slots(c, idx):
+        slot, keep = real_slots(c, idx)
+        shares.append(1.0 - keep.float().mean())
+        return slot, keep
+
+    moe.dispatch_slots = counting_slots
+    try:
+        with torch.no_grad():
+            lm.forward(params, cfg, tokens[:, :-1])
+    finally:
+        moe.dispatch_slots = real_slots
+    return [float(v) for v in shares]
+
+
+def attention_backward_ms(cfg, dev, batch, seq) -> tuple[float, float]:
+    """(forward kernel ms, forward + backward ms) of FlashAttentionFn at a
+    layer's q, k, v shape in the compute dtype: the backward's share is the
+    plain _attend_chunked recompute and its vector-Jacobian product."""
+    import torch
+
+    from repro_torch.models.attention import FlashAttentionFn
+
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hd = cfg.resolved_head_dim
+    q, k, v = (torch.randn(batch, seq, n, hd, generator=gen, device=dev).to(dt)
+               .requires_grad_(True) for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    dout = torch.randn(batch, seq, cfg.n_heads, hd, generator=gen, device=dev).to(dt)
+    fwd = lambda: FlashAttentionFn.apply(q, k, v, cfg.attn_chunk)
+    both = lambda: torch.autograd.grad(fwd(), (q, k, v), dout)
+    with torch.no_grad():
+        fwd_ms = timed_calls(fwd, iters=5)[0]
+    both()
+    return fwd_ms, timed_calls(both, iters=3)[0]
+
+
+def moe_ffn_ms(cfg, params, dev, batch, seq) -> tuple[float, float]:
+    """(forward ms, forward + backward ms) of one MoE layer's moe_ffn at
+    (batch, seq, d_model) in the compute dtype, on the layer's cast weights."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    dt = getattr(torch, cfg.dtype)
+    layer = lm.tree_map(lambda a: a[0].detach().to(dt) if a.dtype == torch.float32 else
+                        a[0].detach(), params["segments"][1]["moe"])
+    layer = lm.tree_map(lambda a: a.requires_grad_(True), layer)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.randn(batch, seq, cfg.d_model, generator=gen, device=dev) * 0.5).to(dt)
+    x.requires_grad_(True)
+    leaves = [x, *lm.tree_leaves(layer)]
+
+    def both():
+        out, aux = moe.moe_ffn(layer, cfg, x, cfg.act)
+        return torch.autograd.grad(out.float().sum() + aux, leaves, allow_unused=True)
+
+    with torch.no_grad():
+        fwd_ms = timed_calls(lambda: moe.moe_ffn(layer, cfg, x, cfg.act), iters=5)[0]
+    both()
+    return fwd_ms, timed_calls(both, iters=3)[0]
+
+
+ROUTING_MARGIN = 1e-4  # card against CPU: ids compared where the choice is decided by more
+
+
+def routing_card_vs_cpu(cfg, params, dev, tokens) -> dict:
+    """One MoE layer's routing of ``tokens`` random inputs on the card and on
+    the CPU (float32 router logits, cuBLAS with TF32 off against MKL): the
+    expert ids must agree on every token whose k-th and (k+1)-th selection
+    logits differ by more than ROUTING_MARGIN; the tokens under it are
+    counted and left out (a ~1e-6 logit difference may flip them), and the
+    gates compared on the rest.  Each token's ids are compared as a set
+    (sorted, its gates with them): a near-tie inside the top k reorders them."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    layer = lm.tree_map(lambda a: a[0].detach(), params["segments"][1]["moe"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device=dev).to(getattr(torch, cfg.dtype))
+    by_id = lambda i, g: (i.sort(dim=-1).values, torch.gather(g, -1, i.argsort(dim=-1)))
+    idx, gates = by_id(*moe._routing(layer, cfg, x)[:2])
+    cpu_layer = lm.tree_map(lambda a: a.cpu(), layer)
+    cidx, cgates = by_id(*moe._routing(cpu_layer, cfg, x.cpu())[:2])
+    logits = x.float().cpu() @ cpu_layer["router"].float()
+    select = logits + cpu_layer["router_bias"] if cfg.router_aux_free_bias else logits
+    top = torch.topk(select, cfg.top_k + 1, dim=-1).values
+    decided = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]) > ROUTING_MARGIN
+    same = (idx.cpu() == cidx).all(dim=-1)
+    gate_err = rel_err(gates.float().cpu()[decided], cgates.float()[decided])
+    print(f"Path G2 routing of {tokens} tokens, card vs CPU: {int((~decided).sum())} tokens "
+          f"within {ROUTING_MARGIN:.0e} of a tie at the k-th choice (not compared), "
+          f"{int((~same & decided).sum())} of the other {int(decided.sum())} with other ids, "
+          f"gates there norm-rel {gate_err[1]:.3e}")
+    if bool((~same & decided).any()):
+        fail(f"Path G2: the card routes {int((~same & decided).sum())} decided tokens elsewhere")
+    return dict(undecided=int((~decided).sum()), gate_err=gate_err[1])
+
+
+TRAIN_STEPS = 10  # Paths G1 and G2
+
+
+def path_train(name, cfg, dev, seed, batch=4, seq=2048) -> dict:
+    """Paths G1 / G2: ``cfg`` initialised on the card from a seed, 10 steps
+    of make_train_step at batch x seq positions (AdamW warmup 3, total 10),
+    each step's batch of seq + 1 tokens drawn from (seed, step) as the
+    launcher does at ``--seq seq``.  The gradient of step 1 is taken first
+    (the same batch and parameters) and every leaf but router_bias must have
+    one; the losses and gradient norms must be finite, the loss at step 10
+    below step 1's.  Then one more step under torch.profiler, cut by CUDA
+    events between its two halves (``train_step.gradient``,
+    ``train_step.apply``) into gradient and optimizer."""
+    import torch
+
+    from repro_torch.data.synthetic import step_generator, token_batch
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.models.steps import grads_of, init_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt_cfg = AdamWConfig(warmup_steps=3, total_steps=TRAIN_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    state = init_train_state(gen, cfg, opt_cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    batches = [{"tokens": token_batch(step_generator(seed, s, 0), batch, seq, cfg.vocab,
+                                      device=dev)} for s in range(TRAIN_STEPS + 1)]
+    n_moe = cfg.layer_kinds().count("moe")
+    drop_before = drop_shares(cfg, state.params, batches[0]["tokens"]) if n_moe else []
+    _, grads = grads_of(state.params, cfg, batches[0])
+    missing = missing_gradients(state.params, grads)
+    n_grads, n_leaves = sum(g is not None for g in grads), len(grads)
+    del grads
+    train_step = make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    metrics, dev_ms, host_ms = [], [], []
+    for s in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        state, m = train_step(state, batches[s])
+        end.record()
+        metrics.append({k: float(v) for k, v in m.items()})  # syncs
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    box = [state]
+
+    def one():  # the step's own halves, cut by events
+        ev[0].record()
+        m, g = train_step.gradient(box[0], batches[TRAIN_STEPS])
+        ev[1].record()
+        box[0], _ = train_step.apply(box[0], m, g)
+        ev[2].record()
+
+    prof = profile_window(one, f"Path {name} train step", steps=1)
+    grad_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    flash_ms = sum(ms for k, ms in prof["kernels"].items() if "flash_fwd" in k)
+    attn_fwd_ms, attn_both_ms = attention_backward_ms(cfg, dev, batch, seq)
+    recompute_ms = cfg.n_layers * (attn_both_ms - attn_fwd_ms)
+    flops = train_flops(cfg, batch, seq)
+    opt_bytes = 28 * n_params  # read p, g, m, v; write p, m, v: 7 float32 each
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3 + opt_bytes / HBM_BYTES_PER_S * 1e3
+    steady = sorted(dev_ms[1:])[len(dev_ms[1:]) // 2]  # the median after the first
+    steady_host = sorted(host_ms[1:])[len(host_ms[1:]) // 2]
+    out = dict(cfg=cfg, state=state, counts=counts, metrics=metrics, dev_ms=dev_ms,
+               host_ms=host_ms, steady_ms=steady, steady_host_ms=steady_host,
+               tok_s=batch * seq / (steady_host / 1e3), peak_gib=peak_gib, bound_ms=bound_ms,
+               flops=flops, grad_ms=grad_ms, opt_ms=opt_ms, flash_ms=flash_ms,
+               recompute_ms=recompute_ms, busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+               n_params=n_params)
+    split_ms = grad_ms + opt_ms
+    print(f"Path {name}: {cfg.name}, {cfg.n_layers} layers {cfg.layer_kinds()}, "
+          f"{n_params / 1e9:.3f} B parameters, init {init_s:.2f} s; {TRAIN_STEPS} steps of "
+          f"{batch} x {seq} positions: device ms a step {[round(v, 2) for v in dev_ms]}, host "
+          f"clock ms {[round(v, 2) for v in host_ms]} (median after the first: device "
+          f"{steady:.2f}, host {steady_host:.2f}, {out['tok_s']:.0f} tokens/s); peak memory "
+          f"{peak_gib:.2f} GiB; bound {bound_ms:.2f} ms ({flops:.3e} FLOP at 989 TFLOP/s + "
+          f"{opt_bytes / 1e9:.1f} GB of optimizer traffic at 3.35 TB/s)")
+    print(f"Path {name} losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in metrics]}, lr "
+          f"{[round(m['lr'], 7) for m in metrics]}, aux {[round(m['aux'], 4) for m in metrics]}"
+          f"; step-1 gradients: {n_grads} of {n_leaves} leaves non-None, missing or zero "
+          f"{missing}")
+    if n_moe:
+        out["routing"] = routing_card_vs_cpu(cfg, state.params, dev, batch * seq)
+        moe_fwd_ms, moe_both_ms = moe_ffn_ms(cfg, state.params, dev, batch, seq)
+        out["moe_ms"] = n_moe * (moe_fwd_ms + moe_both_ms)  # forward, then remat + backward
+        out["drop"] = (drop_before,
+                       drop_shares(cfg, state.params, batches[TRAIN_STEPS]["tokens"]))
+        print(f"Path {name} dropped share of (token, choice) pairs in each MoE layer's routing "
+              f"(a forward without a gradient, outside the timed steps): step 1's batch before "
+              f"training {[round(v, 4) for v in out['drop'][0]]}, step {TRAIN_STEPS + 1}'s after "
+              f"{[round(v, 4) for v in out['drop'][1]]}; isolated estimate, MoE FFN at a layer's "
+              f"shape alone: forward {moe_fwd_ms:.2f} ms, forward + backward {moe_both_ms:.2f} ms,"
+              f" x {n_moe} layers (forward, then the remat's forward and the backward) "
+              f"{out['moe_ms']:.2f} ms ({100 * out['moe_ms'] / split_ms:.1f}% of the cut step)")
+    print(f"Path {name} step {TRAIN_STEPS + 1} (profiled), cut by CUDA events between "
+          f"train_step.gradient and train_step.apply: gradient {grad_ms:.2f} ms, optimizer "
+          f"{opt_ms:.2f} ms ({100 * opt_ms / split_ms:.1f}%); device busy {prof['busy_ms']:.2f} "
+          f"of {prof['wall_ms']:.2f} ms; flash_attention_sm90 in the profile {flash_ms:.2f} ms "
+          f"({100 * flash_ms / split_ms:.1f}%); isolated estimate, the plain attention recompute "
+          f"(FlashAttentionFn's backward at a layer's shape alone, {attn_both_ms - attn_fwd_ms:.2f}"
+          f" ms, x {cfg.n_layers} layers) {recompute_ms:.2f} ms "
+          f"({100 * recompute_ms / split_ms:.1f}% of the cut step); launches {counts}")
+    if any(not math.isfinite(m["loss"]) or not math.isfinite(m["grad_norm"]) for m in metrics):
+        fail(f"Path {name}: a non-finite loss or gradient norm")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"Path {name}: the loss did not fall: {metrics[0]['loss']} -> {metrics[-1]['loss']}")
+    if missing:
+        fail(f"Path {name}: leaves without a gradient on the card: {missing}")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_sm90=2 * cfg.n_layers * TRAIN_STEPS)
+    if counts != want:
+        fail(f"Path {name} launch counts {counts}; expected {want} (2 a layer a step: remat)")
+    return out
+
+
+def path_g3(dev, e3, seed, batch=2, seq=64) -> dict:
+    """minitron-4b's width cut to 2 layers in float32 (Path E3's parameters,
+    initialised once on the CPU): the loss and every gradient of loss_fn on
+    the CPU (plain attention forward) and on the card (the float32 SIMT
+    kernel forward, the plain recompute backward, cuBLAS with TF32 off), no
+    optimizer step; the loss within TOL_CARD_CPU, every leaf within
+    TOL_CARD_CPU_GRAD, norm-relative."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.steps import grads_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = e3["cfg"]
+    tokens = token_batch(torch.Generator().manual_seed(seed), batch, seq, cfg.vocab,
+                         device="cpu")
+    t0 = time.perf_counter()
+    cpu_m, cpu_g = grads_of(e3["params"], cfg, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    dev_m, dev_g = grads_of(e3["params_dev"], cfg, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    counts = read_counts()
+    loss_err = abs(float(dev_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+    errs = {}
+    for (path, g_cpu), g_dev in zip(grad_leaves(e3["params"], cpu_g).items(), dev_g):
+        errs[path] = rel_err(g_dev.float().cpu(), g_cpu.float())[1]
+    worst = sorted(errs.items(), key=lambda kv: kv[1], reverse=True)
+    print(f"Path G3: minitron-4b width, 2 layers, float32, B={batch} S={seq}: loss CPU "
+          f"{float(cpu_m['loss']):.6f} ({cpu_s:.2f} s with its gradient), card "
+          f"{float(dev_m['loss']):.6f} ({dev_s:.2f} s), relative {loss_err:.3e} (tol "
+          f"{TOL_CARD_CPU:.0e}); {len(errs)} gradient leaves, norm-relative card vs CPU: worst "
+          f"{[(p, f'{e:.3e}') for p, e in worst[:4]]}, median "
+          f"{worst[len(worst) // 2][1]:.3e} (tol {TOL_CARD_CPU_GRAD:.0e}); launches {counts}")
+    if not loss_err <= TOL_CARD_CPU or not all(math.isfinite(e) for e in errs.values()):
+        fail(f"Path G3: the card's loss disagrees with the CPU's: {loss_err}")
+    if not worst[0][1] <= TOL_CARD_CPU_GRAD:
+        fail(f"Path G3: gradient {worst[0][0]} disagrees: {worst[0][1]}")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_simt=2 * cfg.n_layers)  # forward and remat recompute
+    if counts != want:
+        fail(f"Path G3 launch counts {counts}; expected {want}")
+    return dict(counts=counts, loss_err=loss_err, worst=worst[0], errs=errs)
+
+
+def path_e5(g2, dev, seed, batch=4, seq=2048, prompt_len=32, steps=16) -> dict:
+    """Path G2's trained model serving: make_prefill_step on 4 prompts of
+    2048 tokens (the bf16 tensor-core kernel once a layer), then
+    greedy_generate on 4 prompts of 32 tokens, 16 new.  Gated on
+    finiteness, shapes and launches only: an MoE model's decode routes B
+    tokens a step under capacity max(1, int(1.25 * B * 6 / 64)) = 1, so it
+    drops choices a prefill keeps, and the two do not agree (the
+    reference's semantics)."""
+    import torch
+
+    from repro_torch.data.synthetic import step_generator, token_batch
+    from repro_torch.models.steps import greedy_generate, make_prefill_step
+
+    cfg, params = g2["cfg"], g2["state"].params
+    tokens = token_batch(step_generator(seed, 0, 0), batch, seq - 1, cfg.vocab, device=dev)
+    prefill = make_prefill_step(cfg)
+    batch_in = {"tokens": tokens}
+    prefill(params, batch_in)  # the one cast of the weights, and warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    logits = prefill(params, batch_in)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dev_ms, host_ms = timed_calls(lambda: prefill(params, batch_in), iters=3)
+    prompt = tokens[:, :prompt_len].contiguous()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, steps, prompt_len + steps)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    gen_counts = read_counts()
+    print(f"Path E5: {cfg.name} ({cfg.n_layers} layers, trained {TRAIN_STEPS} steps by Path "
+          f"G2) prefill B={batch} S={seq}: device {dev_ms:.2f} ms, host clock {host_ms:.2f} ms, "
+          f"{batch * seq / (host_ms / 1e3):.0f} tokens/s; greedy_generate prompts "
+          f"{tuple(prompt.shape)}, {steps} new tokens in {gen_ms:.1f} ms (host clock, the one "
+          f"cast included): {gen_ms / steps:.2f} ms a generated token, "
+          f"{gen_ms / (prompt_len + steps - 1):.2f} ms a decode step, "
+          f"{batch * steps / (gen_ms / 1e3):.1f} tokens/s; first row {out[0, :8].tolist()}...; "
+          f"launches: prefill {counts}, greedy {gen_counts}")
+    if logits.shape != (batch, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
+        fail(f"Path E5 logits have shape {tuple(logits.shape)} or non-finite values")
+    if out.shape != (batch, steps) or not (0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        fail(f"Path E5: tokens of shape {tuple(out.shape)} outside [0, {cfg.vocab})")
+    want = dict.fromkeys(counts, 0)
+    if any(gen_counts.values()):
+        fail(f"Path E5: the decode path launched kernels {gen_counts}")
+    want.update(flash_attention_sm90=cfg.n_layers)
+    if counts != want:
+        fail(f"Path E5 launch counts {counts}; expected {want} (one a layer)")
+    return dict(counts=counts, dev_ms=dev_ms, host_ms=host_ms, gen_ms=gen_ms)
+
+
+def train_cli_phase() -> dict:
+    """``python -m repro_torch.launch.train --arch minitron-4b --smoke
+    --steps 20 --ckpt-every 10`` on the card as a subprocess, then again
+    with the same checkpoint directory: the second run must resume from
+    step 20.  Its attention is the SIMT kernel at the SMOKE head, D = 8, in
+    bf16 (held against its plain version at this shape in phase 2)."""
+    import os
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = []
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
+        args = ["--arch", "minitron-4b", "--smoke", "--steps", "20", "--ckpt-every", "10",
+                "--ckpt-dir", ckpt_dir]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args],
+                                  cwd=ROOT, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            print(f"$ python -m repro_torch.launch.train {' '.join(args)}   "
+                  f"[{time.perf_counter() - t0:.2f} s, exit {proc.returncode}]\n"
+                  f"{proc.stdout.rstrip()}")
+            if proc.returncode != 0:
+                fail(f"train CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+            outs.append(proc.stdout)
+    first, second = outs
+    losses = [_floats(ln.split("loss")[1])[0] for ln in first.splitlines()
+              if ln.startswith("step")]
+    if "resumed" in first or len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        fail(f"train CLI: the first run's progress lines {losses}")
+    if "resumed from step 20" not in second:
+        fail("train CLI: the second run did not resume from step 20")
+    return dict(losses=losses)
 
 
 def run_cli(args: list) -> str:
@@ -2335,6 +2806,7 @@ EXAMPLES = (
     ("torch_distributed_recovery.py", []),
     ("torch_distributed_recovery.py", ["--fake-devices", "4"]),
     ("torch_mapmaking_herschel.py", []),
+    ("torch_train_lm.py", []),
 )
 
 
@@ -2469,6 +2941,19 @@ def main() -> int:
     del e1["params"], e1["prefill"]
     torch.cuda.empty_cache()
     e3 = path_e3(dev, 5)
+    t_train = time.perf_counter()
+    g3 = path_g3(dev, e3, 5)
+    del e3["params"], e3["params_dev"]
+    torch.cuda.empty_cache()
+    g1 = path_train("G1", minitron(n_layers=4), dev, 7)
+    del g1["state"]
+    torch.cuda.empty_cache()
+    g2 = path_train("G2", moonshot(n_layers=3), dev, 8)
+    e5 = path_e5(g2, dev, 9)
+    del g2["state"]
+    torch.cuda.empty_cache()
+    train_cli_phase()
+    print(f"Paths G3, G1, G2, E5 and the train CLI took {time.perf_counter() - t_train:.1f} s")
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     m_counts = {k: m["l1"]["counts"][k] + m["tv"]["counts"][k] for k in m["l1"]["counts"]}
     md1_counts = {k: md1["fp32"]["counts"][k] + md1["bf16"]["counts"][k]
@@ -2481,7 +2966,8 @@ def main() -> int:
                "S": s["counts"], f"S{below}": s_below["counts"], "S-D1": sd1["counts"],
                "H": h["counts"],
                "CLI": cli["counts"], "CLI priors": cli_priors["counts"], "E1": e1["counts"],
-               "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"]}
+               "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"], "G1": g1["counts"],
+               "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

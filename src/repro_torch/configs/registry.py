@@ -1,9 +1,10 @@
 """--arch registry: full (assigned) configs and reduced smoke configs.
 
 Port of ``repro/configs/registry.py`` for the architectures whose layers the
-port has: the four dense decoder-only transformers.  The other six ids of
-the reference's registry need MoE, MLA, SSM, xLSTM, encoder-decoder or VLM
-layers and raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 11).
+port has: the four dense decoder-only transformers and moonshot-v1-16b-a3b
+(MoE over GQA).  The other five ids of the reference's registry need MLA,
+SSM, xLSTM, encoder-decoder or VLM layers and raise ``NotImplementedError``
+(ROADMAP.md Queue 1 items 11.3-11.6).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ ARCH_IDS: List[str] = [
     "whisper_large_v3",
 ]
 
-# the architectures the port runs: dense decoder-only transformers
-PORTED_ARCH_IDS: List[str] = ["codeqwen15_7b", "granite_34b", "minitron_4b", "gemma_7b"]
+# the architectures the port runs: decoder-only transformers with GQA, dense or MoE
+PORTED_ARCH_IDS: List[str] = ["codeqwen15_7b", "granite_34b", "minitron_4b", "gemma_7b",
+                              "moonshot_v1_16b_a3b"]
 
 # external ids (assignment spelling) -> module names
 ALIASES: Dict[str, str] = {
@@ -49,7 +51,7 @@ def _module(arch: str):
     if name not in PORTED_ARCH_IDS:
         if name in ARCH_IDS:
             raise NotImplementedError(
-                f"{arch}: its MoE / MLA / SSM / xLSTM / encoder-decoder / VLM layers are not "
+                f"{arch}: its MLA / SSM / xLSTM / encoder-decoder / VLM layers are not "
                 "ported yet (ROADMAP.md Queue 1 item 11); the port runs "
                 f"{', '.join(PORTED_ARCH_IDS)}"
             )

@@ -17,7 +17,7 @@
 //
 // The wrapper routes float32 operands here, and bf16 at a head size the
 // tensor-core kernel (flash_attention_sm90.cu, which takes bf16 LM prefills)
-// has no instance for.  Bound on the H100: operations.  4 B H Sq Sk D FLOPs
+// has no instance for: D = 8, 16 (the SMOKE configs' heads) and 32.  Bound on the H100: operations.  4 B H Sq Sk D FLOPs
 // (halved when causal) against (q + k + v + o) bytes read and written once:
 // at the LM prefill's shape in float32 (B = 4, S = 2048, H = 24, KH = 8, D =
 // 128) 1.03e11 FLOP, 1.54 ms at the fp32 CUDA-core rate (67 TFLOP/s): it
@@ -25,7 +25,8 @@
 // TF32, other numbers).  The design: one block of 256 threads per (64-row q
 // tile, head, batch); the q tile and one 64-row K and V tile staged in shared
 // memory as float32; each thread owns 4 rows x 4 score columns of Q.K^T and
-// 4 rows x D/16 columns of the float32 output accumulator in registers; the
+// 4 rows x D/16 columns of the float32 output accumulator in registers (at
+// D = 8 half the threads of a row hold no output column); the
 // online softmax's row max and sum are reduced across the 16 threads of a
 // row by warp shuffles, and P goes through shared memory to the P.V product.
 // Its limit is shared-memory issue (about one load per two FMAs).
@@ -112,7 +113,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int Sq, int Sk, int H, int KH, int causal, float scale) {
   using L = Smem<D>;
-  constexpr int DPT = D / TX;  // output columns per thread
+  constexpr int DPT = (D + TX - 1) / TX;  // output columns per thread
+  constexpr bool RAGGED = D % TX != 0;    // D = 8: columns tx + TX j >= D are not there
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * L::LDQ;
@@ -194,7 +196,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int i = 0; i < RPT; ++i) pa[i] = Ps[(ty + TY * i) * LDP + c];
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) vb[j] = Vs[c * L::LDV + tx + TX * j];
+      for (int j = 0; j < DPT; ++j)
+        vb[j] = (!RAGGED || tx + TX * j < D) ? Vs[c * L::LDV + tx + TX * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -209,7 +212,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float denom = fmaxf(l[i], 1e-30f);
     T* out = o + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) out[tx + TX * j] = from_float<T>(acc[i][j] / denom);
+    for (int j = 0; j < DPT; ++j)
+      if (!RAGGED || tx + TX * j < D) out[tx + TX * j] = from_float<T>(acc[i][j] / denom);
   }
 }
 
@@ -234,6 +238,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
                        int Sk, int H, int KH, int D, int causal, float scale,
                        cudaStream_t stream) {
   switch (D) {
+    case 8: return launch<T, 8>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, stream);

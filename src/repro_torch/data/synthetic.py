@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -117,6 +118,16 @@ def _paint_disks(params: torch.Tensor, h: int, w: int, background: float) -> tor
 # ---------------------------------------------------------------------------
 # LM substrate: token streams
 # ---------------------------------------------------------------------------
+
+
+def step_generator(seed: int, step: int, host: int = 0) -> torch.Generator:
+    """A fresh CPU generator seeded from ``(seed, step, host)`` alone, the
+    counterpart of the reference's ``fold_in(fold_in(PRNGKey(seed), step),
+    host)``: a training run's batch for a step is the same whenever it is
+    drawn, so a resumed run consumes exactly the missed batches.  On the
+    CPU, so that one seed gives the same batches on either device."""
+    state = np.random.SeedSequence([seed, step, host]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
 
 
 def token_batch(gen: torch.Generator, batch: int, seq_len: int, vocab: int,

@@ -22,8 +22,10 @@ from .core.mapmaking import MapMakingProblem
 from .device import resolve_device
 from .dist.fft import col_block, row_block
 from .dist.recovery import DistCpadmmState
+from .models.steps import TrainState
 from .ops.plan import PlanConfig
 from .ops.prox import prox_from_dict
+from .optim.adamw import AdamWState
 
 # the reference's tail names -> the port's
 _TAILS = {"jnp": "plain", "pallas": "kernel"}
@@ -121,13 +123,16 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
     ``repro.models.lm.init_params``) -> the port's parameters: the same
     nested dict, ``embed`` / ``final_norm`` / ``segments[i]`` with each
     segment's leaves stacked along the layer axis, every weight in the
-    reference's (d_in, d_out) orientation and dtype.  Dense decoder-only
-    trees only (``cfg``'s layer kinds must all be 'dense')."""
+    reference's (d_in, d_out) orientation and dtype.  Decoder-only trees of
+    dense and MoE layers (an MoE layer's ``moe``: ``router``,
+    ``router_bias``, ``w_gate`` / ``w_up`` / ``w_down`` of shape (E, ., .)
+    and ``shared``)."""
     extra = sorted(set(tree) - {"embed", "final_norm", "segments"})
-    if extra or any(kind != "dense" for kind in cfg.layer_kinds()):
+    kinds = set(cfg.layer_kinds()) - {"dense", "moe"}
+    if extra or kinds:
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoder-only parameter trees are carried across "
-            f"(ROADMAP.md Queue 1 item 11); this one has {extra or set(cfg.layer_kinds())}"
+            f"{cfg.name}: only decoder-only parameter trees of dense and MoE layers are carried "
+            f"across (ROADMAP.md Queue 1 item 11); this one has {extra or kinds}"
         )
 
     def carry(node):
@@ -138,3 +143,18 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
         return _tensor(node, device)
 
     return carry({k: tree[k] for k in ("embed", "final_norm", "segments")})
+
+
+def train_state_from_numpy(tree, cfg, device=None):
+    """The reference's ``TrainState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)`` of ``repro.models.steps.init_train_state`` or of a
+    train step's output) -> the port's ``TrainState``: the parameters as
+    :func:`lm_params_from_numpy` carries them, the moments shaped the same,
+    ``opt.count`` and ``step`` int32 scalars."""
+    carry = lambda t: lm_params_from_numpy(t, cfg, device)
+    return TrainState(
+        params=carry(tree.params),
+        opt=AdamWState(mu=carry(tree.opt.mu), nu=carry(tree.opt.nu),
+                       count=_tensor(tree.opt.count, device, torch.int32)),
+        step=_tensor(tree.step, device, torch.int32),
+    )

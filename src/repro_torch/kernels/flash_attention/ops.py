@@ -22,7 +22,7 @@ import torch
 from .. import report_launch, require_cuda_operands
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (32, 64, 128, 256)  # the SIMT kernel's template instances
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the SIMT kernel's template instances
 SM90_HEAD_DIMS = (64, 128, 256)  # the tensor-core kernel's (bf16 only)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o; B, Sq, Sk, H, KH, D; the SIMT kernel's dtype code; causal, scale, stream

@@ -1,2 +1,3 @@
-"""The dense decoder-only LM: config, layers, GQA attention, the layer
-stack and its prefill / decode entry points (port of ``repro/models``)."""
+"""The decoder-only LM: config, layers, GQA attention, the MoE FFN, the
+layer stack, the loss and its train / eval / prefill / decode entry points
+(port of ``repro/models``)."""

@@ -1,18 +1,32 @@
 """GQA / MQA attention: prefill through the flash kernel, decode on a KV cache.
 
 Port of the GQA half of ``repro/models/attention.py`` (MLA waits).  Causal
-self-attention without a sliding window — every prefill of the four dense
-configs — goes through :func:`repro_torch.kernels.flash_attention.ops.
-flash_attention`, the function the reference's Pallas kernel was written to
-replace: on a CUDA tensor it launches the kernel, on a CPU tensor it runs
-its plain version.  Cross-attention, non-causal attention and a sliding
-window go through :func:`_attend_chunked`, the reference's online softmax
-over KV chunks in plain torch, which is also what decode uses: one query
-against a cache with a valid-length mask.
+self-attention without a sliding window — every prefill and training
+forward of the five ported configs, FULL and SMOKE — goes through
+:func:`repro_torch.kernels.flash_attention.ops.flash_attention`, the
+function the reference's Pallas kernel was written to replace: on a CUDA
+tensor it launches the kernel (and raises at a head size it has no
+instance for), on a CPU tensor it runs its plain version.
+Cross-attention, non-causal attention and a sliding window go through
+:func:`_attend_chunked`, the reference's online softmax over KV chunks in
+plain torch, which is also what decode uses: one query against a cache
+with a valid-length mask.  Both routes are static, never by a failure.
 
-The kernel upcasts q before scaling it; ``_attend_chunked`` scales q in the
-compute dtype first, as the reference does.  In float32 the two agree to
-rounding; in bf16 they differ by the bf16 rounding of q * scale.
+The kernel has no backward, as the reference's Pallas kernel has none (the
+reference trains through ``_attend_chunked``).  When any of q, k or v
+requires grad, :func:`gqa_forward` calls :class:`FlashAttentionFn`, whose
+forward is the kernel and whose backward recomputes ``_attend_chunked`` one
+query tile at a time and returns its vector-Jacobian product; otherwise it
+calls the kernel bare.  The route is static (by ``requires_grad``), never
+taken on a failure.  So:
+
+* the gradient is the plain function's, the reference's gradient;
+* ``_attend_chunked`` rounds ``q * scale`` to the compute dtype before the
+  upcast, as the reference does, and the kernel upcasts q first: in
+  float32 the two agree to rounding, in bf16 the gradient is that of a
+  function that differs from the forward by the bf16 rounding of q * scale;
+* under layer remat (``cfg.remat``) the forward kernel launches twice a
+  layer a training step: once in the forward, once in the recompute.
 """
 
 from __future__ import annotations
@@ -90,6 +104,40 @@ def _attend_chunked(
     return torch.cat(outs, dim=1).reshape(b, sq, h, dv).to(q.dtype)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal self-attention with the flash kernel forward and the plain
+    function's gradient: the backward recomputes :func:`_attend_chunked`
+    (``chunk`` keys a block) on detached copies, one query tile of ``chunk``
+    rows at a time (``q_offset`` placing it), so that at most one tile's
+    scores are alive, and returns its vector-Jacobian product; dk and dv are
+    summed over the tiles in float32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+        return flash_attention(q, k, v, causal=True)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        k, v = (t.detach().requires_grad_(True) for t in (k, v))
+        sq, chunk = q.shape[1], ctx.chunk
+        tile = chunk if sq >= chunk else sq  # _attend_chunked's query tile
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for q0 in range(0, sq, tile):
+            qt = q[:, q0:q0 + tile].detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = _attend_chunked(qt, k, v, causal=True, q_offset=q0, chunk=chunk)
+            gq, gk, gv = torch.autograd.grad(out, (qt, k, v), grad_out[:, q0:q0 + tile])
+            dq[:, q0:q0 + tile] = gq
+            dk += gk
+            dv += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None
+
+
 # ---------------------------------------------------------------------------
 # GQA / MQA
 # ---------------------------------------------------------------------------
@@ -146,7 +194,10 @@ def gqa_forward(
         k = (src @ params["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
         v = (src @ params["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
     if causal and kv is None and not cfg.sliding_window:
-        out = flash_attention(q, k, v, causal=True)
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            out = FlashAttentionFn.apply(q, k, v, cfg.attn_chunk)
+        else:
+            out = flash_attention(q, k, v, causal=True)
     else:
         out = _attend_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                               sliding_window=cfg.sliding_window)

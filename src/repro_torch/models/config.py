@@ -3,8 +3,8 @@
 One superset dataclass covering all ten architectures of the reference's
 registry, and the analytic ``count_params``.  Kept whole (it is data and
 arithmetic) so that a port config and a reference config with the same
-fields describe the same model; the port runs the dense decoder-only LM
-family of it (``repro_torch.configs.registry``).
+fields describe the same model; the port runs the decoder-only GQA
+transformers of it, dense and MoE (``repro_torch.configs.registry``).
 """
 
 from __future__ import annotations

@@ -1,14 +1,19 @@
-"""The decoder-only LM: layer stack, caches, prefill and decode entry points.
+"""The decoder-only LM: layer stack, caches, forward, prefill and decode.
 
-Port of ``repro/models/lm.py`` for the ``transformer`` block type with
-``dense`` layers: the four dense configs of ``repro_torch.configs``.  The
-parameters are a dict of tensors mirroring the reference's tree: ``embed``
-(``table``, and ``unembed`` unless tied), ``final_norm`` and ``segments``,
-one dict per run of same-kind layers with every leaf stacked along a leading
-layer axis.  The reference's ``lax.scan`` over that axis becomes a Python
-loop over it.  ``moe``, ``mamba2``, ``mlstm`` and ``slstm`` layers, image
-embeddings and encoder frames raise ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 11).
+Port of ``repro/models/lm.py`` for the ``transformer`` block type with GQA
+attention: ``dense`` layers and ``moe`` layers (:mod:`.moe`), the five
+configs of ``repro_torch.configs``.  The parameters are a dict of tensors
+mirroring the reference's tree: ``embed`` (``table``, and ``unembed``
+unless tied), ``final_norm`` and ``segments``, one dict per run of
+same-kind layers with every leaf stacked along a leading layer axis.  The
+reference's ``lax.scan`` over that axis becomes a Python loop over it, and
+its ``jax.checkpoint`` of each layer (``cfg.remat``) becomes
+``torch.utils.checkpoint`` wherever grad is enabled: a training step keeps
+each layer's input and recomputes the rest in the backward pass.  Each
+layer's aux loss (an MoE layer's Switch loss, a dense layer's 0) is summed.
+MLA, ``mamba2``, ``mlstm`` and ``slstm`` layers, image embeddings and
+encoder frames raise ``NotImplementedError`` (ROADMAP.md Queue 1 items
+11.3-11.6).
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import apply_norm, embed, init_embedding, init_mlp, init_norm, mlp, unembed
 
@@ -33,8 +40,8 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _require_dense(kind: str) -> None:
-    if kind != "dense":
+def _require_kind(kind: str) -> None:
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"the {kind!r} layer kind {_NOT_PORTED}")
 
 
@@ -44,10 +51,10 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: block_type={cfg.block_type!r}, attn_type={cfg.attn_type!r}, "
             f"is_encdec={cfg.is_encdec}, use_rope={cfg.use_rope} {_NOT_PORTED}; the port "
-            "runs dense decoder-only transformers with GQA and RoPE"
+            "runs decoder-only transformers with GQA and RoPE, dense or MoE"
         )
     for kind in cfg.layer_kinds():
-        _require_dense(kind)
+        _require_kind(kind)
 
 
 def tree_map(fn, tree):
@@ -59,16 +66,22 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_items(tree, path=()):
+    """``(path, leaf)`` for the tensor leaves of nested dicts, lists and
+    tuples, in order; a path is the tuple of keys and indices to its leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, path + (i,))
+    else:
+        yield path, tree
+
+
 def tree_leaves(tree):
     """The tensor leaves of nested dicts, lists and tuples, in order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from tree_leaves(v)
-    else:
-        yield tree
+    return (leaf for _, leaf in tree_items(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -77,35 +90,51 @@ def tree_leaves(tree):
 
 
 def _init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
-    _require_dense(kind)
+    _require_kind(kind)
     dt, d = _pdtype(cfg), cfg.d_model
-    return {
+    p = {
         "ln1": init_norm(d, dt, gen.device),
         "ln2": init_norm(d, dt, gen.device),
         "attn": attn_mod.init_gqa(gen, cfg, dt),
-        "mlp": init_mlp(gen, d, cfg.d_ff, dt, cfg.mlp_variant),
     }
+    if kind == "dense":
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt, cfg.mlp_variant)
+    else:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dt)
+    return p
+
+
+def _ffn(params: dict, kind: str, cfg: ModelConfig,
+         h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's feed-forward half on normed ``h`` -> (y, aux_loss); a
+    dense layer's aux loss is 0."""
+    if kind == "dense":
+        return mlp(params["mlp"], h, cfg.act), torch.zeros((), dtype=torch.float32,
+                                                           device=h.device)
+    return moe_mod.moe_ffn(params["moe"], cfg, h, cfg.act)
 
 
 def _layer_forward(params: dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, aux_loss); a dense layer's aux loss is 0."""
-    _require_dense(kind)
+    """-> (x, aux_loss)."""
+    _require_kind(kind)
     h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
     x = x + attn_mod.gqa_forward(params["attn"], cfg, h, positions, rope=cfg.use_rope)
     h = apply_norm(params["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + mlp(params["mlp"], h, cfg.act)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(params, kind, cfg, h)
+    return x + y, aux
 
 
 def _layer_decode(params: dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                   cache: attn_mod.KVCache) -> Tuple[torch.Tensor, attn_mod.KVCache]:
-    _require_dense(kind)
+    """One position through a layer; an MoE layer routes the B tokens of
+    this step alone (capacity from B), as the reference does."""
+    _require_kind(kind)
     h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
     a, cache = attn_mod.gqa_decode(params["attn"], cfg, h, cache, rope=cfg.use_rope)
     x = x + a
     h = apply_norm(params["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    return x + mlp(params["mlp"], h, cfg.act), cache
+    return x + _ffn(params, kind, cfg, h)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +198,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
 
 def backbone_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all segments.  x: (B, S, D) embedded input.  -> (hidden, aux)."""
+    """Run all segments.  x: (B, S, D) embedded input.  -> (hidden, aux).
+
+    Under ``cfg.remat`` with grad enabled each layer runs under a
+    non-reentrant ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(body)``): only its input is kept, and its forward runs
+    again in the backward pass.  With grad off (prefill, decode) it runs
+    once."""
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(segments_of(cfg)):
         for i in range(seg.n):
-            x, aux = _layer_forward(_layer(params["segments"][si], i), seg.kind, cfg, x,
-                                    positions)
+            args = (_layer(params["segments"][si], i), seg.kind, cfg, x, positions)
+            if remat:
+                x, aux = checkpoint(_layer_forward, *args, use_reentrant=False)
+            else:
+                x, aux = _layer_forward(*args)
             aux_total = aux_total + aux
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return x, aux_total

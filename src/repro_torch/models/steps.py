@@ -1,25 +1,127 @@
-"""Prefill and decode step builders, and greedy generation.
+"""Train, eval, prefill and decode step builders, and greedy generation.
 
-Port of the serving half of ``repro/models/steps.py``.  Each step function
-casts the parameters to the compute dtype once and hands the cast copy to
-``lm.forward_precast`` / ``lm.decode_step_precast``, which do not cast
-again: the reference casts at every call (``lm.forward`` and
-``lm.decode_step``), which on the card would re-read every float32 weight
-once per token for the same numbers.  The copy is made again when a call
-brings other tensors or a tensor changed in place (its ``_version``; a
-write through ``.data`` is not seen).  ``TrainState``, ``loss_fn`` and
-``make_train_step`` wait for the training slice (ROADMAP.md Queue 1 item
-11).
+Port of ``repro/models/steps.py``.  ``make_train_step`` closes over the
+model and optimizer configs and returns ``(state, batch) -> (state,
+metrics)``: the loss (:func:`loss_fn`: ``lm.forward``, which casts the
+float32 parameters to the compute dtype on every call, then the chunked
+cross-entropy plus ``1e-2 * aux``), its gradient by autograd, and one AdamW
+step (:mod:`repro_torch.optim.adamw`) that updates the state's tensors in
+place.  ``microbatches > 1`` splits the batch along dim 0 and accumulates
+float32 gradients divided by the count, as the reference's scan does.
+
+The serving steps cast the parameters to the compute dtype once and hand
+the cast copy to ``lm.forward_precast`` / ``lm.decode_step_precast``, which
+do not cast again: the reference casts at every call, which on the card
+would re-read every float32 weight once per token for the same numbers.
+The copy is made again when a call brings other tensors or a tensor changed
+in place (its ``_version``; a write through ``.data`` is not seen).  The
+training loss never uses that copy: it has no path back to the float32
+leaves.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve_device
+from ..optim import adamw as opt_mod
 from . import lm
 from .config import ModelConfig
+from .losses import chunked_cross_entropy
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt: opt_mod.AdamWState
+    step: torch.Tensor  # int32 scalar
+
+
+def init_train_state(gen: torch.Generator, cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
+                     device=None) -> TrainState:
+    """Parameters drawn from ``gen`` (on its device) and placed on
+    ``device``, zero moments, step 0."""
+    params = lm.init_params(gen, cfg, device=device)
+    return TrainState(params=params, opt=opt_mod.init(params, opt_cfg),
+                      step=torch.zeros((), dtype=torch.int32, device=resolve_device(device)))
+
+
+def loss_fn(params: dict, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
+    """-> (NLL + 1e-2 * aux, {"loss", "acc", "aux"}) on ``batch["tokens"]``
+    (B, S + 1): the first S tokens in, the last S the targets."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    hidden, aux = lm.forward(params, cfg, inputs, img_embeds=batch.get("img_embeds"),
+                             frames=batch.get("frames"))
+    nll, acc = chunked_cross_entropy(params, cfg, hidden, targets)
+    return nll + 1e-2 * aux, {"loss": nll, "acc": acc, "aux": aux}
+
+
+def grads_of(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """-> (metrics, gradient leaves in ``lm.tree_leaves`` order): ``None``
+    for a leaf the loss does not reach.  The parameters are differentiated
+    through detached aliases, so the state's tensors keep their
+    ``requires_grad``."""
+    leaves = list(lm.tree_leaves(params))
+    it = iter([leaf.detach().requires_grad_(True) for leaf in leaves])
+    aliases = lm.tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        total, metrics = loss_fn(aliases, cfg, batch)
+        grads = torch.autograd.grad(total, list(lm.tree_leaves(aliases)), allow_unused=True)
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig, microbatches: int = 1):
+    """``(state, batch) -> (state, metrics)``; the returned state holds the
+    given state's tensors, updated in place, and a new step counter.
+    Metrics: ``loss``, ``acc``, ``aux`` (the mean over microbatches),
+    ``grad_norm``, ``lr``, ``step``.  The step is its two halves, which it
+    carries as attributes so that a caller can time each:
+    ``train_step.gradient(state, batch) -> (metrics, grads)`` and
+    ``train_step.apply(state, metrics, grads) -> (state, metrics)``."""
+
+    def gradient(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if microbatches == 1:
+            metrics, grads = grads_of(state.params, cfg, batch)
+        else:
+            micro = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+                     for k, v in batch.items()}
+            grads, per_micro = None, []
+            for i in range(microbatches):
+                m, g = grads_of(state.params, cfg, {k: v[i] for k, v in micro.items()})
+                per_micro.append(m)
+                g = [None if a is None else a.float() / microbatches for a in g]
+                # a leaf the loss does not reach is None in every microbatch
+                grads = g if grads is None else [None if b is None else b + a
+                                                 for a, b in zip(g, grads)]
+            metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
+        return metrics, grads
+
+    def apply(state: TrainState, metrics: dict, grads):
+        it = iter(grads)
+        grad_tree = lm.tree_map(lambda _: next(it), state.params)
+        params, opt, opt_metrics = opt_mod.update(state.params, grad_tree, state.opt, opt_cfg)
+        step = state.step + 1
+        return TrainState(params=params, opt=opt, step=step), dict(metrics, **opt_metrics,
+                                                                    step=step)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        return apply(state, *gradient(state, batch))
+
+    train_step.gradient, train_step.apply = gradient, apply
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig):
+    """``(params, batch) -> {"loss", "acc", "aux"}``, without a gradient."""
+
+    @torch.no_grad()
+    def eval_step(params: dict, batch: Dict[str, torch.Tensor]) -> dict:
+        return loss_fn(params, cfg, batch)[1]
+
+    return eval_step
 
 
 def _cast_once(cfg: ModelConfig) -> Callable[[dict], dict]:

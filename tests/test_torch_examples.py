@@ -113,3 +113,15 @@ def test_mapmaking_example_on_a_mesh(examples, capfd):
          "--fake-devices", "2"])
     assert "prox=tv[16x16,it10]" in capfd.readouterr().out
     assert bool(torch.isfinite(out["results"]["tv"][1]["map"]).all())
+
+
+def test_train_lm_runs_and_resumes(examples, capsys):
+    """The training example at 4 steps (narrow batches, its ~100M-parameter
+    model), then again to 8 steps from its step-4 checkpoint."""
+    args = ["--device", "cpu", "--batch", "2", "--seq", "32", "--ckpt-every", "4"]
+    first = examples("torch_train_lm").main(args + ["--steps", "4"])
+    assert first["start"] == 0 and int(first["state"].step) == 4
+    second = examples("torch_train_lm").main(args + ["--steps", "8"])
+    text = capsys.readouterr().out
+    assert "resumed from checkpoint step 4" in text and text.count("done") == 2
+    assert second["start"] == 4 and int(second["state"].step) == 8

@@ -124,6 +124,8 @@ TOL_CARD_ROW = {torch.float32: 1e-4, torch.bfloat16: 2**-8 + 1e-4}
     (torch.bfloat16, 32, "simt"),  # no tensor-core instance: the SIMT kernel
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
     (torch.float32, 32, "simt"), (torch.float16, 128, "simt"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 16, "simt"),  # the SMOKE configs' heads
+    (torch.float32, 8, "simt"), (torch.float32, 16, "simt"),
 ])
 def test_kernel_routing_by_dtype_and_head_size(dtype, d, kernel):
     """bf16 at the tensor-core kernel's head sizes goes to it; float32, and
@@ -131,6 +133,7 @@ def test_kernel_routing_by_dtype_and_head_size(dtype, d, kernel):
     other dtypes before it routes)."""
     assert flash_ops.kernel_for(dtype, d) == kernel
     assert set(flash_ops.SM90_HEAD_DIMS) <= set(flash_ops.HEAD_DIMS)
+    assert dtype == torch.float16 or d in flash_ops.HEAD_DIMS
 
 
 def emulate_sm90(q, k, v, *, causal=True, block_k=128, split_p=True):
@@ -201,7 +204,10 @@ def cuda_device():
                                                (1, 256, 2, 1, 256, True),
                                                (2, 1000, 8, 1, 128, True),
                                                (2, 512, 4, 2, 64, False),
-                                               (1, 1000, 4, 2, 256, False)])
+                                               (1, 1000, 4, 2, 256, False),
+                                               (2, 300, 6, 2, 8, True),
+                                               (2, 256, 4, 4, 16, True),
+                                               (1, 300, 4, 2, 16, False)])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype, b, s, h, kh, d, causal):
     """Norm-relative, against the plain version in float32: 2e-5 over the
     output and 1e-4 row by row in float32 (sums in another order); in bf16
