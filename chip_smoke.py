@@ -2,6 +2,10 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-times [CHECKOUT]
+
+The second form only times a checkout's flash attention at phase 2's cases
+that do not route to the wgmma kernel, to compare two checkouts on one card.
 
 Phases, each unguarded (any failure ends the run with a non-zero code and
 no result line):
@@ -13,9 +17,10 @@ no result line):
    plain PyTorch version on the card, at the shapes the main path gives
    it, and time kernel, plain version, the library yardstick where one
    exists, against the kernel's bound and floor (flash attention: the bf16
-   tensor-core kernel and the float32 SIMT kernel at Paths E1, G1, G2, G3
-   and E5's shapes and the training CLI's SMOKE head (bf16, D = 8), also at
-   the reference tests' shapes, a ragged S, D = 16 and D = 256; the
+   wgmma kernel and the mma.sync kernel (float32 as 3xTF32, bf16 at D = 8,
+   16, 32) at Paths E1, G1, G2, G3 and E5's shapes and the training CLI's
+   SMOKE head (bf16, D = 8), also at the reference tests' shapes, a ragged
+   S, D = 16, 32 and 256; the
    soft-threshold pair as CPISTA
    and dense ADMM call them, and at the grid settings swept beside the
    committed one); sweep the direct matvec against the FFT path, n = 1024
@@ -128,7 +133,7 @@ no result line):
 9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
    128, vocab 256000; float32 parameters, bf16 compute) initialised on the
    card from a seed, prefilling 4 prompts of 2048 tokens through
-   ``make_prefill_step``: the bf16 tensor-core flash attention kernel in
+   ``make_prefill_step``: the bf16 wgmma flash attention kernel in
    every layer (32 launches); device and host ms, tokens/s, peak memory,
    the attention's share of a profiled prefill;
 10. Path E2 — the same prompts cut to 512 tokens through
@@ -138,12 +143,13 @@ no result line):
 11. Path E4 — ``greedy_generate``: 4 prompts of 32 tokens, 32 new tokens;
 12. Path E3 — minitron-4b's width cut to 2 layers in float32, initialised
    once on the CPU: a prefill on the CPU (plain attention) against the same
-   prefill on the card (the float32 SIMT kernel), 1e-4 norm-relative;
+   prefill on the card (the mma.sync kernel, 3xTF32), 1e-4 norm-relative;
 12b. Path G3 — E3's parameters: ``loss_fn``'s loss and every gradient leaf on
-   the CPU (plain attention, autograd) against the card (the float32 SIMT
-   kernel forward under ``FlashAttentionFn``, the plain recompute backward,
-   TF32 off), batch 2 x 64, no optimizer step: the loss within TOL_CARD_CPU,
-   each leaf within TOL_CARD_CPU_GRAD, 4 SIMT launches (remat: two a layer);
+   the CPU (plain attention, autograd) against the card (the mma.sync
+   kernel's 3xTF32 forward under ``FlashAttentionFn``, the plain recompute
+   backward, cuBLAS's TF32 off), batch 2 x 64, no optimizer step: the loss
+   within TOL_CARD_CPU, each leaf within TOL_CARD_CPU_GRAD, 4 mma launches
+   (remat: two a layer);
 13. Path G1 — dense training at full width: minitron-4b FULL cut to 4 layers
    (1.90 B parameters, ~34 GB of state), initialised on the card from a
    seed, 10 steps of ``make_train_step`` at 4 x 2048 tokens (AdamW warmup 3,
@@ -174,7 +180,7 @@ no result line):
    reference either);
 16. the training CLI (``python -m repro_torch.launch.train --arch
    minitron-4b --smoke --steps 20 --ckpt-every 10``, the SMOKE head D = 8
-   on the SIMT kernel) as a subprocess, then again: the second run must
+   on the mma.sync kernel) as a subprocess, then again: the second run must
    resume from step 20;
 17. one JSON line with every kernel's launches, error, times, bound and
    floor, then the device line ``{"ok": true, "device": {...}}`` last.
@@ -204,6 +210,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 # Tolerances, norm-relative (max |kernel - plain| / max |plain|):
@@ -244,14 +251,16 @@ TOL_FLASH_ROW = {"float32": 1e-4, "bfloat16": 2**-8 + 1e-4}
 # rounds q * scale to bf16 before the upcast (the reference's
 # _attend_chunked), the kernel does not.
 TOL_PREFILL_DECODE = 5e-2
-# Path E3: float32 on the card (kernel, cuBLAS with TF32 off) against float32
-# on the CPU (plain attention), 2 layers at full width.
+# Path E3: float32 on the card (the mma.sync kernel's 3xTF32 products, within
+# TOL_FLASH of a float32 softmax; cuBLAS with TF32 off) against float32 on the
+# CPU (plain attention), 2 layers at full width.
 TOL_CARD_CPU = 1e-4
 # Path G3: the float32 gradient of minitron-4b's width (2 layers, 2 x 64
 # tokens) on the card against the CPU's, leaf by leaf, norm-relative.  Both
 # sides differentiate the same plain functions (the attention's backward is
-# _attend_chunked on both); the forward's attention differs (the float32 SIMT
-# kernel against the plain version, within TOL_FLASH's 2e-5 of its scale),
+# _attend_chunked on both); the forward's attention differs (the mma.sync
+# kernel's 3xTF32 products against the plain version, within TOL_FLASH's 2e-5
+# of its scale),
 # and every gradient downstream of it carries that relative difference; the
 # float32 sums in another order (cuBLAS against MKL, TF32 off) add ~2^-24
 # sqrt(n) ~ 6e-6 at n = 9216.  So 2e-5 (5.3e-6 measured at the worst leaf, the
@@ -696,54 +705,106 @@ def check_wire(dev, gen, results) -> None:
                 results[name].append(r)
 
 
+# check_flash's cases: (label, dtype, B, S, H, KH, D, causal)
+FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 24, 8, 128, True),
+                ("paths G2, E5: moonshot-v1-16b-a3b", "bfloat16", 4, 2048, 16, 16, 128, True),
+                ("D=64", "bfloat16", 2, 512, 4, 2, 64, True),
+                ("ragged GQA", "bfloat16", 2, 1000, 8, 1, 128, True),
+                ("full", "bfloat16", 1, 300, 4, 4, 128, False),
+                ("D=256", "bfloat16", 2, 512, 4, 2, 256, True),
+                ("path E1's shape", "float32", 4, 2048, 24, 8, 128, True),
+                ("path G3", "float32", 2, 64, 24, 8, 128, True),
+                ("train CLI: minitron-4b SMOKE", "bfloat16", 16, 256, 6, 2, 8, True),
+                ("D=16", "bfloat16", 2, 256, 4, 4, 16, True),
+                ("D=32", "bfloat16", 2, 512, 4, 2, 32, True)]
+               + [("tests' shape", "float32", 2, s, 2, 2, 64, c)
+                  for s in (256, 512, 768) for c in (True, False)]
+               + [("GQA", "float32", 2, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
+               + [("ragged", "float32", 2, 1000, 4, 2, 64, True),
+                  ("D=8", "float32", 2, 300, 6, 2, 8, True),
+                  ("D=16", "float32", 1, 300, 4, 2, 16, False),
+                  ("D=256", "float32", 2, 512, 4, 2, 256, True)])
+
+
+def flash_times(root: Path) -> None:
+    """``python3 chip_smoke.py --flash-times [CHECKOUT]``: device ms of the
+    CHECKOUT's ``flash_attention`` (default: this file's checkout; its kernels
+    built under CHECKOUT/build) at every case of :func:`check_flash` that does
+    not route to the wgmma kernel, so that two checkouts compare on one card
+    (run in the order A, B, B, A)."""
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels.flash_attention import ops
+
+    print(card_line())
+    print(f"flash times of {Path(ops.__file__).parent}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, dt, b, s, h, kh, d, causal in FLASH_CASES:
+        dt = getattr(torch, dt)
+        if ops.kernel_for(dt, d) == "sm90":
+            continue
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
+        ms = timed(lambda: ops.flash_attention(q, k, v, causal=causal))[0]
+        print(f"flash times [{label}: {str(dt).removeprefix('torch.')} B={b} S={s} H={h} "
+              f"KH={kh} D={d} causal={causal}]: device ms {ms:.4f}")
+
+
+def sdpa_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` runs, by torch.profiler: which
+    backend scaled_dot_product_attention picked."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    bare = (name.removeprefix("void ").replace("(anonymous namespace)::", "") for name in names)
+    short = list(dict.fromkeys(re.split(r"[(<]", n)[0].split("::")[-1] for n in bare))
+    return (f"{len(names)}: {', '.join(short[:4])}{', ...' if len(short) > 4 else ''}"
+            if names else "no device kernel recorded")
+
+
 def check_flash(dev, gen, results) -> None:
     """flash_attention against its plain version, through the public wrapper,
-    which routes bf16 at D in SM90_HEAD_DIMS to the tensor-core kernel and
-    the rest to the SIMT kernel; the routed kernel's counter must move.
+    which routes bf16 at D in SM90_HEAD_DIMS to the wgmma kernel and the rest
+    to the mma.sync kernel; the routed kernel's counter must move.
 
-    The tensor-core kernel: Paths E1 and G1's shape first (minitron-4b: bf16,
-    B = 4, S = 2048, H = 24 over KH = 8, D = 128, causal), then Paths G2 and
-    E5's (moonshot-v1-16b-a3b: H = KH = 16), D = 64, a ragged GQA (8, 1) S =
-    1000, a full (non-causal) S = 300 and D = 256 (gemma-7b's head).  The
-    SIMT kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, the
-    training CLI's (minitron-4b SMOKE, bf16, B = 16, S = 256, H = 6 over KH
-    = 2, D = 8) and D = 16 (the other SMOKE heads) in bf16, then
+    The wgmma kernel: Paths E1 and G1's shape first (minitron-4b: bf16, B =
+    4, S = 2048, H = 24 over KH = 8, D = 128, causal), then Paths G2 and E5's
+    (moonshot-v1-16b-a3b: H = KH = 16), D = 64, a ragged GQA (8, 1) S = 1000,
+    a full (non-causal) S = 300 and D = 256 (gemma-7b's head).  The mma.sync
+    kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, the training
+    CLI's (minitron-4b SMOKE, bf16, B = 16, S = 256, H = 6 over KH = 2, D = 8)
+    and D = 16 (the other SMOKE heads) and D = 32 in bf16, then
     tests/test_flash_attention.py's float32 shapes, its GQA mappings, a
-    ragged causal S = 1000, D = 8, 16 and 256.  Each is held against the plain
-    version in float32 (TOL_FLASH, TOL_FLASH_ROW) and timed against the plain
-    version in its own dtype.  The library yardstick is
+    ragged causal S = 1000, D = 8, 16 and 256.  Each is held against the
+    plain version in float32 (TOL_FLASH, TOL_FLASH_ROW) and timed against
+    the plain version in its own dtype.  The bound of a float32 case is the
+    design's, three TF32 products at 495 TFLOP/s, with one product at the
+    fp32 CUDA-core rate printed beside it.  The library yardstick is
     scaled_dot_product_attention on (B, H, S, D) views with enable_gqa (never
     called by the port); its own error against the same float32 plain
-    version is printed beside the kernel's, a finding and no gate."""
+    version is printed beside the kernel's, and in float32 its time with the
+    KV heads expanded to H before the timed calls and the kernels it ran, a
+    finding and no gate."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    # (label, dtype, B, S, H, KH, D, causal)
-    cases = [("paths E1, G1: minitron-4b", torch.bfloat16, 4, 2048, 24, 8, 128, True),
-             ("paths G2, E5: moonshot-v1-16b-a3b", torch.bfloat16, 4, 2048, 16, 16, 128, True),
-             ("D=64", torch.bfloat16, 2, 512, 4, 2, 64, True),
-             ("ragged GQA", torch.bfloat16, 2, 1000, 8, 1, 128, True),
-             ("full", torch.bfloat16, 1, 300, 4, 4, 128, False),
-             ("D=256", torch.bfloat16, 2, 512, 4, 2, 256, True),
-             ("path E1's shape", torch.float32, 4, 2048, 24, 8, 128, True),
-             ("path G3", torch.float32, 2, 64, 24, 8, 128, True),
-             ("train CLI: minitron-4b SMOKE", torch.bfloat16, 16, 256, 6, 2, 8, True),
-             ("D=16", torch.bfloat16, 2, 256, 4, 4, 16, True)]
-    cases += [("tests' shape", torch.float32, 2, s, 2, 2, 64, c)
-              for s in (256, 512, 768) for c in (True, False)]
-    cases += [("GQA", torch.float32, 2, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
-    cases += [("ragged", torch.float32, 2, 1000, 4, 2, 64, True),
-              ("D=8", torch.float32, 2, 300, 6, 2, 8, True),
-              ("D=16", torch.float32, 1, 300, 4, 2, 16, False),
-              ("D=256", torch.float32, 2, 512, 4, 2, 256, True)]
+    cases = [(label, getattr(torch, dt), *shape) for label, dt, *shape in FLASH_CASES]
     for label, dt, b, s, h, kh, d, causal in cases:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
         flops = 4 * b * h * s * s * d / (2 if causal else 1)  # Q.K^T and P.V
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         name = str(dt).removeprefix("torch.")
+        fp32 = dt == torch.float32
         kernel = f"flash_attention_{ops.kernel_for(dt, d)}"
         wrapper = getattr(ops, kernel)
         before = wrapper.launches
@@ -756,9 +817,9 @@ def check_flash(dev, gen, results) -> None:
             kernel, label,
             lambda a=(q, k, v, causal): ops.flash_attention(*a[:3], causal=a[3]),
             lambda a=(q, k, v, causal): flash_attention_ref(*a[:3], causal=a[3]),
-            TOL_FLASH[name], nbytes, flops, want=want, row_tol=TOL_FLASH_ROW[name],
-            library=library, plain_iters=5 if s >= 2048 else 20,
-            flops_per_s=BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S,
+            TOL_FLASH[name], nbytes, 3 * flops if fp32 else flops, want=want,
+            row_tol=TOL_FLASH_ROW[name], library=library, plain_iters=5 if s >= 2048 else 20,
+            flops_per_s=TF32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S,
         ))
         if wrapper.launches == before:
             fail(f"{kernel} [{label}]: the wrapper routed the call elsewhere")
@@ -766,13 +827,23 @@ def check_flash(dev, gen, results) -> None:
         print(f"  library [{label}] vs the float32 plain version: norm-rel "
               f"{rel_err(lib_out.float(), ref_out)[1]:.3e}, row by row "
               f"{row_rel_err(lib_out, ref_out):.3e} (a finding, not a gate)")
+        if fp32:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            kt, vt = (t.repeat_interleave(h // kh, dim=1) for t in (kt, vt))
+            expanded = lambda a=(qt, kt, vt, causal): F.scaled_dot_product_attention(
+                *a[:3], is_causal=a[3])
+            print(f"  [{label}] beside the bound, one product at the fp32 CUDA-core rate: "
+                  f"{bound(nbytes, flops)[0]:.4f} ms; library with the KV heads expanded "
+                  f"to H outside the timed calls: {timed(expanded)[0]:.4f} ms, device kernels "
+                  f"[{sdpa_kernels(expanded)}] (enable_gqa: [{sdpa_kernels(library)}]); a "
+                  f"finding, not a gate")
 
 
 def _wrappers() -> dict:
     from repro_torch.kernels.banded_conv.ops import blur_apply
     from repro_torch.kernels.circulant_matvec.ops import circulant_matvec_direct
     from repro_torch.kernels.cpadmm_tail.ops import fused_cpadmm_tail
-    from repro_torch.kernels.flash_attention.ops import flash_attention_simt, flash_attention_sm90
+    from repro_torch.kernels.flash_attention.ops import flash_attention_mma, flash_attention_sm90
     from repro_torch.kernels.soft_threshold.ops import fused_admm_update, fused_ista_update
     from repro_torch.kernels.spectral_pointwise.ops import spectral_update
     from repro_torch.kernels.wire_pack.ops import pack_wire, unpack_wire
@@ -787,7 +858,7 @@ def _wrappers() -> dict:
         "pack_wire": pack_wire,
         "unpack_wire": unpack_wire,
         "flash_attention_sm90": flash_attention_sm90,
-        "flash_attention_simt": flash_attention_simt,
+        "flash_attention_mma": flash_attention_mma,
     }
 
 
@@ -2265,7 +2336,7 @@ def path_e3(dev, seed, batch=2, seq=256) -> dict:
     if not bool(torch.isfinite(got).all()) or not err[1] <= TOL_CARD_CPU:
         fail(f"Path E3: the card's prefill disagrees with the CPU's: {err}")
     want_counts = dict.fromkeys(counts, 0)
-    want_counts.update(flash_attention_simt=cfg.n_layers)
+    want_counts.update(flash_attention_mma=cfg.n_layers)
     if counts != want_counts:
         fail(f"Path E3 launch counts {counts}; expected {want_counts}")
     return dict(counts=counts, err=err, cfg=cfg, params=params, params_dev=params_dev)
@@ -2549,8 +2620,8 @@ def path_train(name, cfg, dev, seed, batch=4, seq=2048) -> dict:
 def path_g3(dev, e3, seed, batch=2, seq=64) -> dict:
     """minitron-4b's width cut to 2 layers in float32 (Path E3's parameters,
     initialised once on the CPU): the loss and every gradient of loss_fn on
-    the CPU (plain attention forward) and on the card (the float32 SIMT
-    kernel forward, the plain recompute backward, cuBLAS with TF32 off), no
+    the CPU (plain attention forward) and on the card (the mma.sync kernel's
+    3xTF32 forward, the plain recompute backward, cuBLAS with TF32 off), no
     optimizer step; the loss within TOL_CARD_CPU, every leaf within
     TOL_CARD_CPU_GRAD, norm-relative."""
     import torch
@@ -2587,7 +2658,7 @@ def path_g3(dev, e3, seed, batch=2, seq=64) -> dict:
     if not worst[0][1] <= TOL_CARD_CPU_GRAD:
         fail(f"Path G3: gradient {worst[0][0]} disagrees: {worst[0][1]}")
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_simt=2 * cfg.n_layers)  # forward and remat recompute
+    want.update(flash_attention_mma=2 * cfg.n_layers)  # forward and remat recompute
     if counts != want:
         fail(f"Path G3 launch counts {counts}; expected {want}")
     return dict(counts=counts, loss_err=loss_err, worst=worst[0], errs=errs)
@@ -2595,7 +2666,7 @@ def path_g3(dev, e3, seed, batch=2, seq=64) -> dict:
 
 def path_e5(g2, dev, seed, batch=4, seq=2048, prompt_len=32, steps=16) -> dict:
     """Path G2's trained model serving: make_prefill_step on 4 prompts of
-    2048 tokens (the bf16 tensor-core kernel once a layer), then
+    2048 tokens (the bf16 wgmma kernel once a layer), then
     greedy_generate on 4 prompts of 32 tokens, 16 new.  Gated on
     finiteness, shapes and launches only: an MoE model's decode routes B
     tokens a step under capacity max(1, int(1.25 * B * 6 / 64)) = 1, so it
@@ -2650,8 +2721,9 @@ def train_cli_phase() -> dict:
     """``python -m repro_torch.launch.train --arch minitron-4b --smoke
     --steps 20 --ckpt-every 10`` on the card as a subprocess, then again
     with the same checkpoint directory: the second run must resume from
-    step 20.  Its attention is the SIMT kernel at the SMOKE head, D = 8, in
-    bf16 (held against its plain version at this shape in phase 2)."""
+    step 20.  Its attention is the mma.sync kernel at the SMOKE head, D = 8,
+    in bf16: bf16 products, P split into hi + lo (held against its plain
+    version at this shape in phase 2)."""
     import os
 
     build_dir = ROOT / "build"
@@ -2857,8 +2929,8 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/wire_pack/kernel.py:73"),
     "flash_attention_sm90": ("cuda", "src/repro_torch/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention/kernel.py:72"),
-    "flash_attention_simt": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
-                             "src/repro/kernels/flash_attention/kernel.py:72"),
+    "flash_attention_mma": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:72"),
 }
 # the PyTorch call timed as each kernel's library_ms (never used by the port)
 LIBRARY_CALLS = {
@@ -2873,8 +2945,8 @@ LIBRARY_CALLS = {
     "unpack_wire": "view_as_complex(w.movedim(0, -1).to(float32, contiguous, copy=True))",
     "flash_attention_sm90": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
                             "(B, H, S, D) views",
-    "flash_attention_simt": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
-                            "(B, H, S, D) views",
+    "flash_attention_mma": "F.scaled_dot_product_attention(is_causal, enable_gqa=True) on "
+                           "(B, H, S, D) views",
 }
 
 
@@ -2885,6 +2957,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--flash-times"]:
+        flash_times(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 

@@ -14,7 +14,8 @@ the kernel or raises — it never falls back.
     banded_conv          CUDA C++ <- repro/kernels/banded_conv
     wire_pack            Triton   <- repro/kernels/wire_pack
     flash_attention      CUDA C++ <- repro/kernels/flash_attention (two kernels:
-                                     bf16 on the tensor cores, float32 SIMT)
+                                     bf16 by wgmma; float32 by 3xTF32 mma.sync
+                                     and bf16 at D = 8, 16, 32 by mma.sync)
 
 ``floor`` (Triton, and ``csrc/floor.cu``) holds two empty kernels, one by
 each route, whose time is the floor under every kernel's; only

@@ -5,10 +5,11 @@ calls for causal self-attention in the prefill.  It routes statically by
 (dtype, D), never on failure (:func:`kernel_for`):
 
 * bf16 with D in :data:`SM90_HEAD_DIMS` -> :func:`flash_attention_sm90`,
-  the tensor-core kernel (wgmma, TMA; ``csrc/flash_attention_sm90.cu``);
+  the wgmma kernel (TMA; ``csrc/flash_attention_sm90.cu``);
 * float32, and bf16 at any other D in :data:`HEAD_DIMS` ->
-  :func:`flash_attention_simt`, float32 on the CUDA cores
-  (``csrc/flash_attention.cu``).
+  :func:`flash_attention_mma`, the ``mma.sync`` kernel
+  (``csrc/flash_attention.cu``): float32 as three TF32 products of split
+  operands, bf16 with P split into bf16 hi + lo.
 
 Both are CUDA C++, built by :mod:`..build`; each counts its own launches.
 """
@@ -22,10 +23,10 @@ import torch
 from .. import report_launch, require_cuda_operands
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the SIMT kernel's template instances
-SM90_HEAD_DIMS = (64, 128, 256)  # the tensor-core kernel's (bf16 only)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the mma kernel's float32 instances
+SM90_HEAD_DIMS = (64, 128, 256)  # the wgmma kernel's (bf16 only)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# q, k, v, o; B, Sq, Sk, H, KH, D; the SIMT kernel's dtype code; causal, scale, stream
+# q, k, v, o; B, Sq, Sk, H, KH, D; the mma kernel's dtype code; causal, scale, stream
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 _TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
@@ -40,9 +41,9 @@ def _entry(stem: str, symbol: str, argtypes: list):
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
-    """``"sm90"`` (the tensor-core kernel) or ``"simt"``: which kernel a CUDA
-    call with operands of ``dtype`` and head size ``d`` launches."""
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "simt"
+    """``"sm90"`` (the wgmma kernel) or ``"mma"`` (the mma.sync kernel): which
+    kernel a CUDA call with operands of ``dtype`` and head size ``d`` launches."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "mma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,11 +86,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "16-byte aligned")
     if kernel_for(q.dtype, d) == "sm90":
         return flash_attention_sm90(q, k, v, causal=causal)
-    return flash_attention_simt(q, k, v, causal=causal)
+    return flash_attention_mma(q, k, v, causal=causal)
 
 
 def flash_attention_sm90(q, k, v, *, causal: bool) -> torch.Tensor:
-    """Launch the tensor-core kernel on operands :func:`flash_attention` has
+    """Launch the wgmma kernel on operands :func:`flash_attention` has
     checked (bf16, D in :data:`SM90_HEAD_DIMS`)."""
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
@@ -106,9 +107,9 @@ def flash_attention_sm90(q, k, v, *, causal: bool) -> torch.Tensor:
     return o
 
 
-def flash_attention_simt(q, k, v, *, causal: bool) -> torch.Tensor:
-    """Launch the float32 SIMT kernel on operands :func:`flash_attention` has
-    checked (float32 or bf16, D in :data:`HEAD_DIMS`)."""
+def flash_attention_mma(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Launch the mma.sync kernel on operands :func:`flash_attention` has
+    checked (float32 at D in :data:`HEAD_DIMS`; bf16 at D = 8, 16, 32)."""
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -119,10 +120,10 @@ def flash_attention_simt(q, k, v, *, causal: bool) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    flash_attention_simt.launches += 1
-    report_launch("flash_attention_simt", q, k, v, o)
+    flash_attention_mma.launches += 1
+    report_launch("flash_attention_mma", q, k, v, o)
     return o
 
 
 flash_attention_sm90.launches = 0
-flash_attention_simt.launches = 0
+flash_attention_mma.launches = 0
