@@ -18,7 +18,7 @@ no result line):
    it, and time kernel, plain version, the library yardstick where one
    exists, against the kernel's bound and floor (flash attention: the bf16
    wgmma kernel and the mma.sync kernel (float32 as 3xTF32, bf16 at D = 8,
-   16, 32) at Paths E1, G1, G2, G3 and E5's shapes and the training CLI's
+   16, 32) at Paths E1, G1, G2, G3, E5 and E7's shapes and the training CLI's
    SMOKE head (bf16, D = 8), also at the reference tests' shapes, a ragged
    S, D = 16, 32 and 256; the
    soft-threshold pair as CPISTA
@@ -136,7 +136,7 @@ no result line):
    ``make_prefill_step``: the bf16 wgmma flash attention kernel in
    every layer (32 launches); device and host ms, tokens/s, peak memory,
    the attention's share of a profiled prefill;
-10. Path E2 — the same prompts cut to 512 tokens through
+10. Path E2 — the same prompts cut to 128 tokens through
    ``make_decode_step`` one token at a time (the reference's cache
    attention, no kernel), the last steps profiled, held against a prefill
    of the same prompts (5e-2 norm-relative);
@@ -182,7 +182,38 @@ no result line):
    minitron-4b --smoke --steps 20 --ckpt-every 10``, the SMOKE head D = 8
    on the mma.sync kernel) as a subprocess, then again: the second run must
    resume from step 20;
-17. one JSON line with every kernel's launches, error, times, bound and
+17. Path E6 — deepseek-v3-671b FULL (MLA: 128 heads, q / k head 128 + 64, v
+   head 128, latent 512, q latent 1536) cut to 3 layers, one dense and two
+   MoE of 32 of the 256 routed experts (top-8 and the shared expert kept;
+   5.718 B parameters): prefill 4 x 2048 with no kernel (MLA's attention is
+   the plain ``_attend_chunked``, as the reference's), its bound (FLOPs at
+   989 TFLOP/s plus the bf16 weights at 3.35 TB/s); 16 prompt tokens decoded
+   with ``mla_absorbed`` False and True, in bf16 (timed, the two compared
+   beside the tokens they routed differently) and in float32 (held together
+   at TOL_PATHS);
+   one MLA layer at full width in float32, ``mla_decode`` and
+   ``mla_decode_absorbed`` fed 32 positions against ``mla_forward`` at
+   TOL_PATHS;
+18. Path E7 — zamba2-1.2b FULL, all 38 Mamba-2 layers and the shared
+   attention + MLP block after layers 0, 6, ..., 36: prefill 4 x 2048 (the
+   wgmma flash kernel once an invocation: 7 launches), its bound;
+   ``greedy_generate`` with 4 prompts of 32 tokens and 32 new, ``max_len``
+   sized for the shared cache's 7 positions a token, a decode step's device
+   and host ms under torch.profiler; gated on finiteness and launches (the
+   reference's decode shares one KV cache across the invocations and does
+   not agree with its prefill);
+19. Path E8 — xlstm-350m FULL, all 24 layers: prefill 4 x 2048 (no kernel),
+   its bound, the sLSTM layers' share (one prefill cut by CUDA events between
+   its layers: their loop over 2048 positions is host-issued), then 64 prompt
+   tokens through ``decode_step`` against a prefill of them, in bf16
+   (printed: 24 xLSTM layers amplify bf16 rounding past TOL_PREFILL_DECODE,
+   as the reference's own decode does at 8) and in float32 (gated at
+   TOL_PREFILL_DECODE);
+20. Path E9 — the three families at full width in float32, card against
+   CPU: deepseek-v3 cut to 2 layers (8 experts), zamba2 to 7 (two shared
+   invocations), xlstm-350m to 8; a prefill of 2 x 16 tokens and 8 decode
+   steps at TOL_CARD_CPU (zamba2's shared block on the mma.sync kernel);
+21. one JSON line with every kernel's launches, error, times, bound and
    floor, then the device line ``{"ok": true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
@@ -708,6 +739,7 @@ def check_wire(dev, gen, results) -> None:
 # check_flash's cases: (label, dtype, B, S, H, KH, D, causal)
 FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 24, 8, 128, True),
                 ("paths G2, E5: moonshot-v1-16b-a3b", "bfloat16", 4, 2048, 16, 16, 128, True),
+                ("path E7: zamba2-1.2b", "bfloat16", 4, 2048, 32, 32, 64, True),
                 ("D=64", "bfloat16", 2, 512, 4, 2, 64, True),
                 ("ragged GQA", "bfloat16", 2, 1000, 8, 1, 128, True),
                 ("full", "bfloat16", 1, 300, 4, 4, 128, False),
@@ -2148,14 +2180,14 @@ def timed_calls(fn, iters: int) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, (time.perf_counter() - t0) * 1e3 / iters
 
 
-def minitron(n_layers=None, dtype=None):
+def lm_config(arch, **cut):
+    """``arch``'s FULL config with the fields in ``cut`` replaced (depth,
+    experts, dtype: never a width)."""
     import dataclasses
 
     from repro_torch.configs.registry import full_config
 
-    cfg = full_config("minitron-4b")
-    cut = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v is not None}
-    return dataclasses.replace(cfg, **cut) if cut else cfg
+    return dataclasses.replace(full_config(arch), **cut)
 
 
 def path_e1(dev, seed, batch=4, seq=2048) -> dict:
@@ -2170,7 +2202,7 @@ def path_e1(dev, seed, batch=4, seq=2048) -> dict:
     from repro_torch.models.lm import init_params, tree_leaves
     from repro_torch.models.steps import make_prefill_step
 
-    cfg = minitron()
+    cfg = lm_config("minitron-4b")
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(gen, cfg, device=dev)
@@ -2216,8 +2248,8 @@ def path_e1(dev, seed, batch=4, seq=2048) -> dict:
 PROFILED_STEPS = 5  # Path E2's last decode steps, run under torch.profiler
 
 
-def path_e2(e1, seq=512) -> dict:
-    """The same prompts cut to 512 tokens through make_decode_step one token
+def path_e2(e1, seq=128) -> dict:
+    """The same prompts cut to 128 tokens through make_decode_step one token
     at a time (the reference's cache attention, no kernel), against a
     prefill (the kernel) of the same prompts."""
     import torch
@@ -2315,7 +2347,7 @@ def path_e3(dev, seed, batch=2, seq=256) -> dict:
     from repro_torch.models.steps import make_prefill_step
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
-    cfg = minitron(n_layers=2, dtype="float32")
+    cfg = lm_config("minitron-4b", n_layers=2, dtype="float32")
     gen = torch.Generator().manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(gen, cfg, device="cpu")
@@ -2340,15 +2372,6 @@ def path_e3(dev, seed, batch=2, seq=256) -> dict:
     if counts != want_counts:
         fail(f"Path E3 launch counts {counts}; expected {want_counts}")
     return dict(counts=counts, err=err, cfg=cfg, params=params, params_dev=params_dev)
-
-
-def moonshot(n_layers=None):
-    import dataclasses
-
-    from repro_torch.configs.registry import full_config
-
-    cfg = full_config("moonshot-v1-16b-a3b")
-    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
 
 
 def train_flops(cfg, batch: int, seq: int) -> float:
@@ -2754,6 +2777,453 @@ def train_cli_phase() -> dict:
     return dict(losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# Paths E6-E9: the MLA, Mamba-2 hybrid and xLSTM families at full width
+# ---------------------------------------------------------------------------
+
+
+def prefill_work(cfg, params, batch: int, seq: int) -> tuple[float, float]:
+    """(FLOP, bytes) the least a prefill of batch x seq tokens needs at
+    ``cfg``: every product of the layers 2 FLOP a weight and token (an MoE
+    layer's routed experts at the k each token chose, its shared experts and
+    router whole; zamba2's shared block once an invocation); causal
+    attention's Q.K^T and P.V over half the square; the SSD's and mLSTM's
+    chunk products over half of each chunk's square, plus their chunk
+    states; the head at the last position only.  Bytes: every weight's bf16
+    copy read once (the embedding table as the batch's rows)."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.lm import segments_of, shared_invocations, tree_items
+
+    tokens = batch * seq
+    flops = 2.0 * batch * cfg.d_model * cfg.vocab_padded  # the head, last position
+    for si, seg in enumerate(segments_of(cfg)):
+        for path, w in tree_items(params["segments"][si]):
+            if w.ndim >= 3:  # (layers, d_in, d_out), an MoE expert stack (layers, E, ., .)
+                share = (cfg.top_k / cfg.n_experts
+                         if path[0] == "moe" and path[1] in ("w_gate", "w_up", "w_down") else 1)
+                flops += 2.0 * w.numel() * share * tokens
+        if seg.kind in ("dense", "moe"):
+            dqk, dv = ((cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim)
+                       if cfg.attn_type == "mla" else (cfg.resolved_head_dim,) * 2)
+            flops += seg.n * batch * cfg.n_heads * seq * seq * (dqk + dv)
+        elif seg.kind == "mamba2":
+            h, n, p = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+            flops += seg.n * tokens * (ssm.CHUNK * h * (n + p) + 4 * h * n * p)
+        elif seg.kind == "mlstm":
+            h, dk = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+            flops += seg.n * tokens * (xlstm.CHUNK * h * 2 * dk + 4 * h * dk * dk)
+    if "shared_attn" in params:
+        inv = shared_invocations(cfg)
+        flops += inv * sum(2.0 * w.numel() * tokens for _, w in tree_items(params["shared_attn"])
+                           if w.ndim == 2)
+        flops += inv * 2 * batch * cfg.n_heads * seq * seq * cfg.resolved_head_dim
+    table = params["embed"]["table"]
+    n_bytes = 2.0 * (sum(t.numel() for _, t in tree_items(params)) - table.numel()
+                     + tokens * cfg.d_model)
+    return flops, n_bytes
+
+
+def prefill_phase(name, cfg, params, tokens, iters=3) -> dict:
+    """``make_prefill_step`` on ``tokens``: the one cast and a warm-up, then
+    one counted call (the launch counters zeroed just before), then
+    ``iters`` timed calls; device and host ms, tokens/s, peak memory, the
+    bound (FLOPs at 989 TFLOP/s plus the weights' bytes at 3.35 TB/s)."""
+    import torch
+
+    from repro_torch.models.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    batch_in = {"tokens": tokens}
+    t0 = time.perf_counter()
+    prefill(params, batch_in)  # the one cast of the weights to bf16, and warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    logits = prefill(params, batch_in)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, host_ms = timed_calls(lambda: prefill(params, batch_in), iters=iters)
+    b, s = tokens.shape
+    flops, n_bytes = prefill_work(cfg, params, b, s)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3 + n_bytes / HBM_BYTES_PER_S * 1e3
+    tok_s = b * s / (host_ms / 1e3)
+    print(f"Path {name}: {cfg.name}, {cfg.n_layers} layers {sorted(set(cfg.layer_kinds()))}, "
+          f"prefill B={b} S={s}: cast + warm-up {warm_s:.2f} s; device {dev_ms:.2f} ms, host "
+          f"clock {host_ms:.2f} ms, {tok_s:.0f} tokens/s, peak memory {peak_gib:.2f} GiB; "
+          f"bound {bound_ms:.2f} ms ({flops:.3e} FLOP at 989 TFLOP/s + {n_bytes / 1e9:.2f} GB "
+          f"of bf16 weights at 3.35 TB/s), {bound_ms / dev_ms:.1%} of the device time; "
+          f"launches {counts}")
+    if logits.shape != (b, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
+        fail(f"Path {name} logits have shape {tuple(logits.shape)} or non-finite values")
+    return dict(prefill=prefill, logits=logits, counts=counts, dev_ms=dev_ms, host_ms=host_ms,
+                tok_s=tok_s, peak_gib=peak_gib, bound_ms=bound_ms, flops=flops, bytes=n_bytes)
+
+
+def decode_run(cfg, params, tokens, max_len, decode=None) -> dict:
+    """``tokens`` (B, T) fed one at a time through ``make_decode_step`` from
+    an empty state; every step's logits, host ms a step to a synchronize."""
+    import torch
+
+    from repro_torch.models.lm import init_decode_state
+    from repro_torch.models.steps import make_decode_step
+
+    decode = decode or make_decode_step(cfg)
+    state = init_decode_state(cfg, tokens.shape[0], max_len, device=tokens.device)
+    logits = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(tokens.shape[1]):
+        out, state = decode(params, tokens[:, i:i + 1], state)
+        logits.append(out)
+    torch.cuda.synchronize()
+    return dict(logits=logits, state=state, decode=decode,
+                ms_step=(time.perf_counter() - t0) * 1e3 / tokens.shape[1])
+
+
+def decode_profile(name, cfg, params, tokens, max_len, steps=PROFILED_STEPS) -> dict:
+    """Device and host ms of a decode step: ``tokens[:, :-steps]`` fed from
+    an empty state, the last ``steps`` under torch.profiler."""
+    from repro_torch.models.lm import init_decode_state
+    from repro_torch.models.steps import make_decode_step
+
+    decode = make_decode_step(cfg)
+    box = [init_decode_state(cfg, tokens.shape[0], max_len, device=tokens.device), 0]
+
+    def one():
+        i = box[1]
+        _, box[0] = decode(params, tokens[:, i:i + 1], box[0])
+        box[1] = i + 1
+
+    for _ in range(tokens.shape[1] - steps):
+        one()
+    return profile_window(one, f"Path {name} decode steps", steps=steps)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Every MoE routing's top-k expert ids (T, k), in call order, while the
+    context is open (``moe._routing`` wrapped; its results unchanged)."""
+    from repro_torch.models import moe
+
+    routes, real = [], moe._routing
+
+    def recording(params, cfg, x2d):
+        idx, gates, aux = real(params, cfg, x2d)
+        routes.append(idx)
+        return idx, gates, aux
+
+    moe._routing = recording
+    try:
+        yield routes
+    finally:
+        moe._routing = real
+
+
+def path_e6(dev, seed, batch=4, seq=2048, decode_tokens=16, mla_positions=32) -> dict:
+    """deepseek-v3-671b FULL (d_model 7168, 128 heads of MLA: q / k head 128
+    + 64, v head 128, latent 512, q latent 1536; vocab 129280) cut to 3
+    layers, one dense and two MoE of 32 of the 256 routed experts (top-8, 1
+    shared kept): prefill 4 x 2048 (no kernel: MLA's q / k and v heads
+    differ, so its attention is the plain ``_attend_chunked``, as the
+    reference's); then 16 prompt tokens through ``decode_step`` with
+    ``mla_absorbed`` False and True from empty states, in bf16 (timed; the
+    two printed beside the tokens whose routing they chose differently: a
+    decode step routes its 4 tokens under capacity 1, so a rounding that
+    moves a router logit past a tie moves a whole expert) and in float32,
+    where the two are held together at TOL_PATHS; then one MLA layer at
+    full width in float32:
+    ``mla_decode`` and ``mla_decode_absorbed`` fed 32 positions one at a
+    time against ``mla_forward`` at TOL_PATHS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.config import count_params
+    from repro_torch.models.lm import init_params, tree_items
+
+    cfg = lm_config("deepseek-v3-671b", n_layers=3, first_k_dense=1, n_experts=32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    n_norms = sum(t.numel() for p, t in tree_items(params) if p[-1] in ("scale", "router_bias"))
+    counted = count_params(cfg)
+    print(f"Path E6: {cfg.name} cut to {cfg.layer_kinds()}, {cfg.n_experts} of 256 routed "
+          f"experts, {n_params / 1e9:.3f} B parameters ({n_params - n_norms} + {n_norms} norm "
+          f"scales and router biases; count_params {counted}), init {init_s:.2f} s")
+    if n_params - n_norms != counted["total"]:
+        fail(f"Path E6: {n_params - n_norms} parameters; count_params says {counted}")
+    tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device=dev)
+    out = prefill_phase("E6", cfg, params, tokens)
+    del out["prefill"], out["logits"]  # the prefill's bf16 copy of the weights
+    if any(out["counts"].values()):
+        fail(f"Path E6: MLA's prefill launched kernels {out['counts']}")
+    prompt = tokens[:, :decode_tokens].contiguous()
+    zero_counts()
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        for absorbed in (False, True):
+            with recorded_routing() as routes:
+                run = decode_run(dataclasses.replace(cfg, dtype=dtype, mla_absorbed=absorbed),
+                                 params, prompt, decode_tokens)
+            runs[dtype, absorbed] = dict(logits=[t.float() for t in run["logits"]],
+                                         ms_step=run["ms_step"], routes=routes)
+            del run
+    counts = read_counts()
+    errs, flips = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        naive, absorbed = runs[dtype, False], runs[dtype, True]
+        errs[dtype] = [rel_err(a, n)[1] for a, n in zip(absorbed["logits"], naive["logits"])]
+        flips[dtype] = sum(int((a != n).any(-1).sum()) for a, n in zip(absorbed["routes"],
+                                                                       naive["routes"]))
+    finite = all(bool(torch.isfinite(t).all()) for r in runs.values() for t in r["logits"])
+    decode_ms = {f"{d} {'absorbed' if a else 'naive'}": r["ms_step"]
+                 for (d, a), r in runs.items()}
+    n_routes = sum(int(r.shape[0]) for r in runs["bfloat16", False]["routes"])
+    print(f"Path E6 decode of {decode_tokens} prompt tokens from empty states, ms a step (host "
+          f"clock): {decode_ms}; absorbed vs naive logits norm-rel by step: bf16 "
+          f"{[f'{e:.2e}' for e in errs['bfloat16']]}, float32 "
+          f"{[f'{e:.2e}' for e in errs['float32']]} (tol {TOL_PATHS:.0e} in float32); tokens "
+          f"whose top-k experts differ between the two runs, of {n_routes} routed: {flips} (an "
+          f"MoE decode step routes its 4 tokens under capacity 1); launches {counts}")
+    if not finite or not max(errs["float32"]) <= TOL_PATHS:
+        fail(f"Path E6: the absorbed and naive decodes disagree: {errs} (finite {finite})")
+    if any(counts.values()):
+        fail(f"Path E6: the decode launched kernels {counts}")
+    del params, runs
+    torch.cuda.empty_cache()
+    # one MLA layer at full width in float32
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    layer = attn.init_mla(gen, f32, torch.float32)
+    x = torch.randn(2, mla_positions, cfg.d_model, generator=gen, device=dev) * 0.3
+    full = attn.mla_forward(layer, f32, x, torch.arange(mla_positions, device=dev).expand(2, -1))
+    mla_errs = {}
+    for name, fn in (("mla_decode", attn.mla_decode),
+                     ("mla_decode_absorbed", attn.mla_decode_absorbed)):
+        cache = attn.init_mla_cache(f32, 2, mla_positions, torch.float32, dev)
+        steps = []
+        for t in range(mla_positions):
+            y, cache = fn(layer, f32, x[:, t:t + 1], cache)
+            steps.append(y)
+        mla_errs[name] = rel_err(torch.cat(steps, dim=1), full)[1]
+    print(f"Path E6 one MLA layer at full width, float32, B=2, {mla_positions} positions fed one "
+          f"at a time against mla_forward: norm-rel {mla_errs} (tol {TOL_PATHS:.0e})")
+    if not max(mla_errs.values()) <= TOL_PATHS:
+        fail(f"Path E6: MLA's decode disagrees with its forward at full width: {mla_errs}")
+    out.update(decode_errs=errs, decode_ms=decode_ms, flips=flips, mla_errs=mla_errs,
+               n_params=n_params)
+    return out
+
+
+def path_e7(dev, seed, batch=4, seq=2048, prompt_len=32, steps=32) -> dict:
+    """zamba2-1.2b FULL, all 38 Mamba-2 layers (d_model 2048, 64 SSM heads of
+    64, state 64, 8 groups) with the shared attention + MLP block (32 heads
+    of 64, causal, no window) after layers 0, 6, ..., 36: prefill 4 x 2048,
+    the wgmma flash kernel once an invocation (7 launches); then
+    ``greedy_generate``, 4 prompts of 32 tokens and 32 new, with ``max_len``
+    sized for the shared cache's 7 positions a token; a decode step's device
+    and host ms under torch.profiler.  Gated on finiteness and launches: the
+    reference's decode shares one KV cache across the invocations and does
+    not agree with its prefill (ROADMAP.md Queue 3)."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import init_params, shared_invocations, tree_items
+    from repro_torch.models.steps import greedy_generate
+
+    cfg = lm_config("zamba2-1.2b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    inv = shared_invocations(cfg)
+    print(f"Path E7: {cfg.name}, {cfg.n_layers} layers, the shared block {inv} times a token, "
+          f"{n_params / 1e9:.3f} B parameters, init {time.perf_counter() - t0:.2f} s")
+    tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device=dev)
+    out = prefill_phase("E7", cfg, params, tokens)
+    del out["prefill"], out["logits"]
+    want = dict.fromkeys(out["counts"], 0)
+    want.update(flash_attention_sm90=inv)
+    if out["counts"] != want:
+        fail(f"Path E7 launch counts {out['counts']}; expected {want} (one an invocation)")
+    prompt = tokens[:, :prompt_len].contiguous()
+    max_len = inv * (prompt_len + steps)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_tokens = greedy_generate(params, cfg, prompt, steps, max_len)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    gen_counts = read_counts()
+    gen_peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = decode_profile("E7", cfg, params, prompt[:, :8], inv * 8)
+    n_calls = prompt_len + steps - 1
+    print(f"Path E7 greedy_generate, prompts {tuple(prompt.shape)}, {steps} new tokens, max_len "
+          f"{max_len} ({inv} shared positions a token): {gen_ms:.1f} ms (host clock, the one "
+          f"cast included), {gen_ms / n_calls:.2f} ms a decode step; a profiled step: device "
+          f"busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms, {prof['launches']:g} device "
+          f"operations; peak memory {gen_peak:.2f} GiB; first row {gen_tokens[0, :8].tolist()}"
+          f"...; launches {gen_counts}")
+    if gen_tokens.shape != (batch, steps) or not (0 <= int(gen_tokens.min())
+                                                  and int(gen_tokens.max()) < cfg.vocab):
+        fail(f"Path E7: tokens of shape {tuple(gen_tokens.shape)} outside [0, {cfg.vocab})")
+    if any(gen_counts.values()):
+        fail(f"Path E7: the decode path launched kernels {gen_counts}")
+    del params
+    torch.cuda.empty_cache()
+    out.update(gen_ms=gen_ms, ms_step=gen_ms / n_calls, step_busy_ms=prof["busy_ms"],
+               step_wall_ms=prof["wall_ms"], gen_peak_gib=gen_peak, n_params=n_params)
+    return out
+
+
+def layer_times(cfg, params, tokens) -> dict:
+    """{layer kind: device ms} of one prefill of ``tokens``, cut by CUDA
+    events between its layers (the stack's loop as ``lm.backbone_forward``
+    runs it, on the cast weights): a host-issued layer keeps the device
+    waiting, and the span between its events counts that wait."""
+    import torch
+
+    from repro_torch.models import lm
+
+    p = lm.cast_params(params, cfg)
+    spans = []
+    with torch.no_grad():
+        x = lm._embed_scaled(p, cfg, tokens)
+        positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[0], -1)
+        for si, seg in enumerate(lm.segments_of(cfg)):
+            for i in range(seg.n):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                x, _ = lm._layer_forward(lm._layer(p["segments"][si], i), seg.kind, cfg, x,
+                                         positions, p.get("shared_attn"), seg.start + i)
+                ev[1].record()
+                spans.append((seg.kind, ev))
+    torch.cuda.synchronize()
+    out = {}
+    for kind, (a, b) in spans:
+        out[kind] = out.get(kind, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def path_e8(dev, seed, batch=4, seq=2048, decode_tokens=64) -> dict:
+    """xlstm-350m FULL, all 24 layers (d_model 1024, 4 heads; mLSTM with an
+    sLSTM every 8th): prefill 4 x 2048 (no kernel); one more prefill cut by
+    CUDA events between its layers, for the sLSTM layers' share (a loop over
+    2048 positions, issued by the host step by step); then 64 prompt tokens
+    through ``decode_step`` against a prefill of the same 64 tokens, in bf16
+    (printed: 24 layers of xLSTM amplify bf16 rounding, and the reference's
+    own decode misses TOL_PREFILL_DECODE at 8 layers) and in float32, where
+    the last logits are held at TOL_PREFILL_DECODE."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import init_params, tree_items
+    from repro_torch.models.steps import make_prefill_step
+
+    cfg = lm_config("xlstm-350m")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(gen, cfg, device=dev)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device=dev)
+    out = prefill_phase("E8", cfg, params, tokens, iters=2)
+    if any(out["counts"].values()):
+        fail(f"Path E8: the prefill launched kernels {out['counts']}")
+    by_kind = layer_times(cfg, params, tokens)
+    share = by_kind["slstm"] / sum(by_kind.values())
+    prompt = tokens[:, :decode_tokens].contiguous()
+    zero_counts()
+    errs, ms_step = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        run = decode_run(c, params, prompt, decode_tokens)
+        want = make_prefill_step(c)(params, {"tokens": prompt})
+        errs[dtype] = rel_err(run["logits"][-1].float(), want.float())
+        ms_step[dtype] = run["ms_step"]
+        if not bool(torch.isfinite(run["logits"][-1]).all()):
+            fail(f"Path E8: non-finite {dtype} decode logits")
+        del run
+    counts = read_counts()
+    print(f"Path E8 one prefill cut by CUDA events between its layers: mlstm "
+          f"{by_kind['mlstm']:.2f} ms, slstm {by_kind['slstm']:.2f} ms ({share:.1%} of the "
+          f"layers' {sum(by_kind.values()):.2f} ms); {decode_tokens} prompt tokens decoded one at "
+          f"a time, ms a step (host clock, the one cast included) {ms_step}; last logits vs a "
+          f"prefill of the same tokens, (max abs, norm-rel): bf16 {errs['bfloat16']} (printed), "
+          f"float32 {errs['float32']} (tol {TOL_PREFILL_DECODE:.0e}); launches {counts}")
+    if not errs["float32"][1] <= TOL_PREFILL_DECODE:
+        fail(f"Path E8: decode and prefill disagree in float32: {errs['float32']}")
+    if any(counts.values()):
+        fail(f"Path E8: the decode launched kernels {counts}")
+    del out["prefill"], out["logits"], params
+    torch.cuda.empty_cache()
+    out.update(layer_ms=by_kind, slstm_share=share, decode_errs=errs, decode_ms=ms_step,
+               n_params=n_params)
+    return out
+
+
+def path_e9(dev, seed, batch=2, seq=16, steps=8) -> dict:
+    """The three families at full width in float32, the card against the
+    CPU (as Path E3 for minitron): deepseek-v3 cut to 2 layers (one dense,
+    one MoE of 8 routed experts), zamba2 to 7 layers (the shared block after
+    layers 0 and 6: two invocations share the decode cache), xlstm-350m to 8
+    (7 mLSTM, 1 sLSTM).  Each is initialised on the card from a seed and
+    copied to the CPU; a prefill of 2 x 16 tokens (zamba2's shared block
+    through the mma.sync kernel on the card, the plain version on the CPU)
+    and 8 decode steps from an empty state, every logit held at
+    TOL_CARD_CPU."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import init_params, shared_invocations, tree_map
+    from repro_torch.models.steps import make_prefill_step
+
+    cases = (("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1, n_experts=8)),
+             ("zamba2-1.2b", dict(n_layers=7)), ("xlstm-350m", dict(n_layers=8)))
+    total = dict.fromkeys(_wrappers(), 0)
+    errs = {}
+    for arch, cut in cases:
+        cfg = lm_config(arch, dtype="float32", **cut)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(gen, cfg, device=dev)
+        cpu_params = tree_map(lambda a: a.cpu(), params)
+        tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device=dev)
+        max_len = steps * max(1, shared_invocations(cfg))
+        t0 = time.perf_counter()
+        want = [make_prefill_step(cfg)(cpu_params, {"tokens": tokens.cpu()})]
+        want += decode_run(cfg, cpu_params, tokens[:, :steps].cpu(), max_len)["logits"]
+        cpu_s = time.perf_counter() - t0
+        zero_counts()
+        got = [make_prefill_step(cfg)(params, {"tokens": tokens})]
+        got += decode_run(cfg, params, tokens[:, :steps], max_len)["logits"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        errs[arch] = [rel_err(g.float().cpu(), w.float())[1] for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"Path E9 {cfg.name} cut to {len(cfg.layer_kinds())} layers "
+              f"{sorted(set(cfg.layer_kinds()))}, float32, card vs CPU (CPU {cpu_s:.2f} s): "
+              f"prefill B={batch} S={seq} norm-rel {errs[arch][0]:.3e}, {steps} decode steps "
+              f"worst {max(errs[arch][1:]):.3e} (tol {TOL_CARD_CPU:.0e}); launches {counts}")
+        if not finite or not max(errs[arch]) <= TOL_CARD_CPU:
+            fail(f"Path E9 {arch}: the card disagrees with the CPU: {errs[arch]}")
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts.update(flash_attention_mma=shared_invocations(cfg))
+        if counts != want_counts:
+            fail(f"Path E9 {arch} launch counts {counts}; expected {want_counts}")
+        total = {k: total[k] + counts[k] for k in total}
+        del params, cpu_params
+        torch.cuda.empty_cache()
+    return dict(counts=total, errs=errs)
+
+
 def run_cli(args: list) -> str:
     """``python -m repro_torch.launch.recover *args`` in this process; its
     standard output, echoed."""
@@ -3020,15 +3490,22 @@ def main() -> int:
     g3 = path_g3(dev, e3, 5)
     del e3["params"], e3["params_dev"]
     torch.cuda.empty_cache()
-    g1 = path_train("G1", minitron(n_layers=4), dev, 7)
+    g1 = path_train("G1", lm_config("minitron-4b", n_layers=4), dev, 7)
     del g1["state"]
     torch.cuda.empty_cache()
-    g2 = path_train("G2", moonshot(n_layers=3), dev, 8)
+    g2 = path_train("G2", lm_config("moonshot-v1-16b-a3b", n_layers=3), dev, 8)
     e5 = path_e5(g2, dev, 9)
     del g2["state"]
     torch.cuda.empty_cache()
     train_cli_phase()
     print(f"Paths G3, G1, G2, E5 and the train CLI took {time.perf_counter() - t_train:.1f} s")
+    t_lm = time.perf_counter()
+    e6 = path_e6(dev, 10)
+    torch.cuda.empty_cache()
+    e7 = path_e7(dev, 11)
+    e8 = path_e8(dev, 12)
+    e9 = path_e9(dev, 13)
+    print(f"Paths E6-E9 took {time.perf_counter() - t_lm:.1f} s")
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     m_counts = {k: m["l1"]["counts"][k] + m["tv"]["counts"][k] for k in m["l1"]["counts"]}
     md1_counts = {k: md1["fp32"]["counts"][k] + md1["bf16"]["counts"][k]
@@ -3042,7 +3519,8 @@ def main() -> int:
                "H": h["counts"],
                "CLI": cli["counts"], "CLI priors": cli_priors["counts"], "E1": e1["counts"],
                "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"], "G1": g1["counts"],
-               "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"]}
+               "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
+               "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

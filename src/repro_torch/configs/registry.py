@@ -1,10 +1,11 @@
 """--arch registry: full (assigned) configs and reduced smoke configs.
 
 Port of ``repro/configs/registry.py`` for the architectures whose layers the
-port has: the four dense decoder-only transformers and moonshot-v1-16b-a3b
-(MoE over GQA).  The other five ids of the reference's registry need MLA,
-SSM, xLSTM, encoder-decoder or VLM layers and raise ``NotImplementedError``
-(ROADMAP.md Queue 1 items 11.3-11.6).
+port has: the four dense decoder-only transformers, moonshot-v1-16b-a3b
+(MoE over GQA), deepseek-v3-671b (MoE over MLA), zamba2-1.2b (Mamba-2 with a
+shared attention block) and xlstm-350m (mLSTM and sLSTM).  The other two ids
+of the reference's registry need encoder-decoder or VLM layers and raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 11.6).
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ ARCH_IDS: List[str] = [
     "whisper_large_v3",
 ]
 
-# the architectures the port runs: decoder-only transformers with GQA, dense or MoE
+# the architectures the port runs: the decoder-only ones
 PORTED_ARCH_IDS: List[str] = ["codeqwen15_7b", "granite_34b", "minitron_4b", "gemma_7b",
-                              "moonshot_v1_16b_a3b"]
+                              "deepseek_v3_671b", "moonshot_v1_16b_a3b", "zamba2_1p2b",
+                              "xlstm_350m"]
 
 # external ids (assignment spelling) -> module names
 ALIASES: Dict[str, str] = {
@@ -51,8 +53,8 @@ def _module(arch: str):
     if name not in PORTED_ARCH_IDS:
         if name in ARCH_IDS:
             raise NotImplementedError(
-                f"{arch}: its MLA / SSM / xLSTM / encoder-decoder / VLM layers are not "
-                "ported yet (ROADMAP.md Queue 1 item 11); the port runs "
+                f"{arch}: its encoder-decoder / VLM layers are not ported yet "
+                "(ROADMAP.md Queue 1 item 11.6); the port runs "
                 f"{', '.join(PORTED_ARCH_IDS)}"
             )
         raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")

@@ -122,17 +122,18 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
     """The reference's LM parameter tree (``np.asarray`` of each leaf of
     ``repro.models.lm.init_params``) -> the port's parameters: the same
     nested dict, ``embed`` / ``final_norm`` / ``segments[i]`` with each
-    segment's leaves stacked along the layer axis, every weight in the
-    reference's (d_in, d_out) orientation and dtype.  Decoder-only trees of
-    dense and MoE layers (an MoE layer's ``moe``: ``router``,
-    ``router_bias``, ``w_gate`` / ``w_up`` / ``w_down`` of shape (E, ., .)
-    and ``shared``)."""
-    extra = sorted(set(tree) - {"embed", "final_norm", "segments"})
-    kinds = set(cfg.layer_kinds()) - {"dense", "moe"}
-    if extra or kinds:
+    segment's leaves stacked along the layer axis, and zamba2's
+    ``shared_attn``, every weight in the reference's (d_in, d_out)
+    orientation and dtype: dense and MoE layers over GQA or MLA (an MoE
+    layer's ``moe``: ``router``, ``router_bias``, ``w_gate`` / ``w_up`` /
+    ``w_down`` of shape (E, ., .) and ``shared``), ``mamba2``, ``mlstm`` and
+    ``slstm`` layers.  An encoder-decoder tree (``encoder``, ``cross``)
+    raises."""
+    extra = sorted(set(tree) - {"embed", "final_norm", "segments", "shared_attn"})
+    if extra:
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only parameter trees of dense and MoE layers are carried "
-            f"across (ROADMAP.md Queue 1 item 11); this one has {extra or kinds}"
+            f"{cfg.name}: encoder-decoder parameter trees are not carried across yet "
+            f"(ROADMAP.md Queue 1 item 11.6); this one has {extra}"
         )
 
     def carry(node):
@@ -142,7 +143,7 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
             return [carry(v) for v in node]
         return _tensor(node, device)
 
-    return carry({k: tree[k] for k in ("embed", "final_norm", "segments")})
+    return carry(dict(tree))
 
 
 def train_state_from_numpy(tree, cfg, device=None):

@@ -1,8 +1,9 @@
-"""GQA / MQA attention: prefill through the flash kernel, decode on a KV cache.
+"""Attention: GQA / MQA (prefill through the flash kernel, decode on a KV
+cache) and MLA (DeepSeek-V3's latent attention, plain torch).
 
-Port of the GQA half of ``repro/models/attention.py`` (MLA waits).  Causal
-self-attention without a sliding window — every prefill and training
-forward of the five ported configs, FULL and SMOKE — goes through
+Port of ``repro/models/attention.py``.  Causal GQA self-attention without a
+sliding window — every GQA prefill and training forward of the ported
+configs (zamba2's shared block among them), FULL and SMOKE — goes through
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`, the
 function the reference's Pallas kernel was written to replace: on a CUDA
 tensor it launches the kernel (and raises at a head size it has no
@@ -27,6 +28,16 @@ taken on a failure.  So:
   function that differs from the forward by the bf16 rounding of q * scale;
 * under layer remat (``cfg.remat``) the forward kernel launches twice a
   layer a training step: once in the forward, once in the recompute.
+
+MLA has no kernel in the reference either: its prefill is the plain
+``_attend_chunked`` with a q / k head of ``nope + rope`` and a v head of
+``v_head_dim`` (192 and 128 at deepseek-v3's width), which the flash
+kernels, whose q, k and v share one D, do not take.  Its decode cache holds
+the latent ``c_kv`` and the shared RoPE key alone, written in place as the
+GQA cache is; :func:`mla_decode` expands it to per-head K / V every step,
+:func:`mla_decode_absorbed` folds ``w_uk`` into the query and ``w_uv`` into
+the output and attends in the latent space in float32 (``cfg.mla_absorbed``
+picks one in ``lm``).
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
-from .layers import apply_rope, dense_init
+from .layers import apply_rope, dense_init, init_norm, rmsnorm
 
 NEG_INF = -1e30
 
@@ -240,3 +251,145 @@ def gqa_decode(
     )
     y = out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]
     return y, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d = cfg.d_model
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    h = cfg.n_heads
+    p = {
+        "w_dkv": dense_init(gen, d, cfg.kv_lora_rank, dtype),  # latent down
+        "w_krope": dense_init(gen, d, dr, dtype),  # shared rope key
+        "kv_norm": init_norm(cfg.kv_lora_rank, dtype, gen.device),
+        "w_uk": dense_init(gen, cfg.kv_lora_rank, h * dn, dtype),
+        "w_uv": dense_init(gen, cfg.kv_lora_rank, h * dv, dtype),
+        "wo": dense_init(gen, h * dv, d, dtype),
+    }
+    if cfg.q_lora_rank:
+        p["w_dq"] = dense_init(gen, d, cfg.q_lora_rank, dtype)
+        p["q_norm"] = init_norm(cfg.q_lora_rank, dtype, gen.device)
+        p["w_uq"] = dense_init(gen, cfg.q_lora_rank, h * (dn + dr), dtype)
+    else:
+        p["w_q"] = dense_init(gen, d, h * (dn + dr), dtype)
+    return p
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # (B, S_max, kv_lora_rank) — the compressed latent
+    k_rope: torch.Tensor  # (B, S_max, rope_head_dim)
+    length: torch.Tensor  # (B,) int32 — filled positions
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dtype, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """-> q (B, S, H, nope + rope), the rope half rotated."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = cq @ params["w_uq"]
+    else:
+        q = x @ params["w_q"]
+    q = q.reshape(b, s, h, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    return torch.cat([q[..., :dn], q_rope], dim=-1)
+
+
+def _mla_latent(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (c_kv (B, S, kv_lora_rank) normed, k_rope (B, S, rope) rotated):
+    what the decode cache keeps of x."""
+    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    k_rope = apply_rope((x @ params["w_krope"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_kv_from_latent(params: dict, cfg: ModelConfig, c_kv: torch.Tensor,
+                        k_rope: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand the latent to per-head K (nope || rope) and V."""
+    b, sk, _ = c_kv.shape
+    h, dn, dv = cfg.n_heads, cfg.nope_head_dim, cfg.v_head_dim
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, sk, h, dn)
+    v = (c_kv @ params["w_uv"]).reshape(b, sk, h, dv)
+    k_rope_b = k_rope[:, :, None, :].expand(b, sk, h, cfg.rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Causal MLA over (B, S, D): the plain ``_attend_chunked`` with q / k
+    heads of nope + rope and v heads of ``v_head_dim``."""
+    b, s, _ = x.shape
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q = _mla_q(params, cfg, x, positions)
+    k, v = _mla_kv_from_latent(params, cfg, *_mla_latent(params, cfg, x, positions))
+    out = _attend_chunked(q, k, v, causal=True, chunk=cfg.attn_chunk, scale=(dn + dr) ** -0.5)
+    return out.reshape(b, s, cfg.n_heads * dv) @ params["wo"]
+
+
+def _mla_append(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                cache: MLACache) -> torch.Tensor:
+    """Write x's latent and rope key at each row's ``cache.length``, in
+    place; -> the query (B, 1, H, nope + rope) at that position."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"MLA decode takes one position per sequence; got {s}")
+    pos = cache.length[:, None]  # (B, 1)
+    c_new, kr_new = _mla_latent(params, cfg, x, pos)
+    rows, idx = torch.arange(b, device=x.device), cache.length.long()
+    cache.c_kv[rows, idx] = c_new[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[rows, idx] = kr_new[:, 0].to(cache.k_rope.dtype)
+    return _mla_q(params, cfg, x, pos)
+
+
+def mla_decode_absorbed(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                        cache: MLACache) -> Tuple[torch.Tensor, MLACache]:
+    """One position against the latent cache with DeepSeek's weight
+    absorption, in float32 as the reference: scores = (q_nope W_uk) . c_kv +
+    q_rope . k_rope, out = softmax(scores) . c_kv, y = out W_uv W_o.  No
+    (S, H) key or value is built.  The cache is written in place."""
+    b = x.shape[0]
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q = _mla_append(params, cfg, x, cache)
+    q_nope, q_rope = q[:, 0, :, :dn].float(), q[:, 0, :, dn:].float()
+    c_kv = cache.c_kv.float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, params["w_uk"].reshape(r, h, dn).float())
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
+              + torch.einsum("bhr,bsr->bhs", q_rope, cache.k_rope.float())) * (dn + dr) ** -0.5
+    valid = torch.arange(c_kv.shape[1], device=x.device)[None, None, :] \
+        < (cache.length + 1)[:, None, None]
+    w = torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1)
+    out_lat = torch.einsum("bhs,bsr->bhr", w, c_kv)  # (B, H, R)
+    out_v = torch.einsum("bhr,rhv->bhv", out_lat, params["w_uv"].reshape(r, h, dv).float())
+    y = out_v.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"]
+    return y, MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, length=cache.length + 1)
+
+
+def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               cache: MLACache) -> Tuple[torch.Tensor, MLACache]:
+    """One position against the latent cache, expanded to per-head K / V
+    over the whole cache (``_attend_chunked`` with a valid-length mask).
+    The cache is written in place."""
+    b = x.shape[0]
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q = _mla_append(params, cfg, x, cache)
+    k, v = _mla_kv_from_latent(params, cfg, cache.c_kv, cache.k_rope)
+    out = _attend_chunked(q, k, v, causal=False, chunk=cfg.attn_chunk,
+                          scale=(dn + dr) ** -0.5, kv_valid_len=cache.length + 1)
+    y = out.reshape(b, 1, cfg.n_heads * dv) @ params["wo"]
+    return y, MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, length=cache.length + 1)

@@ -1,8 +1,10 @@
 """The port's LM (config, layers, attention, lm, steps) against the reference.
 
-For each of the five ported ``SMOKE`` configs (four dense, moonshot's MoE;
+For each of the eight ported ``SMOKE`` configs (four dense, moonshot's MoE,
+deepseek-v3's MoE over MLA, the zamba2 hybrid, xlstm;
 ``tests/test_torch_moe.py`` holds the MoE layer itself and its routing
-margins) the reference's parameters
+margins, ``tests/test_torch_mla.py``, ``test_torch_ssm.py`` and
+``test_torch_xlstm.py`` the new blocks) the reference's parameters
 (``repro.models.lm.init_params`` from a PRNG key) are carried across with
 ``repro_torch.interop.lm_params_from_numpy`` and the tokens are made with
 numpy from a seed, so both packages compute on the same numbers.  Prefill
@@ -35,9 +37,9 @@ from repro_torch.models import steps as port_steps
 from repro_torch.models.config import count_params
 
 DENSE = ["minitron-4b", "codeqwen1.5-7b", "gemma-7b", "granite-34b"]
-ARCHS = DENSE + ["moonshot-v1-16b-a3b"]
-NOT_PORTED = ["deepseek-v3-671b", "zamba2-1.2b", "pixtral-12b", "xlstm-350m",
-              "whisper-large-v3"]
+MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+ARCHS = DENSE + MOE + ["zamba2-1.2b", "xlstm-350m"]
+NOT_PORTED = ["pixtral-12b", "whisper-large-v3"]
 REL_FP32 = 1e-5
 REL_BF16 = 2e-2
 B, S, DECODE_STEPS = 2, 24, 8
@@ -125,6 +127,10 @@ def test_unported_archs_raise(arch):
         port_registry.full_config(arch)
 
 
+FIRST_WEIGHT = {"deepseek-v3-671b": ("attn", "w_dkv"), "zamba2-1.2b": ("mamba", "in_proj"),
+                "xlstm-350m": ("mlstm", "w_up")}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_mirrors_reference_tree(case, arch):
     c = case(arch, "float32")
@@ -132,11 +138,12 @@ def test_init_params_mirrors_reference_tree(case, arch):
     shapes = lambda tree: port_lm.tree_map(lambda a: (tuple(a.shape), str(a.dtype)), tree)
     want = port_lm.tree_map(lambda a: (tuple(a.shape), str(a.dtype)), c.pparams)
     assert shapes(mine) == want
-    # truncated normal in [-3, 3] times d_in**-0.5
-    wq = mine["segments"][0]["attn"]["wq"]
+    # truncated normal in [-3, 3] times d_in**-0.5, on a weight of d_model inputs
+    block, name = FIRST_WEIGHT.get(arch, ("attn", "wq"))
+    w = mine["segments"][0][block][name]
     std = c.pcfg.d_model**-0.5
-    assert float(wq.abs().max()) <= 3 * std
-    assert abs(float(wq.std()) / std - 0.9866) < 0.05  # the std of N(0, 1) cut at +-3
+    assert float(w.abs().max()) <= 3 * std
+    assert abs(float(w.std()) / std - 0.9866) < 0.05  # the std of N(0, 1) cut at +-3
 
 
 # --------------------------------------------------------------------------
@@ -195,7 +202,7 @@ def test_forward_hidden_matches_reference(ref, case, arch):
     want, want_aux = ref.jax.jit(lambda p, t: ref.lm.forward(p, c.cfg, t))(c.params, c.tokens)
     got, aux = port_lm.forward(c.pparams, c.pcfg, c.ptokens)
     close(got, want, REL_FP32)
-    if arch in DENSE:
+    if arch not in MOE:
         assert float(aux) == float(want_aux) == 0.0
     else:  # the MoE layers' Switch loss
         close(aux, want_aux, REL_FP32)
@@ -211,9 +218,9 @@ def test_prefill_logits_match_reference(ref, case, arch, dtype):
     close(got, f32(want), REL_FP32 if dtype == "float32" else REL_BF16)
 
 
-def _reference_decode(ref, c, steps):
+def _reference_decode(ref, c, steps, max_len=S):
     decode = ref.jax.jit(ref.steps.make_decode_step(c.cfg))
-    state = ref.lm.init_decode_state(c.cfg, B, S)
+    state = ref.lm.init_decode_state(c.cfg, B, max_len)
     out = []
     for i in range(steps):
         logits, state = decode(c.params, c.tokens[:, i:i + 1], state)
@@ -232,25 +239,36 @@ def test_decode_logits_match_reference(ref, case, arch):
         close(logits, want[i], REL_FP32)
     assert [int(seg.length.max()) for seg in state.segments] == [DECODE_STEPS] * len(
         port_lm.segments_of(c.pcfg))
+    if arch == "zamba2-1.2b":  # one shared position a token per invocation (2 at SMOKE)
+        assert port_lm.shared_invocations(c.pcfg) == 2
+        assert int(state.shared_attn.length.max()) == 2 * DECODE_STEPS
+    else:
+        assert state.shared_attn is None
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_equal_reference(ref, case, arch):
     c = case(arch, "float32")
     prompt = c.tokens[:, :6]
-    want = ref.steps.greedy_generate(c.params, c.cfg, ref.jnp.asarray(prompt), 6, 16)
-    got = port_steps.greedy_generate(c.pparams, c.pcfg, torch.as_tensor(prompt).long(), 6, 16)
+    # zamba2's shared cache takes one position a token per invocation
+    max_len = 16 * max(1, port_lm.shared_invocations(c.pcfg))
+    want = ref.steps.greedy_generate(c.params, c.cfg, ref.jnp.asarray(prompt), 6, max_len)
+    got = port_steps.greedy_generate(c.pparams, c.pcfg, torch.as_tensor(prompt).long(), 6,
+                                     max_len)
     assert got.shape == (B, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["xlstm-350m"])
 def test_prefill_matches_own_decode(case, arch):
     """The kernel's function (prefill) against the cache path (decode), both
     the port's: the last prefill logits equal the decode logits after the
-    whole prompt.  Dense models only: an MoE model's decode routes B tokens
-    a step under another capacity than the prefill, on both sides
-    (``tests/test_torch_moe.py``)."""
+    whole prompt (xlstm: the chunked mLSTM and the sLSTM loop against their
+    recurrent steps).  Not for an MoE model, whose decode routes B tokens a
+    step under another capacity than the prefill, on both sides
+    (``tests/test_torch_moe.py``), nor for zamba2, whose shared cache is
+    shared across invocations (``test_zamba2_decode_disagrees_with_prefill_
+    as_the_reference_does``)."""
     c = case(arch, "float32")
     prefill = port_steps.make_prefill_step(c.pcfg)(c.pparams, {"tokens": c.ptokens})
     decode = port_steps.make_decode_step(c.pcfg)
@@ -258,6 +276,32 @@ def test_prefill_matches_own_decode(case, arch):
     for i in range(S):
         logits, state = decode(c.pparams, c.ptokens[:, i:i + 1], state)
     close(logits, prefill.numpy(), REL_FP32)
+
+
+def test_zamba2_decode_disagrees_with_prefill_as_the_reference_does(ref, case):
+    """The reference's fault, kept: zamba2's decode carries one shared KV
+    cache through the layers and every invocation of the shared block
+    appends to it, so after 8 tokens it holds 16 positions (2 invocations a
+    token at SMOKE) and each invocation attends over the keys of both.  The
+    port's decode equals the reference's, and both differ from the prefill
+    of the same 8 tokens by more than 0.1."""
+    c = case("zamba2-1.2b", "float32")
+    n = 8
+    want_prefill = f32(ref.jax.jit(ref.steps.make_prefill_step(c.cfg))(
+        c.params, {"tokens": c.tokens[:, :n]}))
+    got_prefill = port_steps.make_prefill_step(c.pcfg)(c.pparams, {"tokens": c.ptokens[:, :n]})
+    close(got_prefill, want_prefill, REL_FP32)
+    want = _reference_decode(ref, c, n, max_len=2 * n)[-1]
+    decode = port_steps.make_decode_step(c.pcfg)
+    state = port_lm.init_decode_state(c.pcfg, B, 2 * n, device="cpu")
+    for i in range(n):
+        logits, state = decode(c.pparams, c.ptokens[:, i:i + 1], state)
+    close(logits, want, REL_FP32)
+    assert int(state.shared_attn.length.max()) == 2 * n
+    assert float(np.abs(want - want_prefill).max()) > 0.1
+    assert float((logits - got_prefill).abs().max()) > 0.1
+    with pytest.raises(ValueError, match="per invocation of the shared block"):
+        decode(c.pparams, c.ptokens[:, n:n + 1], state)
 
 
 def test_step_functions_cast_once(case, monkeypatch):
@@ -315,6 +359,6 @@ def test_unported_inputs_raise(case):
     c = case("minitron-4b", "float32")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         port_lm.forward(c.pparams, c.pcfg, c.ptokens, img_embeds=torch.zeros(B, 2, 4))
-    mla = dataclasses.replace(c.pcfg, attn_type="mla")
+    absolute = dataclasses.replace(c.pcfg, use_rope=False)  # whisper's decoder positions
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        port_lm.init_params(torch.Generator(), mla, device="cpu")
+        port_lm.init_params(torch.Generator(), absolute, device="cpu")

@@ -84,7 +84,8 @@ def test_runs_on_the_card_by_default(monkeypatch, tmp_path):
         train.main(["--arch", "minitron-4b", "--smoke", "--ckpt-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["minitron-4b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+                                  "zamba2-1.2b", "xlstm-350m"])
 def test_train_state_checkpoints_cross_between_packages(tmp_path, arch):
     jax = pytest.importorskip("jax")
     from repro.ckpt import checkpoint as ref_ckpt
