@@ -18,9 +18,11 @@ no result line):
    it, and time kernel, plain version, the library yardstick where one
    exists, against the kernel's bound and floor (flash attention: the bf16
    wgmma kernel and the mma.sync kernel (float32 as 3xTF32, bf16 at D = 8,
-   16, 32) at Paths E1, G1, G2, G3, E5 and E7's shapes and the training CLI's
-   SMOKE head (bf16, D = 8), also at the reference tests' shapes, a ragged
-   S, D = 16, 32 and 256; the
+   16, 32) at Paths E1, G1, G2, G3, E5, E7, E10 and E11's shapes (E10's:
+   Whisper's non-causal encoder at S = 1500, its decoder, its
+   cross-attention at Sq = 448 and Sq = 1 against Sk = 1500) and the
+   training CLI's SMOKE head (bf16, D = 8), also at the reference tests'
+   shapes, a ragged S, D = 16, 32 and 256, float32 Sq < Sk and Sq > Sk; the
    soft-threshold pair as CPISTA
    and dense ADMM call them, and at the grid settings swept beside the
    committed one); sweep the direct matvec against the FFT path, n = 1024
@@ -209,11 +211,26 @@ no result line):
    (printed: 24 xLSTM layers amplify bf16 rounding past TOL_PREFILL_DECODE,
    as the reference's own decode does at 8) and in float32 (gated at
    TOL_PREFILL_DECODE);
-20. Path E9 — the three families at full width in float32, card against
+20. Path E9 — the five families at full width in float32, card against
    CPU: deepseek-v3 cut to 2 layers (8 experts), zamba2 to 7 (two shared
-   invocations), xlstm-350m to 8; a prefill of 2 x 16 tokens and 8 decode
-   steps at TOL_CARD_CPU (zamba2's shared block on the mma.sync kernel);
-21. one JSON line with every kernel's launches, error, times, bound and
+   invocations), xlstm-350m to 8, whisper-large-v3 to 2 encoder and 2
+   decoder layers (64 frames), pixtral-12b to 2 (8 image embeddings); a
+   prefill of 2 x 16 tokens, whisper's ``encoder_forward`` and 8 decode
+   steps at TOL_CARD_CPU (zamba2's shared block and every attention of
+   whisper and pixtral on the mma.sync kernel, whisper's non-causal and at
+   Sq != Sk);
+21. Path E10 — whisper-large-v3 FULL (32 + 32 layers, d_model 1280, 20
+   heads of 64; float32 parameters, bf16 compute): a prefill of 4 x 448
+   tokens against 4 x 1500 frames (the wgmma kernel 96 times: encoder,
+   decoder, cross), its bound; ``encoder_forward`` alone (32 launches); 32
+   decode steps against its output (32 launches a step, the cross-attention
+   at Sq = 1), a step profiled and its cross K / V projections timed alone;
+22. Path E11 — pixtral-12b FULL (40 layers, d_model 5120, 32 over 8 heads of
+   128), parameters in bf16: a prefill of 4 x (1024 image embeddings + 1024
+   tokens) (40 launches), its bound; how far the image moves the last
+   logits against a text-only prefill (printed); 32 text tokens decoded
+   against a text-only prefill of them at TOL_PREFILL_DECODE;
+23. one JSON line with every kernel's launches, error, times, bound and
    floor, then the device line ``{"ok": true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
@@ -736,26 +753,36 @@ def check_wire(dev, gen, results) -> None:
                 results[name].append(r)
 
 
-# check_flash's cases: (label, dtype, B, S, H, KH, D, causal)
-FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 24, 8, 128, True),
-                ("paths G2, E5: moonshot-v1-16b-a3b", "bfloat16", 4, 2048, 16, 16, 128, True),
-                ("path E7: zamba2-1.2b", "bfloat16", 4, 2048, 32, 32, 64, True),
-                ("D=64", "bfloat16", 2, 512, 4, 2, 64, True),
-                ("ragged GQA", "bfloat16", 2, 1000, 8, 1, 128, True),
-                ("full", "bfloat16", 1, 300, 4, 4, 128, False),
-                ("D=256", "bfloat16", 2, 512, 4, 2, 256, True),
-                ("path E1's shape", "float32", 4, 2048, 24, 8, 128, True),
-                ("path G3", "float32", 2, 64, 24, 8, 128, True),
-                ("train CLI: minitron-4b SMOKE", "bfloat16", 16, 256, 6, 2, 8, True),
-                ("D=16", "bfloat16", 2, 256, 4, 4, 16, True),
-                ("D=32", "bfloat16", 2, 512, 4, 2, 32, True)]
-               + [("tests' shape", "float32", 2, s, 2, 2, 64, c)
+# check_flash's cases: (label, dtype, B, Sq, Sk, H, KH, D, causal)
+FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 2048, 24, 8, 128, True),
+                ("paths G2, E5: moonshot-v1-16b-a3b", "bfloat16", 4, 2048, 2048, 16, 16, 128,
+                 True),
+                ("path E7: zamba2-1.2b", "bfloat16", 4, 2048, 2048, 32, 32, 64, True),
+                ("path E10: whisper-large-v3 encoder", "bfloat16", 4, 1500, 1500, 20, 20, 64,
+                 False),
+                ("path E10: whisper-large-v3 decoder", "bfloat16", 4, 448, 448, 20, 20, 64, True),
+                ("path E10: whisper-large-v3 cross", "bfloat16", 4, 448, 1500, 20, 20, 64, False),
+                ("path E10: whisper-large-v3 decode cross", "bfloat16", 4, 1, 1500, 20, 20, 64,
+                 False),
+                ("path E11: pixtral-12b", "bfloat16", 4, 2048, 2048, 32, 8, 128, True),
+                ("D=64", "bfloat16", 2, 512, 512, 4, 2, 64, True),
+                ("ragged GQA", "bfloat16", 2, 1000, 1000, 8, 1, 128, True),
+                ("full", "bfloat16", 1, 300, 300, 4, 4, 128, False),
+                ("D=256", "bfloat16", 2, 512, 512, 4, 2, 256, True),
+                ("path E1's shape", "float32", 4, 2048, 2048, 24, 8, 128, True),
+                ("path G3", "float32", 2, 64, 64, 24, 8, 128, True),
+                ("train CLI: minitron-4b SMOKE", "bfloat16", 16, 256, 256, 6, 2, 8, True),
+                ("D=16", "bfloat16", 2, 256, 256, 4, 4, 16, True),
+                ("D=32", "bfloat16", 2, 512, 512, 4, 2, 32, True)]
+               + [("tests' shape", "float32", 2, s, s, 2, 2, 64, c)
                   for s in (256, 512, 768) for c in (True, False)]
-               + [("GQA", "float32", 2, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
-               + [("ragged", "float32", 2, 1000, 4, 2, 64, True),
-                  ("D=8", "float32", 2, 300, 6, 2, 8, True),
-                  ("D=16", "float32", 1, 300, 4, 2, 16, False),
-                  ("D=256", "float32", 2, 512, 4, 2, 256, True)])
+               + [("GQA", "float32", 2, 512, 512, h, kh, 32, True) for h, kh in ((4, 2), (8, 1))]
+               + [("ragged", "float32", 2, 1000, 1000, 4, 2, 64, True),
+                  ("D=8", "float32", 2, 300, 300, 6, 2, 8, True),
+                  ("D=16", "float32", 1, 300, 300, 4, 2, 16, False),
+                  ("D=256", "float32", 2, 512, 512, 4, 2, 256, True),
+                  ("Sq<Sk, 20 heads", "float32", 2, 300, 1500, 20, 20, 64, False),
+                  ("Sq>Sk", "float32", 2, 1000, 300, 4, 2, 64, False)])
 
 
 def flash_times(root: Path) -> None:
@@ -773,14 +800,29 @@ def flash_times(root: Path) -> None:
     print(f"flash times of {Path(ops.__file__).parent}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for label, dt, b, s, h, kh, d, causal in FLASH_CASES:
+    for label, dt, b, sq, sk, h, kh, d, causal in FLASH_CASES:
         dt = getattr(torch, dt)
         if ops.kernel_for(dt, d) == "sm90":
             continue
-        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
+        q, k, v = flash_operands(gen, dev, dt, b, sq, sk, h, kh, d)
         ms = timed(lambda: ops.flash_attention(q, k, v, causal=causal))[0]
-        print(f"flash times [{label}: {str(dt).removeprefix('torch.')} B={b} S={s} H={h} "
-              f"KH={kh} D={d} causal={causal}]: device ms {ms:.4f}")
+        print(f"flash times [{flash_label(label, dt, b, sq, sk, h, kh, d, causal)}]: device ms "
+              f"{ms:.4f}")
+
+
+def flash_operands(gen, dev, dt, b, sq, sk, h, kh, d):
+    """q (B, Sq, H, D) and k, v (B, Sk, KH, D), unit normals in ``dt``."""
+    import torch
+
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dt)
+    k, v = (torch.randn(b, sk, kh, d, generator=gen, device=dev).to(dt) for _ in range(2))
+    return q, k, v
+
+
+def flash_label(label, dt, b, sq, sk, h, kh, d, causal) -> str:
+    shape = f"S={sq}" if sq == sk else f"Sq={sq} Sk={sk}"
+    return (f"{label}: {str(dt).removeprefix('torch.')} B={b} {shape} H={h} KH={kh} D={d} "
+            f"causal={causal}")
 
 
 def sdpa_kernels(fn) -> str:
@@ -808,18 +850,24 @@ def check_flash(dev, gen, results) -> None:
 
     The wgmma kernel: Paths E1 and G1's shape first (minitron-4b: bf16, B =
     4, S = 2048, H = 24 over KH = 8, D = 128, causal), then Paths G2 and E5's
-    (moonshot-v1-16b-a3b: H = KH = 16), D = 64, a ragged GQA (8, 1) S = 1000,
-    a full (non-causal) S = 300 and D = 256 (gemma-7b's head).  The mma.sync
+    (moonshot-v1-16b-a3b: H = KH = 16), E7's (zamba2), Path E10's four
+    (whisper-large-v3, 20 heads of 64: the non-causal encoder at a ragged S =
+    1500, the causal decoder at 448, the cross-attention at Sq = 448 and Sq =
+    1 against Sk = 1500), E11's (pixtral-12b, 32 over 8 heads of 128), D = 64,
+    a ragged GQA (8, 1) S = 1000, a full (non-causal) S = 300 and D = 256
+    (gemma-7b's head).  The mma.sync
     kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, the training
     CLI's (minitron-4b SMOKE, bf16, B = 16, S = 256, H = 6 over KH = 2, D = 8)
     and D = 16 (the other SMOKE heads) and D = 32 in bf16, then
     tests/test_flash_attention.py's float32 shapes, its GQA mappings, a
-    ragged causal S = 1000, D = 8, 16 and 256.  Each is held against the
+    ragged causal S = 1000, D = 8, 16 and 256, and non-causal Sq < Sk (20
+    heads) and Sq > Sk.  Each is held against the
     plain version in float32 (TOL_FLASH, TOL_FLASH_ROW) and timed against
     the plain version in its own dtype.  The bound of a float32 case is the
     design's, three TF32 products at 495 TFLOP/s, with one product at the
     fp32 CUDA-core rate printed beside it.  The library yardstick is
-    scaled_dot_product_attention on (B, H, S, D) views with enable_gqa (never
+    scaled_dot_product_attention on (B, H, S, D) views with enable_gqa and
+    is_causal as the case (never
     called by the port); its own error against the same float32 plain
     version is printed beside the kernel's, and in float32 its time with the
     KV heads expanded to H before the timed calls and the kernels it ran, a
@@ -831,9 +879,9 @@ def check_flash(dev, gen, results) -> None:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     cases = [(label, getattr(torch, dt), *shape) for label, dt, *shape in FLASH_CASES]
-    for label, dt, b, s, h, kh, d, causal in cases:
-        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dt) for n in (h, kh, kh))
-        flops = 4 * b * h * s * s * d / (2 if causal else 1)  # Q.K^T and P.V
+    for label, dt, b, sq, sk, h, kh, d, causal in cases:
+        q, k, v = flash_operands(gen, dev, dt, b, sq, sk, h, kh, d)
+        flops = 4 * b * h * sq * sk * d / (2 if causal else 1)  # Q.K^T and P.V
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         name = str(dt).removeprefix("torch.")
         fp32 = dt == torch.float32
@@ -844,13 +892,14 @@ def check_flash(dev, gen, results) -> None:
             *(t.float() for t in a[:3]), causal=a[3])
         library = lambda a=(q, k, v, causal): F.scaled_dot_product_attention(
             *(t.transpose(1, 2) for t in a[:3]), is_causal=a[3], enable_gqa=True)
-        label = f"{label}: {name} B={b} S={s} H={h} KH={kh} D={d} causal={causal}"
+        label = flash_label(label, dt, b, sq, sk, h, kh, d, causal)
         results[kernel].append(check_shape(
             kernel, label,
             lambda a=(q, k, v, causal): ops.flash_attention(*a[:3], causal=a[3]),
             lambda a=(q, k, v, causal): flash_attention_ref(*a[:3], causal=a[3]),
             TOL_FLASH[name], nbytes, 3 * flops if fp32 else flops, want=want,
-            row_tol=TOL_FLASH_ROW[name], library=library, plain_iters=5 if s >= 2048 else 20,
+            row_tol=TOL_FLASH_ROW[name], library=library,
+            plain_iters=5 if max(sq, sk) >= 2048 else 20,
             flops_per_s=TF32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S,
         ))
         if wrapper.launches == before:
@@ -2782,20 +2831,27 @@ def train_cli_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def prefill_work(cfg, params, batch: int, seq: int) -> tuple[float, float]:
-    """(FLOP, bytes) the least a prefill of batch x seq tokens needs at
-    ``cfg``: every product of the layers 2 FLOP a weight and token (an MoE
-    layer's routed experts at the k each token chose, its shared experts and
-    router whole; zamba2's shared block once an invocation); causal
-    attention's Q.K^T and P.V over half the square; the SSD's and mLSTM's
-    chunk products over half of each chunk's square, plus their chunk
-    states; the head at the last position only.  Bytes: every weight's bf16
-    copy read once (the embedding table as the batch's rows)."""
+def prefill_work(cfg, params, batch: int, seq: int, enc_seq: int = 0,
+                 input_bytes: float = 0.0) -> tuple[float, float]:
+    """(FLOP, bytes) the least a prefill of batch x seq positions (an image
+    prefix included) needs at ``cfg``: every product of the layers 2 FLOP a
+    weight and position (an MoE layer's routed experts at the k each token
+    chose, its shared experts and router whole; zamba2's shared block once
+    an invocation); causal attention's Q.K^T and P.V over half the square;
+    the SSD's and mLSTM's chunk products over half of each chunk's square,
+    plus their chunk states; an encoder-decoder's encoder over ``enc_seq``
+    positions (its attention non-causal, over the whole square) and its
+    cross layers (Q and the output over the decoder's positions, K and V
+    over the encoder's, Q.K^T and P.V over seq x enc_seq); the head at the
+    last position only.  Bytes: every weight's bf16 copy read once (the
+    embedding table as the batch's rows), plus ``input_bytes`` (frames or
+    image embeddings)."""
     from repro_torch.models import ssm, xlstm
     from repro_torch.models.lm import segments_of, shared_invocations, tree_items
 
     tokens = batch * seq
     flops = 2.0 * batch * cfg.d_model * cfg.vocab_padded  # the head, last position
+    hd = cfg.resolved_head_dim
     for si, seg in enumerate(segments_of(cfg)):
         for path, w in tree_items(params["segments"][si]):
             if w.ndim >= 3:  # (layers, d_in, d_out), an MoE expert stack (layers, E, ., .)
@@ -2804,7 +2860,7 @@ def prefill_work(cfg, params, batch: int, seq: int) -> tuple[float, float]:
                 flops += 2.0 * w.numel() * share * tokens
         if seg.kind in ("dense", "moe"):
             dqk, dv = ((cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim)
-                       if cfg.attn_type == "mla" else (cfg.resolved_head_dim,) * 2)
+                       if cfg.attn_type == "mla" else (hd,) * 2)
             flops += seg.n * batch * cfg.n_heads * seq * seq * (dqk + dv)
         elif seg.kind == "mamba2":
             h, n, p = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
@@ -2816,24 +2872,35 @@ def prefill_work(cfg, params, batch: int, seq: int) -> tuple[float, float]:
         inv = shared_invocations(cfg)
         flops += inv * sum(2.0 * w.numel() * tokens for _, w in tree_items(params["shared_attn"])
                            if w.ndim == 2)
-        flops += inv * 2 * batch * cfg.n_heads * seq * seq * cfg.resolved_head_dim
+        flops += inv * 2 * batch * cfg.n_heads * seq * seq * hd
+    if "encoder" in params:
+        enc_tokens = batch * enc_seq
+        flops += sum(2.0 * w.numel() * enc_tokens
+                     for _, w in tree_items(params["encoder"]["layers"]) if w.ndim >= 3)
+        flops += cfg.n_enc_layers * 4.0 * batch * cfg.n_heads * enc_seq * enc_seq * hd
+        cross = params["cross"]["attn"]
+        flops += 2.0 * (cross["wq"].numel() + cross["wo"].numel()) * tokens
+        flops += 2.0 * (cross["wk"].numel() + cross["wv"].numel()) * enc_tokens
+        flops += cfg.n_layers * 4.0 * batch * cfg.n_heads * seq * enc_seq * hd
     table = params["embed"]["table"]
     n_bytes = 2.0 * (sum(t.numel() for _, t in tree_items(params)) - table.numel()
-                     + tokens * cfg.d_model)
+                     + tokens * cfg.d_model) + input_bytes
     return flops, n_bytes
 
 
-def prefill_phase(name, cfg, params, tokens, iters=3) -> dict:
-    """``make_prefill_step`` on ``tokens``: the one cast and a warm-up, then
-    one counted call (the launch counters zeroed just before), then
-    ``iters`` timed calls; device and host ms, tokens/s, peak memory, the
-    bound (FLOPs at 989 TFLOP/s plus the weights' bytes at 3.35 TB/s)."""
+def prefill_phase(name, cfg, params, tokens, iters=3, inputs=None) -> dict:
+    """``make_prefill_step`` on ``tokens`` and ``inputs`` (``frames``,
+    ``img_embeds``): the one cast and a warm-up, then one counted call (the
+    launch counters zeroed just before), then ``iters`` timed calls; device
+    and host ms, positions/s, peak memory, the bound (FLOPs at 989 TFLOP/s
+    plus the weights' and inputs' bytes at 3.35 TB/s)."""
     import torch
 
     from repro_torch.models.steps import make_prefill_step
 
     prefill = make_prefill_step(cfg)
-    batch_in = {"tokens": tokens}
+    inputs = inputs or {}
+    batch_in = {"tokens": tokens, **inputs}
     t0 = time.perf_counter()
     prefill(params, batch_in)  # the one cast of the weights to bf16, and warm-up
     torch.cuda.synchronize()
@@ -2846,31 +2913,38 @@ def prefill_phase(name, cfg, params, tokens, iters=3) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     dev_ms, host_ms = timed_calls(lambda: prefill(params, batch_in), iters=iters)
     b, s = tokens.shape
-    flops, n_bytes = prefill_work(cfg, params, b, s)
+    img, frames = inputs.get("img_embeds"), inputs.get("frames")
+    s += 0 if img is None else img.shape[1]
+    flops, n_bytes = prefill_work(
+        cfg, params, b, s, enc_seq=0 if frames is None else frames.shape[1],
+        input_bytes=sum(t.numel() * t.element_size() for t in inputs.values()))
     bound_ms = flops / BF16_FLOPS_PER_S * 1e3 + n_bytes / HBM_BYTES_PER_S * 1e3
     tok_s = b * s / (host_ms / 1e3)
+    enc = "" if frames is None else f", {frames.shape[1]} encoder frames"
     print(f"Path {name}: {cfg.name}, {cfg.n_layers} layers {sorted(set(cfg.layer_kinds()))}, "
-          f"prefill B={b} S={s}: cast + warm-up {warm_s:.2f} s; device {dev_ms:.2f} ms, host "
-          f"clock {host_ms:.2f} ms, {tok_s:.0f} tokens/s, peak memory {peak_gib:.2f} GiB; "
-          f"bound {bound_ms:.2f} ms ({flops:.3e} FLOP at 989 TFLOP/s + {n_bytes / 1e9:.2f} GB "
-          f"of bf16 weights at 3.35 TB/s), {bound_ms / dev_ms:.1%} of the device time; "
-          f"launches {counts}")
+          f"prefill B={b} S={s}{enc}: cast + warm-up {warm_s:.2f} s; device {dev_ms:.2f} ms, "
+          f"host clock {host_ms:.2f} ms, {tok_s:.0f} positions/s, peak memory {peak_gib:.2f} "
+          f"GiB; bound {bound_ms:.2f} ms ({flops:.3e} FLOP at 989 TFLOP/s + {n_bytes / 1e9:.2f} "
+          f"GB of bf16 weights and inputs at 3.35 TB/s), {bound_ms / dev_ms:.1%} of the device "
+          f"time; launches {counts}")
     if logits.shape != (b, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
         fail(f"Path {name} logits have shape {tuple(logits.shape)} or non-finite values")
     return dict(prefill=prefill, logits=logits, counts=counts, dev_ms=dev_ms, host_ms=host_ms,
                 tok_s=tok_s, peak_gib=peak_gib, bound_ms=bound_ms, flops=flops, bytes=n_bytes)
 
 
-def decode_run(cfg, params, tokens, max_len, decode=None) -> dict:
+def decode_run(cfg, params, tokens, max_len, decode=None, cross_kv=None) -> dict:
     """``tokens`` (B, T) fed one at a time through ``make_decode_step`` from
-    an empty state; every step's logits, host ms a step to a synchronize."""
+    an empty state (an encoder-decoder's against ``cross_kv``); every step's
+    logits, host ms a step to a synchronize."""
     import torch
 
     from repro_torch.models.lm import init_decode_state
     from repro_torch.models.steps import make_decode_step
 
     decode = decode or make_decode_step(cfg)
-    state = init_decode_state(cfg, tokens.shape[0], max_len, device=tokens.device)
+    state = init_decode_state(cfg, tokens.shape[0], max_len, cross_kv=cross_kv,
+                              device=tokens.device)
     logits = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3170,24 +3244,30 @@ def path_e8(dev, seed, batch=4, seq=2048, decode_tokens=64) -> dict:
     return out
 
 
-def path_e9(dev, seed, batch=2, seq=16, steps=8) -> dict:
-    """The three families at full width in float32, the card against the
+def path_e9(dev, seed, batch=2, seq=16, steps=8, enc_seq=64) -> dict:
+    """The five families at full width in float32, the card against the
     CPU (as Path E3 for minitron): deepseek-v3 cut to 2 layers (one dense,
     one MoE of 8 routed experts), zamba2 to 7 layers (the shared block after
     layers 0 and 6: two invocations share the decode cache), xlstm-350m to 8
-    (7 mLSTM, 1 sLSTM).  Each is initialised on the card from a seed and
-    copied to the CPU; a prefill of 2 x 16 tokens (zamba2's shared block
-    through the mma.sync kernel on the card, the plain version on the CPU)
-    and 8 decode steps from an empty state, every logit held at
-    TOL_CARD_CPU."""
+    (7 mLSTM, 1 sLSTM), whisper-large-v3 to 2 encoder and 2 decoder layers
+    (64 frames), pixtral-12b to 2 layers (8 image embeddings before the
+    text).  Each is initialised on the card from a seed and copied to the
+    CPU; a prefill of 2 x 16 tokens (zamba2's shared block and every
+    attention of whisper and pixtral through the mma.sync kernel on the
+    card, whisper's non-causal and at Sq != Sk; the plain version on the
+    CPU), whisper's ``encoder_forward``, and 8 decode steps from an empty
+    state (whisper's against the encoder's output, the cross-attention on
+    the kernel at Sq = 1), every output held at TOL_CARD_CPU."""
     import torch
 
     from repro_torch.data.synthetic import token_batch
-    from repro_torch.models.lm import init_params, shared_invocations, tree_map
+    from repro_torch.models.lm import encoder_forward, init_params, shared_invocations, tree_map
     from repro_torch.models.steps import make_prefill_step
 
     cases = (("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1, n_experts=8)),
-             ("zamba2-1.2b", dict(n_layers=7)), ("xlstm-350m", dict(n_layers=8)))
+             ("zamba2-1.2b", dict(n_layers=7)), ("xlstm-350m", dict(n_layers=8)),
+             ("whisper-large-v3", dict(n_layers=2, n_enc_layers=2)),
+             ("pixtral-12b", dict(n_layers=2, n_img_tokens=8)))
     total = dict.fromkeys(_wrappers(), 0)
     errs = {}
     for arch, cut in cases:
@@ -3196,32 +3276,234 @@ def path_e9(dev, seed, batch=2, seq=16, steps=8) -> dict:
         params = init_params(gen, cfg, device=dev)
         cpu_params = tree_map(lambda a: a.cpu(), params)
         tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device=dev)
+        inputs = {}
+        if cfg.is_encdec:
+            inputs["frames"] = torch.randn(batch, enc_seq, cfg.d_model, generator=gen,
+                                           device=dev) * 0.02
+        if cfg.n_img_tokens:
+            inputs["img_embeds"] = torch.randn(batch, cfg.n_img_tokens, cfg.d_model,
+                                               generator=gen, device=dev) * 0.02
         max_len = steps * max(1, shared_invocations(cfg))
+
+        def run(p, device):
+            moved = {k: v.to(device) for k, v in inputs.items()}
+            out = [make_prefill_step(cfg)(p, {"tokens": tokens.to(device), **moved})]
+            cross = None
+            if cfg.is_encdec:
+                with torch.no_grad():
+                    cross = encoder_forward(p, cfg, moved["frames"])
+                out.append(cross)
+            return out + decode_run(cfg, p, tokens[:, :steps].to(device), max_len,
+                                    cross_kv=cross)["logits"]
+
         t0 = time.perf_counter()
-        want = [make_prefill_step(cfg)(cpu_params, {"tokens": tokens.cpu()})]
-        want += decode_run(cfg, cpu_params, tokens[:, :steps].cpu(), max_len)["logits"]
+        want = run(cpu_params, "cpu")
         cpu_s = time.perf_counter() - t0
         zero_counts()
-        got = [make_prefill_step(cfg)(params, {"tokens": tokens})]
-        got += decode_run(cfg, params, tokens[:, :steps], max_len)["logits"]
+        got = run(params, dev)
         torch.cuda.synchronize()
         counts = read_counts()
         errs[arch] = [rel_err(g.float().cpu(), w.float())[1] for g, w in zip(got, want)]
         finite = all(bool(torch.isfinite(g).all()) for g in got)
+        enc = (f", encoder_forward over {enc_seq} frames norm-rel {errs[arch][1]:.3e}"
+               if cfg.is_encdec else "")
         print(f"Path E9 {cfg.name} cut to {len(cfg.layer_kinds())} layers "
-              f"{sorted(set(cfg.layer_kinds()))}, float32, card vs CPU (CPU {cpu_s:.2f} s): "
-              f"prefill B={batch} S={seq} norm-rel {errs[arch][0]:.3e}, {steps} decode steps "
-              f"worst {max(errs[arch][1:]):.3e} (tol {TOL_CARD_CPU:.0e}); launches {counts}")
+              f"{sorted(set(cfg.layer_kinds()))}{inputs and f' with {sorted(inputs)}' or ''}, "
+              f"float32, card vs CPU (CPU {cpu_s:.2f} s): prefill B={batch} S={seq} norm-rel "
+              f"{errs[arch][0]:.3e}{enc}, {steps} decode steps worst "
+              f"{max(errs[arch][1 + cfg.is_encdec:]):.3e} (tol {TOL_CARD_CPU:.0e}); launches "
+              f"{counts}")
         if not finite or not max(errs[arch]) <= TOL_CARD_CPU:
             fail(f"Path E9 {arch}: the card disagrees with the CPU: {errs[arch]}")
         want_counts = dict.fromkeys(counts, 0)
-        want_counts.update(flash_attention_mma=shared_invocations(cfg))
+        if cfg.is_encdec:  # prefill: encoder, decoder, cross; the encoder again; cross a step
+            mma = 2 * cfg.n_enc_layers + 2 * cfg.n_layers + steps * cfg.n_layers
+        else:
+            mma = shared_invocations(cfg) or (cfg.n_layers if arch == "pixtral-12b" else 0)
+        want_counts.update(flash_attention_mma=mma)
         if counts != want_counts:
             fail(f"Path E9 {arch} launch counts {counts}; expected {want_counts}")
         total = {k: total[k] + counts[k] for k in total}
         del params, cpu_params
         torch.cuda.empty_cache()
     return dict(counts=total, errs=errs)
+
+
+WHISPER_TEXT_LEN = 448  # whisper's decoder horizon (the reference's launch/specs.py)
+
+
+def path_e10(dev, seed, batch=4, steps=32) -> dict:
+    """whisper-large-v3 FULL: 32 encoder and 32 decoder layers, d_model 1280,
+    20 heads of 64 (H = KH), d_ff 5120, vocab 51866, float32 parameters and
+    a bf16 compute copy.  4 windows of 1500 frames (the encoder's 30 s after
+    the stubbed conv front end, N(0, 0.02^2)) and 448 decoder tokens:
+    ``make_prefill_step`` with frames (the wgmma kernel 96 times: 32
+    non-causal encoder layers at S = 1500, 32 causal decoder layers at 448,
+    32 cross layers at 448 against 1500), its bound; ``encoder_forward``
+    alone (32 launches); then 32 decode steps from ``init_decode_state(...,
+    max_len=448, cross_kv=...)`` (the cross-attention on the kernel at Sq =
+    1 against 1500, 32 launches a step; the cross K / V projected anew every
+    step, as the reference does), a step profiled, and the cross K / V
+    projections of a step timed alone (32 layers' two products of 4 x 1500
+    x 1280 by 1280 x 1280 in bf16, an isolated estimate).  Gated on
+    finiteness and launches."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import encoder_forward, init_params, tree_items
+    from repro_torch.models.steps import make_decode_step
+
+    cfg = lm_config("whisper-large-v3")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    print(f"Path E10: {cfg.name}, {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"{n_params / 1e9:.3f} B parameters (float32 {4 * n_params / 1e9:.2f} GB, bf16 copy "
+          f"{2 * n_params / 1e9:.2f} GB), init {time.perf_counter() - t0:.2f} s")
+    frames = torch.randn(batch, cfg.enc_seq_len, cfg.d_model, generator=gen, device=dev) * 0.02
+    tokens = token_batch(gen, batch, WHISPER_TEXT_LEN - 1, cfg.vocab, device=dev)
+    out = prefill_phase("E10", cfg, params, tokens, inputs={"frames": frames})
+    want = dict.fromkeys(out["counts"], 0)
+    want.update(flash_attention_sm90=cfg.n_enc_layers + 2 * cfg.n_layers)
+    if out["counts"] != want:
+        fail(f"Path E10 prefill launch counts {out['counts']}; expected {want} (encoder, "
+             f"decoder and cross layers, one each)")
+    del out["prefill"]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cross_kv = encoder_forward(params, cfg, frames)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    enc_counts = read_counts()
+    want = dict.fromkeys(enc_counts, 0)
+    want.update(flash_attention_sm90=cfg.n_enc_layers)
+    if enc_counts != want or not bool(torch.isfinite(cross_kv).all()):
+        fail(f"Path E10 encoder_forward: launches {enc_counts} (expected {want}) or non-finite")
+    decode = make_decode_step(cfg)
+    prompt = tokens[:, :steps + PROFILED_STEPS].contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = decode_run(cfg, params, prompt[:, :steps], WHISPER_TEXT_LEN, decode=decode,
+                     cross_kv=cross_kv)
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(bool(torch.isfinite(t).all()) for t in run["logits"])
+    box = [run["state"], steps]
+
+    def one():  # the next decode step
+        i = box[1]
+        _, box[0] = decode(params, prompt[:, i:i + 1], box[0])
+        box[1] = i + 1
+
+    prof = profile_window(one, "Path E10 decode steps", steps=PROFILED_STEPS)
+    flash_ms = sum(ms for name, ms in prof["kernels"].items() if "flash_fwd" in name)
+    wk, wv = (params["cross"]["attn"][w].to(torch.bfloat16) for w in ("wk", "wv"))
+    proj_ms = timed_calls(lambda: [cross_kv @ w[i] for i in range(cfg.n_layers)
+                                   for w in (wk, wv)], iters=3)[0]
+    del wk, wv
+    # a step's least work: the decoder's and the cross layers' products on B
+    # tokens, the head, the cross K / V of every layer over the encoder's
+    # positions, attention over them; the weights it reads in bf16 and the
+    # encoder's output once
+    cross = params["cross"]["attn"]
+    proj_flops = 2.0 * (cross["wk"].numel() + cross["wv"].numel()) * cross_kv.shape[:2].numel()
+    used = (sum(t.numel() for _, t in tree_items(params["segments"]))
+            + sum(t.numel() for _, t in tree_items(params["cross"]))
+            + params["embed"]["unembed"].numel())
+    step_flops = (2.0 * batch * (used - cross["wk"].numel() - cross["wv"].numel()) + proj_flops
+                  + 4.0 * batch * cfg.n_heads * cross_kv.shape[1] * cfg.resolved_head_dim
+                  * cfg.n_layers)
+    step_bytes = 2.0 * (used + cross_kv.numel())
+    step_bound = step_flops / BF16_FLOPS_PER_S * 1e3 + step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"Path E10 encoder_forward alone: {enc_ms:.2f} ms (host clock to a synchronize, the "
+          f"one cast included), launches {enc_counts}; {steps} decode steps against the "
+          f"encoder's output: {run['ms_step']:.2f} ms a step (host clock), peak memory "
+          f"{peak_gib:.2f} GiB, launches {counts}; a profiled step: device busy "
+          f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms, flash kernel (Sq = 1, Sk = "
+          f"{cross_kv.shape[1]}) {flash_ms:.4f} ms ({flash_ms / prof['busy_ms']:.1%} of the "
+          f"busy time); the cross K / V projections of a step alone {proj_ms:.3f} device ms "
+          f"({proj_flops:.3e} FLOP; {proj_ms / prof['busy_ms']:.1%} of a step's busy time, an "
+          f"isolated estimate); a step's bound {step_bound:.3f} ms ({step_flops:.3e} FLOP + "
+          f"{step_bytes / 1e9:.2f} GB of bf16 weights)")
+    if not finite:
+        fail("Path E10: non-finite decode logits")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_sm90=steps * cfg.n_layers)
+    if counts != want:
+        fail(f"Path E10 decode launch counts {counts}; expected {want} (one a layer a step)")
+    out["counts"] = {k: out["counts"][k] + enc_counts[k] + counts[k] for k in counts}
+    out.update(enc_ms=enc_ms, decode_ms=run["ms_step"], step_busy_ms=prof["busy_ms"],
+               step_flash_ms=flash_ms, proj_ms=proj_ms, step_bound_ms=step_bound,
+               decode_peak_gib=peak_gib, n_params=n_params)
+    del params, cross_kv, run, box
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_e11(dev, seed, batch=4, text=1024, steps=32) -> dict:
+    """pixtral-12b FULL, all 40 layers (d_model 5120, 32 query heads over 8
+    KV heads of 128, d_ff 14336, vocab 131072), its parameters held in bf16
+    (``param_dtype``: a dtype cut, no width; in float32 with a bf16 copy they
+    would take ~73.5 GB of the 80).  4 examples of 1024 image embeddings
+    (the stubbed vision encoder's, N(0, 0.02^2)) before 1024 text tokens:
+    ``make_prefill_step`` (the wgmma kernel once a layer: 40 launches, at S =
+    2048), its bound; the same text prefilled without the image (printed:
+    how far the prefix moves the last logits); then 32 text tokens decoded
+    one at a time from an empty state against a text-only prefill of them,
+    held at TOL_PREFILL_DECODE.  Gated on finiteness, launches and that
+    agreement."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import init_params, tree_items
+
+    cfg = lm_config("pixtral-12b", param_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    print(f"Path E11: {cfg.name}, {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters in "
+          f"bf16 ({2 * n_params / 1e9:.2f} GB), init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    img = torch.randn(batch, cfg.n_img_tokens, cfg.d_model, generator=gen, device=dev) * 0.02
+    tokens = token_batch(gen, batch, text - 1, cfg.vocab, device=dev)
+    out = prefill_phase("E11", cfg, params, tokens, inputs={"img_embeds": img})
+    want = dict.fromkeys(out["counts"], 0)
+    want.update(flash_attention_sm90=cfg.n_layers)
+    if out["counts"] != want:
+        fail(f"Path E11 prefill launch counts {out['counts']}; expected {want} (one a layer)")
+    prefill = out.pop("prefill")
+    text_only = prefill(params, {"tokens": tokens})
+    moved = rel_err(text_only.float(), out["logits"].float())
+    prompt = tokens[:, :steps].contiguous()
+    zero_counts()
+    run = decode_run(cfg, params, prompt, steps)
+    counts = read_counts()
+    want_logits = prefill(params, {"tokens": prompt})
+    err = rel_err(run["logits"][-1].float(), want_logits.float())
+    finite = (all(bool(torch.isfinite(t).all()) for t in run["logits"])
+              and bool(torch.isfinite(text_only).all()))
+    print(f"Path E11 the image prefix moves the last logits by max abs {moved[0]:.3e}, norm-rel "
+          f"{moved[1]:.3e} against a text-only prefill of the same {text} tokens (printed, not "
+          f"gated); {steps} text tokens decoded one at a time: {run['ms_step']:.2f} ms a step "
+          f"(host clock, from an empty state), last logits vs a text-only prefill of them: max "
+          f"abs {err[0]:.3e}, norm-rel {err[1]:.3e} (tol {TOL_PREFILL_DECODE:.0e}); decode "
+          f"launches {counts}")
+    if not finite:
+        fail("Path E11: non-finite logits")
+    if not err[1] <= TOL_PREFILL_DECODE:
+        fail(f"Path E11: decode and a text-only prefill disagree: {err}")
+    if any(counts.values()):
+        fail(f"Path E11: the decode launched kernels {counts}")
+    del params, prefill, run
+    torch.cuda.empty_cache()
+    out.update(image_moves=moved, decode_err=err, n_params=n_params)
+    return out
 
 
 def run_cli(args: list) -> str:
@@ -3506,6 +3788,10 @@ def main() -> int:
     e8 = path_e8(dev, 12)
     e9 = path_e9(dev, 13)
     print(f"Paths E6-E9 took {time.perf_counter() - t_lm:.1f} s")
+    t_encdec = time.perf_counter()
+    e10 = path_e10(dev, 14)
+    e11 = path_e11(dev, 15)
+    print(f"Paths E10-E11 took {time.perf_counter() - t_encdec:.1f} s")
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     m_counts = {k: m["l1"]["counts"][k] + m["tv"]["counts"][k] for k in m["l1"]["counts"]}
     md1_counts = {k: md1["fp32"]["counts"][k] + md1["bf16"]["counts"][k]
@@ -3520,7 +3806,8 @@ def main() -> int:
                "CLI": cli["counts"], "CLI priors": cli_priors["counts"], "E1": e1["counts"],
                "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"], "G1": g1["counts"],
                "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
-               "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"]}
+               "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"], "E10": e10["counts"],
+               "E11": e11["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

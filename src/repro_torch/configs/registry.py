@@ -1,11 +1,10 @@
 """--arch registry: full (assigned) configs and reduced smoke configs.
 
-Port of ``repro/configs/registry.py`` for the architectures whose layers the
-port has: the four dense decoder-only transformers, moonshot-v1-16b-a3b
-(MoE over GQA), deepseek-v3-671b (MoE over MLA), zamba2-1.2b (Mamba-2 with a
-shared attention block) and xlstm-350m (mLSTM and sLSTM).  The other two ids
-of the reference's registry need encoder-decoder or VLM layers and raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 11.6).
+Port of ``repro/configs/registry.py``: the four dense decoder-only
+transformers, moonshot-v1-16b-a3b (MoE over GQA), deepseek-v3-671b (MoE over
+MLA), zamba2-1.2b (Mamba-2 with a shared attention block), pixtral-12b (an
+image prefix before the text), xlstm-350m (mLSTM and sLSTM) and
+whisper-large-v3 (encoder-decoder).
 """
 
 from __future__ import annotations
@@ -28,11 +27,6 @@ ARCH_IDS: List[str] = [
     "whisper_large_v3",
 ]
 
-# the architectures the port runs: the decoder-only ones
-PORTED_ARCH_IDS: List[str] = ["codeqwen15_7b", "granite_34b", "minitron_4b", "gemma_7b",
-                              "deepseek_v3_671b", "moonshot_v1_16b_a3b", "zamba2_1p2b",
-                              "xlstm_350m"]
-
 # external ids (assignment spelling) -> module names
 ALIASES: Dict[str, str] = {
     "codeqwen1.5-7b": "codeqwen15_7b",
@@ -50,13 +44,7 @@ ALIASES: Dict[str, str] = {
 
 def _module(arch: str):
     name = ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
-    if name not in PORTED_ARCH_IDS:
-        if name in ARCH_IDS:
-            raise NotImplementedError(
-                f"{arch}: its encoder-decoder / VLM layers are not ported yet "
-                "(ROADMAP.md Queue 1 item 11.6); the port runs "
-                f"{', '.join(PORTED_ARCH_IDS)}"
-            )
+    if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     return importlib.import_module(f"{__package__}.{name}")
 

@@ -127,14 +127,14 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
     orientation and dtype: dense and MoE layers over GQA or MLA (an MoE
     layer's ``moe``: ``router``, ``router_bias``, ``w_gate`` / ``w_up`` /
     ``w_down`` of shape (E, ., .) and ``shared``), ``mamba2``, ``mlstm`` and
-    ``slstm`` layers.  An encoder-decoder tree (``encoder``, ``cross``)
-    raises."""
-    extra = sorted(set(tree) - {"embed", "final_norm", "segments", "shared_attn"})
+    ``slstm`` layers; an encoder-decoder's ``encoder`` (``layers``, dense
+    layers stacked, and ``final_norm``) and ``cross`` (``ln`` and ``attn``
+    stacked along the decoder's layer axis).  Another top-level key raises
+    ``ValueError``."""
+    extra = sorted(set(tree) - {"embed", "final_norm", "segments", "shared_attn", "encoder",
+                                "cross"})
     if extra:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder parameter trees are not carried across yet "
-            f"(ROADMAP.md Queue 1 item 11.6); this one has {extra}"
-        )
+        raise ValueError(f"{cfg.name}: the LM parameter tree has unknown entries {extra}")
 
     def carry(node):
         if isinstance(node, dict):

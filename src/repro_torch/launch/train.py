@@ -13,7 +13,9 @@ batches it missed.  A progress line every 10 steps, a checkpoint every
 cpu`` is given.  The production meshes (``--mesh single|multipod``) and
 tensor parallelism (``--model-parallel`` > 1) raise
 ``NotImplementedError``: they wait for ROADMAP.md Queue 1 item 11.7
-(``dist/sharding.py``, ``launch/{partition,mesh}.py``).
+(``dist/sharding.py``, ``launch/{partition,mesh}.py``).  The batches hold
+tokens alone, as the reference's do, so an encoder-decoder (whisper-large-v3)
+or a VLM (pixtral-12b) config raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -60,8 +62,12 @@ def main(argv=None):
             "is not ported yet (ROADMAP.md Queue 1 item 11.7: dist/sharding.py, "
             "launch/{partition,mesh}.py); the port trains on one device (--mesh host "
             "--model-parallel 1)")
-    device = resolve_device(args.device)  # raises without CUDA unless --device cpu
     cfg = smoke_config(args.arch) if args.smoke else full_config(args.arch)
+    if cfg.is_encdec or cfg.n_img_tokens:
+        need = "frames (B, S_enc, d_model)" if cfg.is_encdec else "img_embeds (B, N, d_model)"
+        raise ValueError(f"--arch {args.arch}: the launcher's batches hold tokens alone, and "
+                         f"{cfg.name}'s loss needs {need} too (steps.loss_fn)")
+    device = resolve_device(args.device)  # raises without CUDA unless --device cpu
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                           total_steps=args.steps)
     gen = torch.Generator(device=device).manual_seed(args.seed)

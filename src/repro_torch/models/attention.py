@@ -1,25 +1,28 @@
 """Attention: GQA / MQA (prefill through the flash kernel, decode on a KV
 cache) and MLA (DeepSeek-V3's latent attention, plain torch).
 
-Port of ``repro/models/attention.py``.  Causal GQA self-attention without a
-sliding window — every GQA prefill and training forward of the ported
-configs (zamba2's shared block among them), FULL and SMOKE — goes through
+Port of ``repro/models/attention.py``.  Every GQA attention without a
+sliding window goes through
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`, the
-function the reference's Pallas kernel was written to replace: on a CUDA
-tensor it launches the kernel (and raises at a head size it has no
-instance for), on a CPU tensor it runs its plain version.
-Cross-attention, non-causal attention and a sliding window go through
-:func:`_attend_chunked`, the reference's online softmax over KV chunks in
-plain torch, which is also what decode uses: one query against a cache
-with a valid-length mask.  Both routes are static, never by a failure.
+function the reference's Pallas kernel was written to replace: causal
+self-attention (every decoder's prefill and training forward, zamba2's
+shared block among them), non-causal self-attention (Whisper's encoder)
+and cross-attention (``kv=``: Whisper's decoder against the encoder's
+output, Sk from the source, in the prefill and at Sq = 1 in decode).  On a
+CUDA tensor it launches the kernel (and raises at a head size it has no
+instance for), on a CPU tensor it runs its plain version.  A sliding
+window goes through :func:`_attend_chunked`, the reference's online
+softmax over KV chunks in plain torch, which is also what the decode cache
+uses: one query against a cache with a valid-length mask, which the kernel
+has no input for.  The routes are static, never taken on a failure.
 
 The kernel has no backward, as the reference's Pallas kernel has none (the
 reference trains through ``_attend_chunked``).  When any of q, k or v
 requires grad, :func:`gqa_forward` calls :class:`FlashAttentionFn`, whose
-forward is the kernel and whose backward recomputes ``_attend_chunked`` one
-query tile at a time and returns its vector-Jacobian product; otherwise it
-calls the kernel bare.  The route is static (by ``requires_grad``), never
-taken on a failure.  So:
+forward is the kernel and whose backward recomputes ``_attend_chunked``
+with the same ``causal`` one query tile at a time and returns its
+vector-Jacobian product; otherwise it calls the kernel bare.  The route is
+static (by ``requires_grad``), never taken on a failure.  So:
 
 * the gradient is the plain function's, the reference's gradient;
 * ``_attend_chunked`` rounds ``q * scale`` to the compute dtype before the
@@ -116,18 +119,20 @@ def _attend_chunked(
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Causal self-attention with the flash kernel forward and the plain
-    function's gradient: the backward recomputes :func:`_attend_chunked`
-    (``chunk`` keys a block) on detached copies, one query tile of ``chunk``
-    rows at a time (``q_offset`` placing it), so that at most one tile's
-    scores are alive, and returns its vector-Jacobian product; dk and dv are
-    summed over the tiles in float32."""
+    """Attention with the flash kernel forward and the plain function's
+    gradient: ``apply(q, k, v, chunk, causal=True)``, q (B, Sq, H, D)
+    against k, v (B, Sk, KH, D) (``causal`` needs Sq == Sk).  The backward
+    recomputes :func:`_attend_chunked` with the same ``causal`` (``chunk``
+    keys a block) on detached copies, one query tile of ``chunk`` rows at a
+    time (``q_offset`` placing it), so that at most one tile's scores are
+    alive, and returns its vector-Jacobian product; dk and dv are summed
+    over the tiles in float32."""
 
     @staticmethod
-    def forward(ctx, q, k, v, chunk: int):
+    def forward(ctx, q, k, v, chunk: int, causal: bool = True):
         ctx.save_for_backward(q, k, v)
-        ctx.chunk = chunk
-        return flash_attention(q, k, v, causal=True)
+        ctx.chunk, ctx.causal = chunk, causal
+        return flash_attention(q, k, v, causal=causal)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -141,12 +146,12 @@ class FlashAttentionFn(torch.autograd.Function):
         for q0 in range(0, sq, tile):
             qt = q[:, q0:q0 + tile].detach().requires_grad_(True)
             with torch.enable_grad():
-                out = _attend_chunked(qt, k, v, causal=True, q_offset=q0, chunk=chunk)
+                out = _attend_chunked(qt, k, v, causal=ctx.causal, q_offset=q0, chunk=chunk)
             gq, gk, gv = torch.autograd.grad(out, (qt, k, v), grad_out[:, q0:q0 + tile])
             dq[:, q0:q0 + tile] = gq
             dk += gk
             dv += gv
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +189,7 @@ def gqa_forward(
     params: dict,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S)
+    positions: Optional[torch.Tensor],  # (B, S); read only with rope and no kv
     *,
     causal: bool = True,
     rope: bool = True,
@@ -204,14 +209,13 @@ def gqa_forward(
         sk = src.shape[1]
         k = (src @ params["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
         v = (src @ params["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
-    if causal and kv is None and not cfg.sliding_window:
-        if q.requires_grad or k.requires_grad or v.requires_grad:
-            out = FlashAttentionFn.apply(q, k, v, cfg.attn_chunk)
-        else:
-            out = flash_attention(q, k, v, causal=True)
-    else:
+    if cfg.sliding_window:
         out = _attend_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                               sliding_window=cfg.sliding_window)
+    elif q.requires_grad or k.requires_grad or v.requires_grad:
+        out = FlashAttentionFn.apply(q, k, v, cfg.attn_chunk, causal)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
     return out.reshape(b, s, cfg.n_heads * hd) @ params["wo"]
 
 

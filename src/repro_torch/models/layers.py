@@ -89,6 +89,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (n_pos, d) in float32: sines of
+    the first half, cosines of the second, frequencies 10000^(-i / (half -
+    1)) as the reference divides them."""
+    half = d // 2
+    log_base = torch.tensor(10000.0, device=device).log()
+    freqs = torch.exp(-log_base * torch.arange(half, device=device) / (half - 1))
+    args = torch.arange(n_pos, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
 # --------------------------------------------------------------------------
 # MLP family: GLU (SwiGLU / GeGLU, 3 matrices) and plain (2 matrices)
 # --------------------------------------------------------------------------

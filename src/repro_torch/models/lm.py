@@ -1,29 +1,43 @@
-"""The decoder-only LM: layer stack, caches, forward, prefill and decode.
+"""The LM: layer stack, encoder, caches, forward, prefill and decode.
 
-Port of ``repro/models/lm.py`` for its decoder-only models: ``transformer``
-blocks of ``dense`` and ``moe`` layers (:mod:`.moe`) over GQA or MLA
-attention (:mod:`.attention`), zamba2's hybrid of ``mamba2`` layers
-(:mod:`.ssm`) with one shared attention + MLP block applied after every
-``attn_every``-th layer, and xLSTM's ``mlstm`` / ``slstm`` layers
-(:mod:`.xlstm`, no FFN).  The parameters are a dict of tensors mirroring the
-reference's tree: ``embed`` (``table``, and ``unembed`` unless tied),
-``final_norm``, ``segments``, one dict per run of same-kind layers with
-every leaf stacked along a leading layer axis, and zamba2's
-``shared_attn``.  The reference's ``lax.scan`` over that axis becomes a
-Python loop over it, and its ``jax.checkpoint`` of each layer
-(``cfg.remat``) becomes ``torch.utils.checkpoint`` wherever grad is
-enabled: a training step keeps each layer's input and recomputes the rest
-in the backward pass.  Each layer's aux loss (an MoE layer's Switch loss,
-0 elsewhere) is summed.  Image embeddings, encoder frames and absolute
-positions (``use_rope=False``) raise ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 11.6).
+Port of ``repro/models/lm.py``: ``transformer`` blocks of ``dense`` and
+``moe`` layers (:mod:`.moe`) over GQA or MLA attention (:mod:`.attention`),
+zamba2's hybrid of ``mamba2`` layers (:mod:`.ssm`) with one shared
+attention + MLP block applied after every ``attn_every``-th layer, xLSTM's
+``mlstm`` / ``slstm`` layers (:mod:`.xlstm`, no FFN), Whisper's
+encoder-decoder and pixtral's image prefix.  The parameters are a dict of
+tensors mirroring the reference's tree: ``embed`` (``table``, and
+``unembed`` unless tied), ``final_norm``, ``segments``, one dict per run of
+same-kind layers with every leaf stacked along a leading layer axis,
+zamba2's ``shared_attn``, and an encoder-decoder's ``encoder`` (``layers``,
+stacked ``dense`` layers, and ``final_norm``) and ``cross`` (one ``ln`` and
+one GQA ``attn`` a decoder layer, stacked).  The reference's ``lax.scan``
+over that axis becomes a Python loop over it, and its ``jax.checkpoint`` of
+each layer (``cfg.remat``) becomes ``torch.utils.checkpoint`` wherever grad
+is enabled: a training step keeps each layer's input and recomputes the
+rest in the backward pass.  Each layer's aux loss (an MoE layer's Switch
+loss, 0 elsewhere) is summed.
 
-zamba2's decode carries one shared ``KVCache`` through the layers, as the
-reference does: every invocation of the shared block appends a position to
-it, so a token spends ``ceil(n_layers / attn_every)`` positions of it and
-each invocation attends over the keys of every invocation.  That is the
-reference's behaviour (a fault of the reference, ROADMAP.md Queue 3), and
-the port keeps it: its decode does not agree with its prefill.
+Whisper: :func:`encoder_forward` adds the sinusoidal table to the frames
+(the stubbed post-conv embeddings) and runs non-causal self-attention
+without RoPE; its output is the source of every decoder layer's
+cross-attention, which follows the layer's own block (inside the same
+checkpoint under remat).  The decoder adds the sinusoidal table to its
+scaled embeddings (``use_rope=False``).  Pixtral: ``img_embeds`` (B, N, D),
+cast to the compute dtype and unscaled, go before the scaled token stream,
+and the RoPE positions run over image plus text.
+
+Two behaviours of the reference are kept, faults of the reference
+(ROADMAP.md Queue 3), so the port's decode does not agree with its prefill
+for these models:
+
+* zamba2's decode carries one shared ``KVCache`` through the layers: every
+  invocation of the shared block appends a position to it, so a token
+  spends ``ceil(n_layers / attn_every)`` positions of it and each
+  invocation attends over the keys of every invocation.
+* Whisper's decode adds no position to the token it embeds (the prefill
+  adds the sinusoidal table), and recomputes every layer's cross K / V from
+  the encoder's output at every step.
 """
 
 from __future__ import annotations
@@ -39,9 +53,16 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .config import ModelConfig
-from .layers import apply_norm, embed, init_embedding, init_mlp, init_norm, mlp, unembed
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 11.6)"
+from .layers import (
+    apply_norm,
+    embed,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    mlp,
+    sinusoidal_positions,
+    unembed,
+)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -50,15 +71,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.n_img_tokens or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: is_encdec={cfg.is_encdec}, n_img_tokens={cfg.n_img_tokens}, "
-            f"use_rope={cfg.use_rope} {_NOT_PORTED}; the port runs decoder-only models "
-            "with RoPE and no image prefix"
-        )
 
 
 def _has_shared_attn(cfg: ModelConfig) -> bool:
@@ -283,7 +295,6 @@ def _layer(seg_params: dict, i: int) -> dict:
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Parameters in ``cfg.param_dtype``, drawn on the generator's device
     (truncated normals, as the reference) and placed on ``device``."""
-    _require_ported(cfg)
     device = resolve_device(device)
     dt = _pdtype(cfg)
     p: Dict[str, Any] = {
@@ -299,32 +310,104 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
             "attn": attn_mod.init_gqa(gen, cfg, dt),
             "mlp": init_mlp(gen, d, cfg.d_ff, dt, cfg.mlp_variant),
         }
+    if cfg.is_encdec:
+        p["encoder"] = {"layers": _stack_layers(gen, "dense", cfg.n_enc_layers, cfg),
+                        "final_norm": init_norm(cfg.d_model, dt, gen.device)}
+        p["cross"] = _stack([{"ln": init_norm(cfg.d_model, dt, gen.device),
+                              "attn": attn_mod.init_gqa(gen, cfg, dt)}
+                             for _ in range(cfg.n_layers)])
     return tree_map(lambda a: a.to(device), p)
 
 
-def backbone_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                     positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all segments.  x: (B, S, D) embedded input.  -> (hidden, aux).
+def _block_forward(params: dict, cross: Optional[dict], kind: str, cfg: ModelConfig,
+                   x: torch.Tensor, positions: torch.Tensor, shared: Optional[dict],
+                   layer_idx: int,
+                   cross_kv: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer, then its cross-attention layer when ``cross`` is given (an
+    encoder-decoder's ``dense`` / ``moe`` layer) -> (x, aux_loss)."""
+    x, aux = _layer_forward(params, kind, cfg, x, positions, shared, layer_idx)
+    if cross is not None:
+        x = _cross_one(cross, cfg, x, cross_kv)
+    return x, aux
 
-    Under ``cfg.remat`` with grad enabled each layer runs under a
-    non-reentrant ``torch.utils.checkpoint`` (the reference's
-    ``jax.checkpoint(body)``): only its input is kept, and its forward runs
-    again in the backward pass.  With grad off (prefill, decode) it runs
-    once."""
+
+def backbone_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, cross_kv: Optional[torch.Tensor] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all segments.  x: (B, S, D) embedded input; ``cross_kv`` (B,
+    S_enc, D) the encoder's output of an encoder-decoder.  -> (hidden, aux).
+
+    Under ``cfg.remat`` with grad enabled each layer, its cross-attention
+    layer included, runs under a non-reentrant ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint(body)``): only its input is kept, and
+    its forward runs again in the backward pass.  With grad off (prefill,
+    decode) it runs once."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = _zero(x)
-    shared = params.get("shared_attn")
+    shared, cross = params.get("shared_attn"), params.get("cross")
     for si, seg in enumerate(segments_of(cfg)):
         for i in range(seg.n):
-            args = (_layer(params["segments"][si], i), seg.kind, cfg, x, positions, shared,
-                    seg.start + i)
+            idx = seg.start + i
+            layer_cross = (_layer(cross, idx) if cross is not None and seg.kind in ("dense", "moe")
+                           else None)
+            args = (_layer(params["segments"][si], i), layer_cross, seg.kind, cfg, x, positions,
+                    shared, idx, cross_kv)
             if remat:
-                x, aux = checkpoint(_layer_forward, *args, use_reentrant=False)
+                x, aux = checkpoint(_block_forward, *args, use_reentrant=False)
             else:
-                x, aux = _layer_forward(*args)
+                x, aux = _block_forward(*args)
             aux_total = aux_total + aux
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return x, aux_total
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+
+def _cross_one(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+               cross_kv: torch.Tensor) -> torch.Tensor:
+    """One cross-attention layer: x (B, S, D) against the encoder's output,
+    non-causal, no RoPE (S = 1 in decode)."""
+    h = apply_norm(layer["ln"], x, cfg.norm_type, cfg.norm_eps)
+    return x + attn_mod.gqa_forward(layer["attn"], cfg, h, None, causal=False, rope=False,
+                                    kv=(cross_kv, None))
+
+
+def _encoder_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(layer["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    x = x + attn_mod.gqa_forward(layer["attn"], cfg, h, None, causal=False, rope=False)
+    h = apply_norm(layer["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    return x + mlp(layer["mlp"], h, cfg.act)
+
+
+def encoder_forward(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, S_enc, D), the stubbed post-conv embeddings -> the encoder's
+    output (B, S_enc, D) in the compute dtype, the source of the decoder's
+    cross-attention; the parameters are cast to the compute dtype here, as
+    the reference does."""
+    return encoder_forward_precast(cast_params(params, cfg), cfg, frames)
+
+
+def encoder_forward_precast(params: dict, cfg: ModelConfig,
+                            frames: torch.Tensor) -> torch.Tensor:
+    """:func:`encoder_forward` on parameters already cast by :func:`cast_params`:
+    the frames plus the sinusoidal table, ``n_enc_layers`` dense layers of
+    non-causal self-attention without RoPE (each under a checkpoint when
+    ``cfg.remat`` and grad is enabled), the final norm."""
+    frames = frames.to(_dtype(cfg))
+    s, d = frames.shape[1:]
+    x = frames + sinusoidal_positions(s, d, frames.device).to(frames.dtype)[None]
+    enc = params["encoder"]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_enc_layers):
+        args = (_layer(enc["layers"], i), cfg, x)
+        if remat:
+            x = checkpoint(_encoder_layer, *args, use_reentrant=False)
+        else:
+            x = _encoder_layer(*args)
+    return apply_norm(enc["final_norm"], x, cfg.norm_type, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +433,11 @@ def _embed_scaled(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             img_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token stream (B, S) -> final hidden states (B, S, D), aux loss; the
-    parameters are cast to the compute dtype here, as the reference does."""
+    """Token stream (B, S) -> final hidden states (B, N + S, D), aux loss;
+    ``img_embeds`` (B, N, D) go before the tokens, and an encoder-decoder
+    config needs ``frames`` (B, S_enc, D), which :func:`encoder_forward`
+    turns into the cross-attention source.  The parameters are cast to the
+    compute dtype here, as the reference does."""
     return forward_precast(cast_params(params, cfg), cfg, tokens, img_embeds, frames)
 
 
@@ -359,13 +445,21 @@ def forward_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     img_embeds: Optional[torch.Tensor] = None,
                     frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward` on parameters already cast by :func:`cast_params`."""
-    if img_embeds is not None or frames is not None:
-        raise NotImplementedError(f"image embeddings and encoder frames {_NOT_PORTED}")
-    _require_ported(cfg)
+    dt = _dtype(cfg)
     x = _embed_scaled(params, cfg, tokens)
+    if img_embeds is not None:  # unscaled, before the text
+        x = torch.cat([img_embeds.to(dt), x], dim=1)
     b, s, _ = x.shape
+    if not cfg.use_rope:  # absolute sinusoidal positions (whisper's decoder)
+        x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(dt)[None]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    return backbone_forward(params, cfg, x, positions)
+    cross_kv = None
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs frames (B, S_enc, "
+                             f"{cfg.d_model}), the encoder's input")
+        cross_kv = encoder_forward_precast(params, cfg, frames)
+    return backbone_forward(params, cfg, x, positions, cross_kv)
 
 
 def logits_for(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -381,11 +475,13 @@ def logits_for(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
 
 class DecodeState(NamedTuple):
     """Per-layer caches grouped by segment (stacked along the layer axis),
-    and zamba2's shared-block KV cache (None without a shared block).  The
-    reference's encoder memory (``cross_kv``) is not ported."""
+    zamba2's shared-block KV cache (None without a shared block) and an
+    encoder-decoder's encoder output (B, S_enc, D), the cross-attention
+    source (None otherwise)."""
 
     segments: Tuple[Any, ...]
     shared_attn: Any = None
+    cross_kv: Optional[torch.Tensor] = None
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -393,10 +489,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """Empty caches for ``batch`` sequences.  ``max_len`` is the positions
     of each attention cache; zamba2's shared cache spends
     :func:`shared_invocations` positions a token, so it holds ``max_len //
-    shared_invocations(cfg)`` tokens."""
-    if cross_kv is not None:
-        raise NotImplementedError(f"encoder memory {_NOT_PORTED}")
-    _require_ported(cfg)
+    shared_invocations(cfg)`` tokens.  An encoder-decoder decodes against
+    ``cross_kv``, the encoder's output (:func:`encoder_forward`)."""
     device = resolve_device(device)
     dt = _dtype(cfg)
     seg_caches = []
@@ -405,7 +499,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         seg_caches.append(type(one)(*(torch.stack([a] * seg.n) for a in one)))
     shared = (attn_mod.init_kv_cache(cfg, batch, max_len, dt, device)
               if _has_shared_attn(cfg) else None)
-    return DecodeState(segments=tuple(seg_caches), shared_attn=shared)
+    return DecodeState(segments=tuple(seg_caches), shared_attn=shared, cross_kv=cross_kv)
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -451,10 +545,17 @@ def _cache_room(cfg: ModelConfig, state: DecodeState) -> None:
 
 def decode_step_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                         state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
-    """:func:`decode_step` on parameters already cast by :func:`cast_params`."""
+    """:func:`decode_step` on parameters already cast by :func:`cast_params`.
+    An encoder-decoder's dense layers each attend to ``state.cross_kv``
+    after their own block, the cross K / V projected anew every step, and
+    its token gets no position, as the reference's decode does."""
+    if cfg.is_encdec and state.cross_kv is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: build its decode state with "
+                         "init_decode_state(..., cross_kv=encoder_forward(params, cfg, frames))")
     _cache_room(cfg, state)
     x = _embed_scaled(params, cfg, tokens)
     shared, shared_cache = params.get("shared_attn"), state.shared_attn
+    cross = params.get("cross")
     new_seg_caches = []
     for si, seg in enumerate(segments_of(cfg)):
         seg_cache = state.segments[si]
@@ -466,7 +567,10 @@ def decode_step_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             for old, new in zip(layer_cache[:-1], new_cache[:-1]):  # all but the length
                 if new is not old:  # a recurrent state: back into its stacked tensor
                     old.copy_(new)
+            if cross is not None and seg.kind in ("dense", "moe"):
+                x = _cross_one(_layer(cross, seg.start + i), cfg, x, state.cross_kv)
         new_seg_caches.append(seg_cache._replace(length=seg_cache.length + 1))
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = logits_for(params, cfg, x)[:, 0]
-    return logits, DecodeState(segments=tuple(new_seg_caches), shared_attn=shared_cache)
+    return logits, DecodeState(segments=tuple(new_seg_caches), shared_attn=shared_cache,
+                               cross_kv=state.cross_kv)

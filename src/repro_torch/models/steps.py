@@ -50,11 +50,20 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig, opt_cfg: opt_mod.Ad
 def loss_fn(params: dict, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
     """-> (NLL + 1e-2 * aux, {"loss", "acc", "aux"}) on ``batch["tokens"]``
-    (B, S + 1): the first S tokens in, the last S the targets."""
+    (B, S + 1): the first S tokens in, the last S the targets.  A VLM config
+    (``n_img_tokens``) needs ``batch["img_embeds"]`` and loses its first
+    ``n_img_tokens`` hidden positions before the loss, as the reference
+    does (which, given no image, fails on a shape mismatch instead: the port
+    raises ``ValueError``); an encoder-decoder needs ``batch["frames"]``."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.n_img_tokens and batch.get("img_embeds") is None:
+        raise ValueError(f"{cfg.name} puts {cfg.n_img_tokens} image positions before the text: "
+                         "loss_fn needs batch['img_embeds'] (B, n_img_tokens, d_model)")
     hidden, aux = lm.forward(params, cfg, inputs, img_embeds=batch.get("img_embeds"),
                              frames=batch.get("frames"))
+    if cfg.n_img_tokens:
+        hidden = hidden[:, cfg.n_img_tokens:]  # the loss on the text stream alone
     nll, acc = chunked_cross_entropy(params, cfg, hidden, targets)
     return nll + 1e-2 * aux, {"loss": nll, "acc": acc, "aux": aux}
 
@@ -142,7 +151,9 @@ def _cast_once(cfg: ModelConfig) -> Callable[[dict], dict]:
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, {"tokens": (B, S)}) -> last-position logits (B, vocab_padded)."""
+    """(params, {"tokens": (B, S)}) -> last-position logits (B, vocab_padded);
+    the batch may also hold ``img_embeds`` (B, N, D) and, for an
+    encoder-decoder, must hold ``frames`` (B, S_enc, D) (:func:`lm.forward`)."""
     cast = _cast_once(cfg)
 
     @torch.no_grad()
@@ -170,7 +181,13 @@ def make_decode_step(cfg: ModelConfig):
 def greedy_generate(params: dict, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
                     max_len: int) -> torch.Tensor:
     """Host-driven greedy decoding: the prompt fed token by token, then
-    ``steps`` argmax tokens (over the unpadded vocabulary), (B, steps)."""
+    ``steps`` argmax tokens (over the unpadded vocabulary), (B, steps).  An
+    encoder-decoder config raises ``ValueError``: the state is built without
+    an encoder output, as the reference's is."""
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: greedy_generate has no frames; "
+                         "decode it with init_decode_state(..., cross_kv=encoder_forward(params, "
+                         "cfg, frames)) and make_decode_step")
     b = prompt.shape[0]
     state = lm.init_decode_state(cfg, b, max_len, device=prompt.device)
     decode = make_decode_step(cfg)

@@ -1,10 +1,13 @@
 """The port's LM (config, layers, attention, lm, steps) against the reference.
 
-For each of the eight ported ``SMOKE`` configs (four dense, moonshot's MoE,
-deepseek-v3's MoE over MLA, the zamba2 hybrid, xlstm;
+For each of the eight decoder-only ``SMOKE`` configs (four dense, moonshot's
+MoE, deepseek-v3's MoE over MLA, the zamba2 hybrid, xlstm;
 ``tests/test_torch_moe.py`` holds the MoE layer itself and its routing
 margins, ``tests/test_torch_mla.py``, ``test_torch_ssm.py`` and
-``test_torch_xlstm.py`` the new blocks) the reference's parameters
+``test_torch_xlstm.py`` the new blocks; the configs, counts and parameter
+trees of all ten, whisper-large-v3's encoder-decoder and pixtral-12b's image
+prefix among them, whose paths are in ``tests/test_torch_encdec.py``) the
+reference's parameters
 (``repro.models.lm.init_params`` from a PRNG key) are carried across with
 ``repro_torch.interop.lm_params_from_numpy`` and the tokens are made with
 numpy from a seed, so both packages compute on the same numbers.  Prefill
@@ -39,7 +42,7 @@ from repro_torch.models.config import count_params
 DENSE = ["minitron-4b", "codeqwen1.5-7b", "gemma-7b", "granite-34b"]
 MOE = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
 ARCHS = DENSE + MOE + ["zamba2-1.2b", "xlstm-350m"]
-NOT_PORTED = ["pixtral-12b", "whisper-large-v3"]
+ALL_ARCHS = ARCHS + ["pixtral-12b", "whisper-large-v3"]
 REL_FP32 = 1e-5
 REL_BF16 = 2e-2
 B, S, DECODE_STEPS = 2, 24, 8
@@ -103,7 +106,7 @@ def case(ref):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_and_counts_match_reference(ref, arch):
     for size in ("full_config", "smoke_config"):
         want = getattr(ref.registry, size)(arch)
@@ -121,17 +124,44 @@ def test_minitron_full_size():
     assert 4.1e9 < n < 4.3e9  # ~4.19 B: 1.57 B of (un)embedding, 32 x 81.8 M
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        port_registry.full_config(arch)
+# tests/test_arch_smoke.py::test_full_param_counts_match_scale's table:
+# billions, relative tolerance (moonshot follows the assigned 48 layers x 64
+# experts, not the HF model's 27 layers)
+FULL_COUNTS = {
+    "codeqwen15_7b": (8.2, 0.1),
+    "granite_34b": (34, 0.1),
+    "gemma_7b": (8.5, 0.1),
+    "deepseek_v3_671b": (671, 0.05),
+    "moonshot_v1_16b_a3b": (28.4, 0.1),
+    "pixtral_12b": (12.3, 0.1),
+    "xlstm_350m": (0.35, 0.25),
+    "whisper_large_v3": (1.6, 0.15),
+    "minitron_4b": (4.2, 0.1),
+    "zamba2_1p2b": (1.2, 0.15),
+}
+
+
+@pytest.mark.parametrize("arch", port_registry.all_arch_ids())
+def test_full_param_counts_match_scale(arch):
+    """Mirror of tests/test_arch_smoke.py::test_full_param_counts_match_scale,
+    one case an architecture: the port's FULL config lands near its
+    nominal count."""
+    nominal, tol = FULL_COUNTS[arch]
+    total = count_params(port_registry.full_config(arch))["total"] / 1e9
+    assert abs(total - nominal) / nominal < tol, (arch, total, nominal)
+
+
+def test_registry_runs_all_ten_ids():
+    assert sorted(port_registry.all_arch_ids()) == sorted(FULL_COUNTS)
+    with pytest.raises(ValueError, match="unknown arch"):
+        port_registry.full_config("llama-9000")
 
 
 FIRST_WEIGHT = {"deepseek-v3-671b": ("attn", "w_dkv"), "zamba2-1.2b": ("mamba", "in_proj"),
                 "xlstm-350m": ("mlstm", "w_up")}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_mirrors_reference_tree(case, arch):
     c = case(arch, "float32")
     mine = port_lm.init_params(torch.Generator().manual_seed(0), c.pcfg, device="cpu")
@@ -354,11 +384,3 @@ def test_token_batch_shape_range_and_head_share():
     again = token_batch(torch.Generator().manual_seed(0), 8, 511, vocab, device="cpu")
     assert torch.equal(t, again)
 
-
-def test_unported_inputs_raise(case):
-    c = case("minitron-4b", "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        port_lm.forward(c.pparams, c.pcfg, c.ptokens, img_embeds=torch.zeros(B, 2, 4))
-    absolute = dataclasses.replace(c.pcfg, use_rope=False)  # whisper's decoder positions
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        port_lm.init_params(torch.Generator(), absolute, device="cpu")

@@ -364,7 +364,9 @@ def test_eval_step_matches_loss_fn(case, arch):
 
 
 # --------------------------------------------------------------------------
-# mirrors of tests/test_arch_smoke.py for the ported archs
+# mirrors of tests/test_arch_smoke.py (whisper's and pixtral's forward and
+# train step, which take frames and image embeddings, are in
+# tests/test_torch_encdec.py)
 # --------------------------------------------------------------------------
 
 
@@ -417,7 +419,7 @@ def test_decode_step(arch):
         tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["pixtral-12b", "whisper-large-v3"])
 def test_param_counts_positive(arch):
     counts = count_params(port_registry.full_config(arch))
     assert counts["total"] > 0

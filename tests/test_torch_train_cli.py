@@ -6,7 +6,9 @@ bit where an uninterrupted run ends: each step's batch depends on (seed,
 step, host) alone and the checkpoint holds the whole TrainState.  A
 TrainState crosses between the packages' checkpoints both ways, with
 ``opt.count`` and ``step`` int32 on both sides.  The sharded launcher's
-flags raise, naming the ROADMAP item that ports them.
+flags raise, naming the ROADMAP item that ports them; whisper-large-v3 and
+pixtral-12b raise ``ValueError`` (their batches need frames or image
+embeddings, which the launcher does not draw).
 """
 
 import shutil
@@ -76,6 +78,16 @@ def test_sharded_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11.7"):
         train.main(["--arch", "minitron-4b", "--smoke", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_encoder_decoder_and_vlm_archs_raise(arch, tmp_path):
+    """The launcher's batches hold tokens alone, as the reference's do: an
+    encoder-decoder needs frames and a VLM image embeddings (the
+    reference's launcher fails on both, with an assert and a broadcast
+    error)."""
+    with pytest.raises(ValueError, match="frames" if "whisper" in arch else "img_embeds"):
+        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
 
 
 def test_runs_on_the_card_by_default(monkeypatch, tmp_path):
