@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times [CHECKOUT]
+    python3 chip_smoke.py --sharded
 
 The second form only times a checkout's flash attention at phase 2's cases
-that do not route to the wgmma kernel, to compare two checkouts on one card.
+that do not route to the wgmma kernel, to compare two checkouts on one card;
+the third builds the kernels and runs Paths G4 and G5 alone (no result line).
 
 Phases, each unguarded (any failure ends the run with a non-zero code and
 no result line):
@@ -184,6 +186,22 @@ no result line):
    minitron-4b --smoke --steps 20 --ckpt-every 10``, the SMOKE head D = 8
    on the mma.sync kernel) as a subprocess, then again: the second run must
    resume from step 20;
+16b. Paths G4 and G5 — sharded training at full width: minitron-4b FULL
+   (24 / 8 heads, d_model 3072, d_ff 9216, vocab 256000) and
+   moonshot-v1-16b-a3b FULL (its dense first layer, then one layer of 64
+   routed top-6 experts and 2 shared), each cut to 2 layers, float32 with
+   cuBLAS TF32 off: 2 steps of ``make_train_step`` (AdamW warmup 1) at 4 x
+   512 positions on one rank of the card first (the baseline: each step's
+   gradient and the last parameters kept on the host), then on a data 2 x
+   model 2 mesh of four gloo ranks sharing the card (``make_host_mesh(2)``,
+   ``rules_for_arch``, ``partition.init_sharded_train_state``, the
+   launcher's data rows); each step's loss and gradient norm, step 1's
+   gradient leaf by leaf and the last parameters held against the baseline
+   block by block (over the weights whose gradients agreed at every step:
+   ADAM_RHO_SCALE), the
+   mma.sync flash kernel counted in every rank, G5's first routing and its
+   drops; each step's host ms, its ms in gloo collectives and each rank's
+   peak memory printed beside the card;
 17. Path E6 — deepseek-v3-671b FULL (MLA: 128 heads, q / k head 128 + 64, v
    head 128, latent 512, q latent 1536) cut to 3 layers, one dense and two
    MoE of 32 of the 256 routed experts (top-8 and the shared expert kept;
@@ -765,6 +783,8 @@ FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 2048, 24, 8, 
                 ("path E10: whisper-large-v3 decode cross", "bfloat16", 4, 1, 1500, 20, 20, 64,
                  False),
                 ("path E11: pixtral-12b", "bfloat16", 4, 2048, 2048, 32, 8, 128, True),
+                ("path G4's rank: minitron-4b on a data 2 x model 2 mesh", "bfloat16", 2, 512,
+                 512, 12, 4, 128, True),
                 ("D=64", "bfloat16", 2, 512, 512, 4, 2, 64, True),
                 ("ragged GQA", "bfloat16", 2, 1000, 1000, 8, 1, 128, True),
                 ("full", "bfloat16", 1, 300, 300, 4, 4, 128, False),
@@ -3662,6 +3682,463 @@ def examples_phase() -> dict:
     return out
 
 
+# -- Paths G4, G5: sharded training on four gloo ranks sharing the card ------
+SHARDED_STEPS = 2  # Paths G4 and G5: AdamW warmup 1, total 2
+# Adam's update of a weight is lr * m^ / (sqrt(v^) + eps), about lr * sign(g)
+# at its first nonzero gradient: where the two runs' gradients straddle zero
+# the weight moves by up to lr either way, however well the gradients agree.
+# The parameters after the last step are therefore held at TOL_CARD_CPU_GRAD
+# of their leaf's largest over the decided weights: those whose gradient, at
+# every step, is 0 in both runs or agrees within rho of the one-rank run's
+# value, rho = TOL_CARD_CPU_GRAD * (the leaf's largest |w|) / (ADAM_RHO_SCALE
+# * the steps' summed rates).  A relative gradient change rho moves the
+# first update by at most lr * rho and the second, a ratio of the two steps'
+# moments, by about 3 lr * rho, so a decided weight that disagrees by more
+# than the tolerance is the optimizer's fault, not the gradients'.  The other
+# weights are counted and their worst difference printed: the step-1
+# gradient check alone holds them.  The largest |g| / leaf max at which the
+# two runs' step-1 signs differ is printed beside it (PERF.md section 6).
+ADAM_RHO_SCALE = 4
+ERR_CHUNK = 1 << 24  # elements of a block compared at a time
+
+
+def _sharded_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(warmup_steps=1, total_steps=SHARDED_STEPS)
+
+
+def _sharded_batches(cfg, seed, batch, seq) -> list:
+    """The global batches of the launcher at ``--seq seq``: (seed, step, 0)."""
+    from repro_torch.data.synthetic import step_generator, token_batch
+
+    return [{"tokens": token_batch(step_generator(seed, s, 0), batch, seq, cfg.vocab,
+                                   device="cpu")} for s in range(SHARDED_STEPS)]
+
+
+@contextlib.contextmanager
+def recorded_keeps():
+    """(kept, total) (token, choice) pairs of every MoE dispatch, in call order."""
+    from repro_torch.models import moe
+
+    keeps, real = [], moe.dispatch_slots
+
+    def recording(cfg, idx):
+        slot, keep = real(cfg, idx)
+        keeps.append(keep)
+        return slot, keep
+
+    moe.dispatch_slots = recording
+    try:
+        yield keeps
+    finally:
+        moe.dispatch_slots = real
+
+
+@contextlib.contextmanager
+def collective_timer():
+    """Host ms spent in ``torch.distributed.all_reduce`` / ``all_gather``
+    while open, each call between two synchronizes (gloo stages a CUDA
+    tensor through the host)."""
+    import torch
+    import torch.distributed as dist
+
+    box = {"ms": 0.0, "calls": 0}
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timing(fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            box["ms"] += (time.perf_counter() - t0) * 1e3
+            box["calls"] += 1
+            return out
+
+        return call
+
+    for n, fn in real.items():
+        setattr(dist, n, timing(fn))
+    try:
+        yield box
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def sharded_baseline(name, cfg, dev, seed, batch, seq, store) -> dict:
+    """The one-rank run of Paths G4 / G5 on the card, before the ranks
+    start: ``cfg`` from ``seed``, SHARDED_STEPS steps of make_train_step on
+    the launcher's global batches; each step's gradient and the parameters
+    after the last step go to ``store`` on the host (``grads_<step>.pt``
+    for every step, ``params.pt``), the card is freed.  -> the losses, the gradient norms,
+    the first routing's ids, the top-k margin of each token and its kept
+    share, the launch counts and the host ms of each step."""
+    import torch
+
+    from repro_torch.models.lm import tree_items
+    from repro_torch.models.steps import init_train_state, make_train_step
+
+    opt = _sharded_opt()
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in _sharded_batches(cfg, seed, batch, seq)]
+    state = init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg, opt,
+                             device=dev)
+    paths = ["/".join(map(str, p)) for p, _ in tree_items(state.params)]
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, host_ms, out = [], [], [], {}
+    for s, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_routing() as routes, recorded_keeps() as keeps:
+            m, grads = step.gradient(state, b)
+        torch.cuda.synchronize()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({p: g.cpu() for p, g in zip(paths, grads) if g is not None},
+                   f"{store}/grads_{s + 1}.pt")
+        if s == 0:
+            if routes:
+                out.update(ids=routes[0].cpu(), kept=float(keeps[0].float().mean()),
+                           margin=routing_margin(state.params, cfg, b["tokens"]))
+        t0 = time.perf_counter()
+        state, m = step.apply(state, m, grads)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        host_ms.append(grad_ms + (time.perf_counter() - t0) * 1e3)
+        del grads
+    counts = read_counts()
+    torch.save({p: t.cpu() for p, t in zip(paths, (t for _, t in tree_items(state.params)))},
+               f"{store}/params.pt")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for _, t in tree_items(state.params))
+    del state, step
+    torch.cuda.empty_cache()
+    print(f"Path {name} one-rank run on the card: losses {losses}, grad norms {gnorms}, host ms "
+          f"a step {[round(v, 2) for v in host_ms]}, peak {peak:.2f} GiB, launches {counts} "
+          f"[{card_line()}]")
+    return dict(out, losses=losses, gnorms=gnorms, counts=counts, host_ms=host_ms,
+                peak_gib=peak, n_params=n_params)
+
+
+def routing_margin(params, cfg, tokens):
+    """The gap between each token's k-th and (k+1)-th selection logit in the
+    first MoE layer's routing of ``tokens`` (a forward without a gradient,
+    whose first routing is recorded), on the host."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    gaps, real = [], moe._routing
+
+    def measuring(p, c, x2d):
+        logits = x2d.float() @ p["router"].float()
+        select = logits + p["router_bias"] if c.router_aux_free_bias else logits
+        top = torch.topk(select, c.top_k + 1, dim=-1).values
+        gaps.append((top[:, c.top_k - 1] - top[:, c.top_k]).cpu())
+        return real(p, c, x2d)
+
+    moe._routing = measuring
+    try:
+        with torch.no_grad():
+            lm.forward(params, cfg, tokens[:, :-1])
+    finally:
+        moe._routing = real
+    return gaps[0]
+
+
+def _flat_pieces(*ts):
+    """Flat ERR_CHUNK-element pieces of same-sized tensors, side by side."""
+    return zip(*(t.reshape(-1).split(ERR_CHUNK) for t in ts))
+
+
+def _reduced(mesh, specs, paths, rows, dev, summed=()):
+    """Per-leaf rows reduced over the ranks by max, the ``summed`` columns
+    by sum over distinct blocks (a replicated block counts once, not once
+    a copy) -> {path: row}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.blocks import spec_axes
+
+    stats = torch.tensor(rows, dtype=torch.float64, device=dev)
+    sums = stats[:, list(summed)].clone()
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    dist.all_reduce(sums)
+    copies = [math.prod(mesh.axis_sizes) // math.prod(mesh.size(a) for a in spec_axes(s))
+              for s in specs]
+    stats[:, list(summed)] = sums / torch.tensor(copies, dtype=torch.float64,
+                                                 device=dev)[:, None]
+    return {p: tuple(float(v) for v in row) for p, row in zip(paths, stats.cpu())}
+
+
+def _grad_errors(mesh, specs, paths, grads, store_file, dev, rho, agree):
+    """Per leaf, over the mesh: (max |grad - baseline|, max |baseline|, max
+    |baseline| where the two differ in sign) of this rank's gradient blocks
+    against the one-rank run's (``store_file``, mapped, each rank reading
+    its blocks, ERR_CHUNK elements at a time); ``agree[p]`` (this rank's
+    flat block, on the host) keeps the weights whose gradient is within
+    ``rho[p]`` of the baseline's, relatively (both 0 included)."""
+    import torch
+
+    from repro_torch.dist.blocks import shard_leaf
+
+    base = torch.load(store_file, mmap=True, weights_only=True)
+    rows = []
+    for p, local, spec in zip(paths, grads, specs):
+        row = [0.0, 0.0, 0.0]
+        rows.append(row)
+        if local is None and p not in base:  # no gradient on either side
+            continue
+        local = torch.zeros(agree[p].shape, device=dev) if local is None else local
+        want = torch.zeros(local.shape) if p not in base else shard_leaf(base[p], spec, mesh)
+        start = 0
+        for w, v in _flat_pieces(want, local):
+            w = w.to(dev)
+            d = (w - v).abs_()
+            row[0] = max(row[0], float(d.max()))
+            row[1] = max(row[1], float(w.abs().max()))
+            row[2] = max(row[2], float(torch.where(w.sign() != v.sign(), w.abs(), 0).max()))
+            agree[p][start:start + w.numel()] &= (d <= rho[p] * w.abs()).cpu()
+            start += w.numel()
+        del want
+    return _reduced(mesh, specs, paths, rows, dev)
+
+
+def _param_errors(mesh, specs, paths, params, store_file, dev, agree):
+    """Per leaf, over the mesh: (max |param - baseline| over the decided
+    weights (``agree``), max |baseline|, max |param - baseline| over every
+    weight, the count of undecided weights) of this rank's blocks against
+    the one-rank run's parameters (``store_file``)."""
+    import torch
+
+    from repro_torch.dist.blocks import shard_leaf
+
+    base = torch.load(store_file, mmap=True, weights_only=True)
+    rows = []
+    for p, local, spec in zip(paths, params, specs):
+        want = shard_leaf(base[p], spec, mesh)
+        row = [0.0, 0.0, 0.0, float((~agree[p]).sum())]
+        rows.append(row)
+        for w, v, ok in _flat_pieces(want, local, agree[p]):
+            w = w.to(dev)
+            d = (w - v).abs_()
+            row[0] = max(row[0], float(d.masked_fill_(~ok.to(dev), 0.0).max()))
+            row[1] = max(row[1], float(w.abs().max()))
+            row[2] = max(row[2], float((w - v).abs_().max()))
+        del want
+    return _reduced(mesh, specs, paths, rows, dev, summed=(3,))
+
+
+def _sharded_rank(name, cfg, seed, batch, seq, store):
+    """One of Paths G4 / G5's four ranks: a data 2 x model 2 mesh
+    (``make_host_mesh(2)``) under ``rules_for_arch``, the one-rank run's
+    initial state cut to this rank's blocks, its data rows of the same
+    global batches, SHARDED_STEPS steps; each step's gradient and the last
+    parameters held block by block against the baseline in ``store``, the
+    parameters over the weights whose gradients agree (see ADAM_RHO_SCALE)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.compat import rank_device
+    from repro_torch.dist.sharding import activate_rules, rules_for_arch
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import steps as steps_mod
+    from repro_torch.models.lm import tree_items
+    from repro_torch.optim.adamw import schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device()
+    mesh = make_host_mesh(2)
+    rules = rules_for_arch(cfg, mesh)
+    opt = _sharded_opt()
+    with activate_rules(rules, mesh):
+        t0 = time.perf_counter()
+        state = partition.init_sharded_train_state(
+            torch.Generator(device=dev).manual_seed(seed), cfg, opt, mesh, rules, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # the global copy's blocks, for the other ranks
+        paths = ["/".join(map(str, p)) for p, _ in tree_items(state.params)]
+        specs = partition.leaf_specs(mesh, state.params, rules)
+        batches = [partition.data_rows({k: v.to(dev) for k, v in b.items()}, mesh, rules)
+                   for b in _sharded_batches(cfg, seed, batch, seq)]
+        step = steps_mod.make_train_step(cfg, opt)
+        # rho of each leaf (ADAM_RHO_SCALE), from its largest initial |w|
+        lr_sum = sum(float(schedule(opt, torch.tensor(s + 1))) for s in range(SHARDED_STEPS))
+        wmax = torch.stack([t.abs().max().float() for _, t in tree_items(state.params)])
+        dist.all_reduce(wmax, op=dist.ReduceOp.MAX)
+        rho = {p: TOL_CARD_CPU_GRAD * float(w) / (ADAM_RHO_SCALE * lr_sum)
+               for p, w in zip(paths, wmax.cpu())}
+        agree = {p: torch.ones(t.numel(), dtype=torch.bool) for p, (_, t) in
+                 zip(paths, tree_items(state.params))}
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        dist.barrier()
+        losses, gnorms, host_ms, coll_ms, out = [], [], [], [], {"grad_err": []}
+        for s, b in enumerate(batches):
+            with collective_timer() as coll:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with recorded_routing() as routes, recorded_keeps() as keeps:
+                    m, grads = step.gradient(state, b)
+                torch.cuda.synchronize()
+                grad_ms = (time.perf_counter() - t0) * 1e3
+            with collective_timer():  # kept out of the step's figures
+                out["grad_err"].append(_grad_errors(mesh, specs, paths, grads,
+                                                    f"{store}/grads_{s + 1}.pt", dev, rho,
+                                                    agree))
+                if s == 0 and routes:
+                        out["ids"] = partition.gather_leaf(routes[0], ("data",), mesh).cpu()
+                        out["kept"] = float(keeps[0].float().mean())
+            with collective_timer() as coll2:
+                t0 = time.perf_counter()
+                state, m = step.apply(state, m, grads)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                host_ms.append(grad_ms + (time.perf_counter() - t0) * 1e3)
+            coll_ms.append(coll["ms"] + coll2["ms"])
+            del grads
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["param_err"] = _param_errors(mesh, specs, paths,
+                                         [t for _, t in tree_items(state.params)],
+                                         f"{store}/params.pt", dev, agree)
+        local_params = sum(t.numel() for _, t in tree_items(state.params))
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return dict(out, losses=losses, gnorms=gnorms, host_ms=host_ms, coll_ms=coll_ms,
+                counts=counts,
+                peak_gib=peak, init_s=init_s, local_params=local_params,
+                rules={k: v for k, v in rules.items() if v is not None},
+                coords=dict(zip(mesh.axis_names, mesh.coords)))
+
+
+def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
+    """Paths G4 / G5: ``cfg`` trained SHARDED_STEPS steps on one rank of the
+    card, then on a data 2 x model 2 mesh of four gloo ranks sharing it
+    (``spawn_fake_devices(4, ..., device="cuda:0")``: NCCL refuses two ranks
+    on one GPU), both from ``seed`` on the same global batches of batch x seq
+    positions, float32 with cuBLAS TF32 off.  Gates: each step's loss within
+    TOL_CARD_CPU of the one-rank run's, and so each step's gradient norm
+    (the clip's global norm); step 1's gradient, leaf by leaf over every
+    rank's blocks, within TOL_CARD_CPU_GRAD of the leaf's largest; the last
+    parameters within TOL_CARD_CPU_GRAD over the weights whose gradients
+    agreed at every step (ADAM_RHO_SCALE; the rest counted, held by the
+    gradient check); the mma.sync
+    flash kernel launched in every rank, 2 a layer a step (the remat); an
+    MoE config's first routing equal to the one-rank run's on every token
+    decided by more than ROUTING_MARGIN, and some choices dropped."""
+    import shutil
+
+    import torch
+
+    from repro_torch.dist.compat import spawn_fake_devices
+
+    print(f"Path {name}: before the baseline this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({torch.cuda.memory_reserved() / 2**30:.2f}"
+          f" GiB reserved) of the card; {shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.0f} "
+          f"GB free under {tempfile.gettempdir()}")
+    store = tempfile.mkdtemp(prefix=f"sharded_{name}_")
+    try:
+        t0 = time.perf_counter()
+        base = sharded_baseline(name, cfg, dev, seed, batch, seq, store)
+        base_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_fake_devices(4, _sharded_rank, name, cfg, seed, batch, seq, store,
+                                   device=str(dev))
+        ranks_s = time.perf_counter() - t0
+        disk_gb = sum(f.stat().st_size for f in Path(store).iterdir()) / 1e9
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    card = card_line()
+    r0 = ranks[0]
+    rel = lambda e, scale: e / max(scale, 1e-30)
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], base["losses"])]
+    norm_errs = [abs(a - b) / abs(b) for a, b in zip(r0["gnorms"], base["gnorms"])]
+    grad_worst = sorted(((rel(e[0], e[1]), p) for p, e in r0["grad_err"][0].items()),
+                        reverse=True)
+    flip = max((rel(e[2], e[1]), p) for p, e in r0["grad_err"][0].items())
+    later = [max((rel(e[0], e[1]), p) for p, e in g.items()) for g in r0["grad_err"][1:]]
+    param_worst = max((rel(e[0], e[1]), p) for p, e in r0["param_err"].items())
+    param_all = max((rel(e[2], e[1]), p) for p, e in r0["param_err"].items())
+    n_undecided = int(sum(e[3] for e in r0["param_err"].values()))
+    mma = [r["counts"]["flash_attention_mma"] for r in ranks]
+    print(f"Path {name}: {cfg.name}, {cfg.n_layers} layers {cfg.layer_kinds()}, float32, "
+          f"{batch} x {seq} positions, {SHARDED_STEPS} steps; mesh data 2 x model 2 of four gloo "
+          f"ranks on one card, rules {r0['rules']}; {r0['local_params'] / 1e9:.3f} B parameters "
+          f"on rank 0 [{card}]")
+    for i, r in enumerate(ranks):
+        print(f"Path {name} rank {i} {r['coords']}: init {r['init_s']:.2f} s, host ms a step "
+              f"{[round(v, 2) for v in r['host_ms']]} of which in gloo collectives (staged "
+              f"through the host) {[round(v, 2) for v in r['coll_ms']]}, peak memory "
+              f"{r['peak_gib']:.2f} GiB, launches {r['counts']} [{card}]")
+    print(f"Path {name} losses sharded {r0['losses']} vs one rank {base['losses']}: relative "
+          f"{[f'{e:.3e}' for e in loss_errs]}, gradient norms {r0['gnorms']} vs "
+          f"{base['gnorms']}: relative {[f'{e:.3e}' for e in norm_errs]} (tol "
+          f"{TOL_CARD_CPU:.0e}); step-1 gradient over {len(grad_worst)} leaves, worst of its "
+          f"leaf's largest {[(p, f'{e:.3e}') for e, p in grad_worst[:3]]} (tol "
+          f"{TOL_CARD_CPU_GRAD:.0e}), its signs differing up to {flip[0]:.3e} of the leaf's "
+          f"largest ({flip[1]}); later steps' gradients (after the first update) worst "
+          f"{[(p, f'{e:.3e}') for e, p in later]}, not gated")
+    print(f"Path {name} parameters after step {SHARDED_STEPS}: over the weights whose gradient "
+          f"agreed at every step within rho (ADAM_RHO_SCALE {ADAM_RHO_SCALE}) worst "
+          f"({param_worst[1]}, {param_worst[0]:.3e}) of the leaf's largest (tol "
+          f"{TOL_CARD_CPU_GRAD:.0e}); the other {n_undecided} of {base['n_params']} weights "
+          f"({n_undecided / base['n_params']:.4%}) are held by the gradient check alone, worst "
+          f"over every weight ({param_all[1]}, {param_all[0]:.3e})")
+    print(f"Path {name} one-rank host ms a step {[round(v, 2) for v in base['host_ms']]}, peak "
+          f"{base['peak_gib']:.2f} GiB; baseline {base_s:.1f} s, ranks {ranks_s:.1f} s, "
+          f"{disk_gb:.1f} GB of baseline on the host's disk [{card}]")
+    if "ids" in base:
+        ids, want = r0["ids"], base["ids"]
+        differ = (ids.sort(dim=-1).values != want.sort(dim=-1).values).any(dim=-1)
+        decided = base["margin"] > ROUTING_MARGIN
+        print(f"Path {name} first routing: {int(differ.sum())} of {ids.shape[0]} tokens with "
+              f"other expert ids than the one-rank run's ({int((differ & decided).sum())} of "
+              f"the {int(decided.sum())} decided by more than {ROUTING_MARGIN:.0e}); kept share "
+              f"sharded {r0['kept']:.4f}, one rank {base['kept']:.4f}")
+        if bool((differ & decided).any()):
+            fail(f"Path {name}: the sharded routing differs on decided tokens")
+        if not base["kept"] < 1.0 or not r0["kept"] < 1.0:
+            fail(f"Path {name}: no choice dropped at this batch; the capacity is not exercised")
+    if not all(e <= TOL_CARD_CPU for e in loss_errs):
+        fail(f"Path {name}: a sharded loss disagrees with the one-rank run's: {loss_errs}")
+    if not all(e <= TOL_CARD_CPU for e in norm_errs):
+        fail(f"Path {name}: a sharded gradient norm disagrees with the one-rank run's: "
+             f"{norm_errs}")
+    if not grad_worst[0][0] <= TOL_CARD_CPU_GRAD:
+        fail(f"Path {name}: gradient {grad_worst[0][1]} disagrees: {grad_worst[0][0]}")
+    if not param_worst[0] <= TOL_CARD_CPU_GRAD:
+        fail(f"Path {name}: parameters disagree over the decided weights: {param_worst}")
+    want_counts = dict.fromkeys(r0["counts"], 0)
+    want_counts.update(flash_attention_mma=2 * cfg.n_layers * SHARDED_STEPS)
+    if any(r["counts"] != want_counts for r in ranks):
+        fail(f"Path {name} launch counts by rank {[r['counts'] for r in ranks]}; expected "
+             f"{want_counts} in every rank")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+    print(f"Path {name}: flash_attention_mma launched {mma} times by rank")
+    return dict(counts=counts, loss_errs=loss_errs, norm_errs=norm_errs,
+                grad_worst=grad_worst[0], sign_flip=flip, later_grads=later,
+                param_worst=param_worst, undecided=n_undecided, ranks_s=ranks_s,
+                base_s=base_s, host_ms=[r["host_ms"] for r in ranks],
+                coll_ms=[r["coll_ms"] for r in ranks], peak_gib=[r["peak_gib"] for r in ranks])
+
+
+def sharded_paths(dev) -> tuple:
+    """Paths G4 (minitron-4b) and G5 (moonshot-v1-16b-a3b: its dense first
+    layer and one MoE layer), each at full width cut to 2 layers."""
+    t0 = time.perf_counter()
+    g4 = path_sharded("G4", lm_config("minitron-4b", n_layers=2, dtype="float32"), dev, 16)
+    g5 = path_sharded("G5", lm_config("moonshot-v1-16b-a3b", n_layers=2, dtype="float32"), dev,
+                      17)
+    print(f"Paths G4-G5 took {time.perf_counter() - t0:.1f} s")
+    return g4, g5
+
+
 KERNEL_SOURCES = {
     "spectral_pointwise": ("triton", "src/repro_torch/kernels/spectral_pointwise/kernel.py",
                            "src/repro/kernels/spectral_pointwise/kernel.py:50"),
@@ -3732,6 +4209,9 @@ def main() -> int:
     for lib in libs.values():
         print(Path(f"{lib}.log").read_text().strip())
 
+    if sys.argv[1:2] == ["--sharded"]:
+        sharded_paths(dev)
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     launch_floors(dev)
     checks = check_kernels(dev, gen)
@@ -3781,6 +4261,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cli_phase()
     print(f"Paths G3, G1, G2, E5 and the train CLI took {time.perf_counter() - t_train:.1f} s")
+    g4, g5 = sharded_paths(dev)
     t_lm = time.perf_counter()
     e6 = path_e6(dev, 10)
     torch.cuda.empty_cache()
@@ -3807,7 +4288,7 @@ def main() -> int:
                "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"], "G1": g1["counts"],
                "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
                "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"], "E10": e10["counts"],
-               "E11": e11["counts"]}
+               "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

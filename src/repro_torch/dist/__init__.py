@@ -24,15 +24,27 @@ on the CPU and for ranks that share one card).  Module map:
                ``repro_torch.ops.plan.plan(op, mesh)`` lowers an operator
                onto these steps and the ``repro_torch.core.solvers``
                drivers run them.
+    sharding   the LM's named-axis rules (``DEFAULT_RULES``,
+               ``rules_for_arch``, ``activate_rules``) and the tensor-
+               parallel collectives they put into the models over the
+               mesh's ``model`` axis (``constrain``: an all-reduce of a
+               row-parallel partial sum; ``grad_reduce_boundary``: an
+               all-reduce of a block input's cotangent), with the data
+               axis's ``fsdp_gather``.
+    blocks     each LM parameter's partition spec (the reference's
+               ``PARAM_RULES``), each rank's blocks of a tree
+               (``shard_tree`` / ``gather_tree``) and ``ShardedLayout``,
+               the checkpoints' ``plan`` of a sharded TrainState;
+               ``repro_torch.launch.partition`` adds the batch, cache and
+               TrainState specs.
 
 The iteration block the tuner walks and times is
 ``repro_torch.ops.plan.ExecutionPlan.cpadmm_block``.  The deprecated
 ``recovery.make_dist_cpadmm`` shim is reachable by its full path only, not
-from this package; the reference's ``sharding`` module belongs to the LM
-substrate (ROADMAP Queue 1 item 11).
+from this package.
 """
 
-_LAZY_MODULES = ("compat", "fft", "recovery")
+_LAZY_MODULES = ("blocks", "compat", "fft", "recovery", "sharding")
 
 # package-level symbols, imported on first use (importing the package loads
 # neither torch.distributed's process groups nor any kernel)
@@ -54,6 +66,12 @@ _LAZY_SYMBOLS = {
     "dist_cpadmm_step": "recovery",
     "dist_cpadmm_step_fused": "recovery",
     "make_dist_spectrum": "recovery",
+    "DEFAULT_RULES": "sharding",
+    "rules_for_arch": "sharding",
+    "activate_rules": "sharding",
+    "current_rules": "sharding",
+    "constrain": "sharding",
+    "grad_reduce_boundary": "sharding",
 }
 
 __all__ = sorted(_LAZY_MODULES) + sorted(_LAZY_SYMBOLS)

@@ -132,12 +132,7 @@ def init_distributed(device=None) -> torch.device:
         return _RANK_DEVICE
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     cpu = device is not None and torch.device(device).type == "cpu"
-    if cpu:
-        dev = torch.device("cpu")
-    elif launched:  # raises without CUDA, as any CUDA device does
-        dev = resolve_device(torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
-    else:
-        dev = resolve_device(device)
+    dev = _joining_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     backend = "gloo" if cpu else "nccl"
@@ -149,24 +144,49 @@ def init_distributed(device=None) -> torch.device:
     return dev
 
 
+def _joining_device(device) -> torch.device:
+    """The device :func:`init_distributed` would give this process: the CPU
+    when asked for, ``cuda:LOCAL_RANK`` under ``torchrun``, else
+    ``resolve_device(device)``; raises without CUDA unless ``device="cpu"``."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return resolve_device(torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
+    return resolve_device(device)
+
+
+def world_size() -> int:
+    """The ranks of this process's world: the joined group's size, else
+    ``WORLD_SIZE`` under ``torchrun``, else 1 (a world of one); joins nothing."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1)) if "RANK" in os.environ else 1
+
+
 def make_mesh(shape, names, device=None, pairs=()) -> Mesh:
     """A mesh of ``shape`` with axis ``names`` over the default group,
     joining it first (:func:`init_distributed`) when this process has not.
     ``pairs``: (host, device) axis pairs that also get a joint group.
 
-    Raises ``ValueError`` when the world size is not ``prod(shape)``.
+    Raises ``ValueError`` when the world size is not ``prod(shape)``,
+    before joining any group (and after the device check of
+    :func:`init_distributed`, which raises without CUDA unless
+    ``device="cpu"``).
     """
     shape, names = tuple(int(s) for s in shape), tuple(names)
     if len(shape) != len(names) or any(s < 1 for s in shape):
         raise ValueError(f"mesh shape {shape} does not match axis names {names}")
-    dev = init_distributed(device)
-    world, rank = dist.get_world_size(), dist.get_rank()
+    if not dist.is_initialized():
+        _joining_device(device)
+    world = world_size()
     if world != math.prod(shape):
         raise ValueError(
             f"mesh {'x'.join(map(str, shape))} needs {math.prod(shape)} ranks, but the "
             f"world has {world}: start that many ranks (torchrun --nproc-per-node, or "
             f"--fake-devices) or pick a mesh of {world}"
         )
+    dev = init_distributed(device)
+    rank = dist.get_rank()
     pairs = tuple(tuple(p) for p in pairs)
     key = (shape, names, pairs)
     if key not in _MESHES:

@@ -32,6 +32,16 @@ static (by ``requires_grad``), never taken on a failure.  So:
 * under layer remat (``cfg.remat``) the forward kernel launches twice a
   layer a training step: once in the forward, once in the recompute.
 
+Under active sharding rules (:mod:`repro_torch.dist.sharding`)
+:func:`gqa_forward` runs this rank's heads: its blocks of ``wq`` / ``wo``
+(column- and row-parallel) and of ``wk`` / ``wv`` when ``kv_heads`` is
+split too, the output's partial sum reduced over the model axis.  When the
+rules split the query heads and replicate the kv heads (granite-34b's one
+kv head at any TP, minitron-4b's 8 at TP 3), a rank whose heads straddle
+two groups hands the kernel the kv head of each of its query heads (G = 1).
+:func:`gqa_decode` raises on a mesh of more than one rank (ROADMAP.md
+Queue 1 item 11.7c).
+
 MLA has no kernel in the reference either: its prefill is the plain
 ``_attend_chunked`` with a q / k head of ``nope + rope`` and a v head of
 ``v_head_dim`` (192 and 128 at deepseek-v3's width), which the flash
@@ -49,6 +59,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist import sharding
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, init_norm, rmsnorm
@@ -185,6 +196,30 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=None
     )
 
 
+def _local_heads(params: dict, cfg: ModelConfig) -> Tuple[int, int, Optional[torch.Tensor]]:
+    """(query heads, kv heads) of this rank's blocks of ``wq`` / ``wk``
+    under the active rules, and the kv head each local query head reads
+    when the rank's heads need a gather (else ``None``).
+
+    Heads sharded over the model axis with the kv heads replicated (MQA,
+    or KH not divisible by the ranks: granite-34b at any TP, minitron-4b at
+    TP 3) give a rank query heads whose groups the uniform G = H / KH of
+    the flash kernels does not describe when KH > 1 (a rank's heads can
+    straddle two groups): the rank then takes, for each of its query heads,
+    the kv head of its group, G = 1."""
+    hd = cfg.resolved_head_dim
+    h, h0 = sharding.local_block(cfg.n_heads, "heads", "attn/wq")
+    kh, _ = sharding.local_block(cfg.n_kv_heads, "kv_heads", "attn/wk")
+    if params["wq"].shape[-1] != h * hd or params["wk"].shape[-1] != kh * hd:
+        raise ValueError(f"{cfg.name}: attention blocks of width {params['wq'].shape[-1]} / "
+                         f"{params['wk'].shape[-1]}, but the active rules give this rank "
+                         f"{h} / {kh} heads of {hd}")
+    if h == cfg.n_heads or kh != cfg.n_kv_heads or kh == 1:
+        return h, kh, None
+    g = cfg.n_heads // cfg.n_kv_heads
+    return h, kh, torch.div(h0 + torch.arange(h), g, rounding_mode="floor")
+
+
 def gqa_forward(
     params: dict,
     cfg: ModelConfig,
@@ -195,20 +230,35 @@ def gqa_forward(
     rope: bool = True,
     kv: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,  # cross-attention source
 ) -> torch.Tensor:
+    """Attention over this rank's heads: all of them without rules; under
+    rules that shard ``heads``, the rank's block of ``wq`` / ``wo`` (and of
+    ``wk`` / ``wv`` when ``kv_heads`` is sharded too; replicated, their
+    gradients are summed over the model axis), the output's partial sum
+    reduced over the model axis."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, hd)
+    h, kh, kv_of = _local_heads(params, cfg)
+    tp = h != cfg.n_heads
+    wk, wv = params["wk"], params["wv"]
+    if tp:
+        x = sharding.grad_reduce_boundary(x)
+        if kh == cfg.n_kv_heads:  # replicated inside the block: partial gradients
+            wk, wv = sharding.grad_reduce_boundary(wk), sharding.grad_reduce_boundary(wv)
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
     if kv is None:
-        k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-        v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        k = (x @ wk).reshape(b, s, kh, hd)
+        v = (x @ wv).reshape(b, s, kh, hd)
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
     else:
-        src = kv[0]
+        src = sharding.grad_reduce_boundary(kv[0]) if tp else kv[0]
         sk = src.shape[1]
-        k = (src @ params["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
-        v = (src @ params["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+        k = (src @ wk).reshape(b, sk, kh, hd)
+        v = (src @ wv).reshape(b, sk, kh, hd)
+    if kv_of is not None:  # G = 1: each local query head's own kv head
+        kv_of = kv_of.to(k.device)
+        k, v = k.index_select(2, kv_of), v.index_select(2, kv_of)
     if cfg.sliding_window:
         out = _attend_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                               sliding_window=cfg.sliding_window)
@@ -216,7 +266,8 @@ def gqa_forward(
         out = FlashAttentionFn.apply(q, k, v, cfg.attn_chunk, causal)
     else:
         out = flash_attention(q, k, v, causal=causal)
-    return out.reshape(b, s, cfg.n_heads * hd) @ params["wo"]
+    y = out.reshape(b, s, h * hd) @ params["wo"]
+    return sharding.constrain(y) if tp else y
 
 
 def gqa_decode(
@@ -234,6 +285,9 @@ def gqa_decode(
     b, s, d = x.shape
     if s != 1:
         raise ValueError(f"gqa_decode takes one position per sequence; got {s}")
+    if sharding.is_sharded_run():
+        raise NotImplementedError(f"{cfg.name}: decode on a mesh of more than one rank is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 11.7c)")
     hd = cfg.resolved_head_dim
     pos = cache.length[:, None]  # (B, 1)
     q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, hd)

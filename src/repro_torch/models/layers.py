@@ -1,9 +1,14 @@
 """Foundational layers: norms, RoPE, embeddings, MLPs, initializers.
 
 Port of ``repro/models/layers.py``.  Functional style, as the reference:
-``init_*`` builds a dict of tensors, the apply functions are pure.  The
-reference's ``constrain(...)`` sharding hints are identities without an
-active mesh; this slice runs on one card and drops them.  Initializers draw
+``init_*`` builds a dict of tensors, the apply functions are pure.  Under
+active sharding rules (:mod:`repro_torch.dist.sharding`) the parameters are
+this rank's blocks: :func:`mlp` is column-parallel on ``w_gate`` /
+``w_up`` and row-parallel on ``w_down``, its output summed over the model
+axis; :func:`embed` looks up the rank's vocabulary rows and sums the
+lookups over the model axis; :func:`unembed` gives the rank's block of
+the logits.  Without rules, or on one model rank, they are the reference's
+functions on whole tensors.  Initializers draw
 from an explicit ``torch.Generator`` on the generator's device, so the port
 gives other numbers than the reference from the same seed: parity tests
 carry the reference's parameters across (``repro_torch.interop``).
@@ -13,6 +18,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import sharding
 
 # --------------------------------------------------------------------------
 # init helpers
@@ -117,13 +124,20 @@ def _activation(act: str):
 
 
 def mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The MLP; under rules that shard ``mlp``, this rank's block of d_ff,
+    its partial sum reduced over the model axis (the reference's bf16 TP
+    reduce after ``w_down``)."""
     actfn = _activation(act)
+    tp = sharding.split("mlp")[0] > 1
+    if tp:
+        x = sharding.grad_reduce_boundary(x)
     up = x @ params["w_up"]
     if "w_gate" in params:  # GLU family
         h = actfn(x @ params["w_gate"]) * up
     else:  # plain 2-matrix MLP (granite / minitron / whisper)
         h = actfn(up)
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return sharding.constrain(out) if tp else out
 
 
 # --------------------------------------------------------------------------
@@ -139,10 +153,24 @@ def init_embedding(gen: torch.Generator, vocab_padded: int, d: int, dtype, tie: 
 
 
 def embed(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["table"][tokens].to(dtype)
+    """Rows of ``table`` for ``tokens``; under rules that shard ``vocab``,
+    the ids outside this rank's rows look up zeros and the lookups are
+    summed over the model axis (each id has one owner)."""
+    table = params["table"]
+    n, _ = sharding.split("vocab")
+    if n == 1:
+        return table[tokens].to(dtype)
+    rows, v0 = sharding.local_block(table.shape[0] * n, "vocab", "embed/table")
+    local = tokens - v0
+    mine = (local >= 0) & (local < rows)
+    x = table[torch.where(mine, local, 0)] * mine[..., None].to(table.dtype)
+    return sharding.constrain(x.to(dtype))
 
 
 def unembed(params: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
+    """The logits (..., V); under rules that shard ``vocab``, this rank's
+    block of them (its rows of ``table``, or columns of ``unembed``)."""
+    x = sharding.grad_reduce_boundary(x) if sharding.split("vocab")[0] > 1 else x
     if tie:
         return x @ params["table"].T
     return x @ params["unembed"]

@@ -27,6 +27,16 @@ scaled embeddings (``use_rope=False``).  Pixtral: ``img_embeds`` (B, N, D),
 cast to the compute dtype and unscaled, go before the scaled token stream,
 and the RoPE positions run over image plus text.
 
+Sharded training (:mod:`repro_torch.dist.sharding`): under active rules
+over a mesh of more than one rank, the dense GQA stacks, the MoE layer and
+pixtral's text stack run on this rank's parameter blocks, with the
+collectives where the reference's ``constrain`` / ``grad_reduce_boundary``
+sit (each tensor-parallel block: :func:`.layers.mlp`,
+:func:`.attention.gqa_forward`, :func:`.moe.expert_ffn`, the embedding and
+the loss head).  MLA (deepseek-v3), Mamba-2 (zamba2), xLSTM and the
+encoder-decoder (whisper) raise ``NotImplementedError`` there (ROADMAP.md
+Queue 1 item 11.7c), as do decoding and prefill logits.
+
 Two behaviours of the reference are kept, faults of the reference
 (ROADMAP.md Queue 3), so the port's decode does not agree with its prefill
 for these models:
@@ -48,6 +58,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..dist import sharding
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -145,6 +156,21 @@ def _ffn(params: dict, kind: str, cfg: ModelConfig,
     if kind == "dense":
         return mlp(params["mlp"], h, cfg.act), _zero(h)
     return moe_mod.moe_ffn(params["moe"], cfg, h, cfg.act)
+
+
+def check_sharded(cfg: ModelConfig, what: str = "training") -> None:
+    """Raise ``NotImplementedError`` for a family the port does not shard
+    yet when rules are active over a mesh of more than one rank."""
+    if not sharding.is_sharded_run():
+        return
+    family = ("MLA" if cfg.attn_type == "mla" else
+              "Mamba-2" if cfg.block_type == "mamba2" else
+              "xLSTM" if cfg.block_type == "xlstm" else
+              "the encoder-decoder" if cfg.is_encdec else None)
+    if family is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} on a mesh of more than one rank is ported for the dense GQA "
+            f"and MoE stacks; {family} is not sharded yet (ROADMAP.md Queue 1 item 11.7c)")
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -445,6 +471,7 @@ def forward_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     img_embeds: Optional[torch.Tensor] = None,
                     frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward` on parameters already cast by :func:`cast_params`."""
+    check_sharded(cfg)
     dt = _dtype(cfg)
     x = _embed_scaled(params, cfg, tokens)
     if img_embeds is not None:  # unscaled, before the text
@@ -463,6 +490,10 @@ def forward_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def logits_for(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    if sharding.is_sharded_run():
+        raise NotImplementedError(f"{cfg.name}: prefill and decode logits on a mesh of more "
+                                  "than one rank are not ported yet (ROADMAP.md Queue 1 item "
+                                  "11.7c); the sharded loss head is losses.chunked_cross_entropy")
     logits = unembed(params["embed"], hidden, cfg.tie_embeddings)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
@@ -549,6 +580,7 @@ def decode_step_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     An encoder-decoder's dense layers each attend to ``state.cross_kv``
     after their own block, the cross K / V projected anew every step, and
     its token gets no position, as the reference's decode does."""
+    check_sharded(cfg, "decode")
     if cfg.is_encdec and state.cross_kv is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: build its decode state with "
                          "init_decode_state(..., cross_kv=encoder_forward(params, cfg, frames))")

@@ -9,6 +9,15 @@ step (:mod:`repro_torch.optim.adamw`) that updates the state's tensors in
 place.  ``microbatches > 1`` splits the batch along dim 0 and accumulates
 float32 gradients divided by the count, as the reference's scan does.
 
+Under active sharding rules over a mesh of more than one rank
+(:mod:`repro_torch.dist.sharding`, the launcher's ``--model-parallel``)
+the state holds this rank's blocks (:mod:`repro_torch.dist.blocks`) and
+the batch its data rows (``launch.partition.data_rows``): the loss is its share of the
+global batch's mean, each gradient leaf not split over ``data`` is summed
+over the data ranks before the update (an FSDP leaf's already is, in its
+gather's backward), the metrics ``loss`` / ``acc`` / ``aux`` likewise, and
+the clip reads the global norm, so every rank steps as the one-rank run.
+
 The serving steps cast the parameters to the compute dtype once and hand
 the cast copy to ``lm.forward_precast`` / ``lm.decode_step_precast``, which
 do not cast again: the reference casts at every call, which on the card
@@ -24,8 +33,10 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..dist import blocks, sharding
 from ..optim import adamw as opt_mod
 from . import lm
 from .config import ModelConfig
@@ -89,9 +100,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig, microbatches
     ``grad_norm``, ``lr``, ``step``.  The step is its two halves, which it
     carries as attributes so that a caller can time each:
     ``train_step.gradient(state, batch) -> (metrics, grads)`` and
-    ``train_step.apply(state, metrics, grads) -> (state, metrics)``."""
+    ``train_step.apply(state, metrics, grads) -> (state, metrics)``.  On a
+    mesh, ``gradient`` includes the sums over the data axis."""
 
-    def gradient(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def local_gradient(state: TrainState, batch: Dict[str, torch.Tensor]):
         if microbatches == 1:
             metrics, grads = grads_of(state.params, cfg, batch)
         else:
@@ -108,18 +120,48 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig, microbatches
             metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
         return metrics, grads
 
+    memo: dict = {}
+
+    def mesh_specs(params):
+        """(mesh, the partition spec of every leaf of ``params``) under the
+        active rules, derived once for each set of rules."""
+        rules, mesh = sharding.current_rules()
+        key = (tuple(mesh.axis_names), tuple(mesh.axis_sizes), tuple(sorted(rules.items())))
+        if key not in memo:
+            memo[key] = blocks.leaf_specs(mesh, params, rules)
+        return mesh, memo[key]
+
+    def gradient_on_mesh(state: TrainState, batch: Dict[str, torch.Tensor]):
+        metrics, grads = local_gradient(state, batch)
+        if not sharding.is_sharded_run():
+            return metrics, grads
+        mesh, specs = mesh_specs(state.params)
+        if mesh.size("data") == 1:
+            return metrics, grads
+        group = mesh.group("data")
+        grads = [g if g is None else g.contiguous() for g in grads]
+        for g, spec in zip(grads, specs):
+            if g is not None and "data" not in blocks.spec_axes(spec):
+                dist.all_reduce(g, group=group)
+        keys = sorted(metrics)
+        vec = torch.stack([metrics[k].float() for k in keys])
+        dist.all_reduce(vec, group=group)
+        return dict(zip(keys, vec.unbind())), grads
+
     def apply(state: TrainState, metrics: dict, grads):
         it = iter(grads)
         grad_tree = lm.tree_map(lambda _: next(it), state.params)
-        params, opt, opt_metrics = opt_mod.update(state.params, grad_tree, state.opt, opt_cfg)
+        mesh, specs = mesh_specs(state.params) if sharding.is_sharded_run() else (None, None)
+        params, opt, opt_metrics = opt_mod.update(state.params, grad_tree, state.opt, opt_cfg,
+                                                  specs, mesh)
         step = state.step + 1
         return TrainState(params=params, opt=opt, step=step), dict(metrics, **opt_metrics,
                                                                     step=step)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        return apply(state, *gradient(state, batch))
+        return apply(state, *gradient_on_mesh(state, batch))
 
-    train_step.gradient, train_step.apply = gradient, apply
+    train_step.gradient, train_step.apply = gradient_on_mesh, apply
     return train_step
 
 

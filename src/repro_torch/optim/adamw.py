@@ -9,11 +9,12 @@ of trees shaped like the parameters.
 Two differences from the reference, both deliberate:
 
 * :func:`update` writes the new parameters and moments into the given
-  tensors in place (``copy_`` under ``torch.no_grad()``; never through
-  ``.data``, which would hide the write from ``_version``, the counter the
-  step functions' cast cache reads) and returns them, where the reference
-  returns new arrays: the state is 16 bytes a parameter, and a second copy
-  would not fit the card at full width;
+  tensors in place (in-place operations under ``torch.no_grad()``, a leaf
+  CHUNK elements at a time, so that its float32 temporaries stay small;
+  never through ``.data``, which would hide the write from ``_version``,
+  the counter the step functions' cast cache reads) and returns them,
+  where the reference returns new arrays: the state is 16 bytes a
+  parameter, and a second copy would not fit the card at full width;
 * a ``None`` gradient counts as zeros, in :func:`global_norm` and in
   :func:`update`: autograd gives no gradient to a leaf the loss does not
   reach (``router_bias``, used only through ``topk``'s indices), where the
@@ -21,6 +22,13 @@ Two differences from the reference, both deliberate:
 
 ``torch.optim.AdamW`` is not used: its schedule, clipping and
 ``moment_dtype`` are not the reference's.
+
+On a mesh (``specs``, the parameters' partition specs, and ``mesh``:
+:mod:`repro_torch.dist.blocks`) every rank holds its blocks of the
+parameters, moments and gradients; the update is elementwise, so it runs on
+the blocks, and the clip reads the exact global norm: each leaf's sum of
+squares summed over the mesh axes it is split on, a replicated leaf
+counted once.
 """
 
 from __future__ import annotations
@@ -87,21 +95,86 @@ def init(params: dict, cfg: AdamWConfig) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32; ``None`` leaves
-    count as zeros."""
-    leaves = [leaf for leaf in _leaves(tree) if leaf is not None]
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves))
+    count as zeros.  With ``specs`` (the partition spec of every leaf of
+    ``tree`` in its insertion order: :func:`repro_torch.dist.blocks.leaf_specs`)
+    and ``mesh``, the leaves are this rank's blocks: each block's sum of
+    squares is summed over the axes its leaf is split on (one small
+    all-reduce an axis), so every rank gets the global tree's norm."""
+    leaves = _leaves(tree)
+    if specs is None or mesh is None:
+        axes = [frozenset()] * len(leaves)
+    else:
+        from ..dist.blocks import spec_axes
+
+        it = iter(specs)  # in the tree's order; _leaves takes sorted keys
+        axes = _leaves(_map(lambda _: frozenset(spec_axes(next(it))), tree))
+    sums: dict = {}  # split axes -> the sum of squares of those leaves' blocks
+    for leaf, split in zip(leaves, axes):
+        if leaf is not None:
+            sq = torch.sum(torch.square(leaf.float()))
+            sums[split] = sq if split not in sums else sums[split] + sq
+    if not any(sums):
+        return torch.sqrt(sum(sums.values()))
+    import torch.distributed as dist
+
+    keys = sorted(sums, key=sorted)
+    vec = torch.stack([sums[k] for k in keys])
+    for axis in sorted(set().union(*keys)):
+        mask = torch.tensor([axis in k for k in keys], device=vec.device)
+        part = torch.where(mask, vec, 0.0)
+        dist.all_reduce(part, group=mesh.group(axis))
+        vec = torch.where(mask, part, vec)
+    return torch.sqrt(vec.sum())
 
 
-def update(params: dict, grads, state: AdamWState,
-           cfg: AdamWConfig) -> Tuple[dict, AdamWState, dict]:
+CHUNK = 1 << 24  # elements of a leaf updated together (64 MB of each float32 temporary)
+
+
+def _chunks(p, g, m, v):
+    """(p, g, m, v) in pieces of at most CHUNK elements, views of the
+    state's tensors (so the update stays in place), or whole when one of
+    them is not contiguous; ``g`` may be ``None``."""
+    n = p.numel()
+    if n <= CHUNK or not all(t.is_contiguous() for t in (p, m, v)):
+        return [(p, g, m, v)]
+    pieces = [t.view(-1).split(CHUNK) for t in (p, m, v)]
+    gs = [None] * len(pieces[0]) if g is None else g.reshape(-1).split(CHUNK)
+    return list(zip(pieces[0], gs, pieces[1], pieces[2]))
+
+
+def _update_chunk(p, g, m, v, scale, lr, c1, c2, cfg: AdamWConfig) -> None:
+    """One clipped AdamW update of a piece of a leaf, in place, in the
+    reference's float32 operations and order; float32 moments and
+    parameters are written through, others through a float32 copy."""
+    g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float() * scale
+    m32, v32, p32 = m.float(), v.float(), p.float()  # themselves when float32
+    m32.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    t = g * g
+    del g
+    v32.mul_(cfg.b2).add_(t.mul_(1 - cfg.b2))
+    torch.div(v32, c2, out=t)
+    step = (m32 / c1).div_(t.sqrt_().add_(cfg.eps))
+    torch.mul(p32, cfg.weight_decay, out=t)
+    step.add_(t)
+    del t
+    p32.sub_(step.mul_(lr))
+    for dst, src in ((p, p32), (m, m32), (v, v32)):
+        if dst is not src:
+            dst.copy_(src)
+
+
+def update(params: dict, grads, state: AdamWState, cfg: AdamWConfig, specs=None,
+           mesh=None) -> Tuple[dict, AdamWState, dict]:
     """-> (params, new_state, metrics): one clipped AdamW step.  ``params``
     and the moments of ``state`` are updated in place and returned; the new
     state's ``count`` is a new tensor.  ``grads`` is shaped like ``params``
-    and may hold ``None`` leaves (zeros)."""
+    and may hold ``None`` leaves (zeros).  ``specs`` (the partition spec of
+    every leaf in the tree's order) and ``mesh``: the leaves are this rank's
+    blocks (:func:`global_norm`)."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs, mesh)
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         count = state.count + 1
         lr = schedule(cfg, count)
@@ -109,14 +182,7 @@ def update(params: dict, grads, state: AdamWState,
         c2 = 1.0 - cfg.b2 ** count.float()
         flat_g: List[Optional[torch.Tensor]] = _leaves(grads)
         for p, g, m, v in zip(_leaves(params), flat_g, _leaves(state.mu), _leaves(state.nu)):
-            g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float() * scale
-            m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
-            v32 = v.float() * cfg.b2 + g * g * (1 - cfg.b2)
-            del g
-            step = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-            step = step + cfg.weight_decay * p.float()
-            p.copy_(p.float() - lr * step)
-            m.copy_(m32)
-            v.copy_(v32)
+            for chunk in _chunks(p, g, m, v):
+                _update_chunk(*chunk, scale, lr, c1, c2, cfg)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(mu=state.mu, nu=state.nu, count=count), metrics

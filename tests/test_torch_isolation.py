@@ -45,7 +45,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.launch.serve, repro_torch.dist.compat, repro_torch.launch.train, "
         "repro_torch.models.moe, repro_torch.models.losses, repro_torch.optim.adamw, "
         "repro_torch.models.ssm, repro_torch.models.xlstm, repro_torch.configs.deepseek_v3_671b, "
-        "repro_torch.configs.zamba2_1p2b, repro_torch.configs.xlstm_350m; "
+        "repro_torch.configs.zamba2_1p2b, repro_torch.configs.xlstm_350m, "
+        "repro_torch.dist.sharding, repro_torch.dist.blocks, repro_torch.launch.mesh, "
+        "repro_torch.launch.partition; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'triton')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1,0 +1,267 @@
+"""Sharded training on gloo ranks against the reference's one-device step.
+
+Each mesh is one ``spawn_fake_devices`` call that runs every case of that
+mesh (``torch_sharded_programs.sharded_train_program``): the ranks hold
+their blocks of the reference's parameters (carried by
+``repro_torch.interop``) under ``rules_for_arch`` of their mesh, train on
+their data rows of the global batch, and rank 0 returns the gathered
+gradients and updated parameters.  Each case is held, in float32, against
+the reference's one-device train step (``repro.models.steps``, jitted) and
+against the port's one-rank step, at 1e-5 norm-relative on the loss, the
+accuracy, the aux loss, the gradient norm, every gradient leaf and every
+updated parameter:
+
+* minitron-4b on data 2 x model 2 at 1 and 2 microbatches (heads and kv
+  heads split, G = 3 on each rank; the vocabulary-parallel embedding and
+  loss head);
+* pixtral-12b's text stack on 2 x 2 with ``img_embeds``;
+* moonshot-v1-16b-a3b on 2 x 2 at a batch whose capacity drops choices
+  (4 experts a model rank, ``d_model`` split over data: the global
+  routing, the experts' partial sums, FSDP);
+* granite-34b on 1 x 2 (the single kv head replicated) and gemma-7b on
+  1 x 2 (tied embeddings, the softcap);
+* minitron-4b on 1 x 3: 2 query heads a rank over a replicated pair of kv
+  heads, rank 1's heads straddling the two groups (gathered to G = 1);
+* the launcher on 2 x 2 and on one rank, each resuming the other's step-4
+  checkpoint for 2 more steps: every run ends where 6 one-rank steps end.
+"""
+
+import dataclasses
+import shutil
+import threading
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.dist.compat import spawn_fake_devices
+from repro_torch.interop import lm_params_from_numpy
+from repro_torch.models import lm as port_lm
+from repro_torch.models import steps as port_steps
+from repro_torch.optim import adamw as port_adamw
+from torch_sharded_programs import (drop_counter, f32_smoke, launcher, path_dict, routing_ids,
+                                    sharded_train_program)
+
+TOL = 1e-5
+S = 24
+# the reference's default AdamWConfig: step 1's rate is 3e-4 / 100 (the warmup)
+OPT = {}
+# arch -> global batch rows (one set of parameters and one batch an arch)
+ROWS = {"minitron-4b": 4, "granite-34b": 2, "gemma-7b": 2, "pixtral-12b": 4,
+        "moonshot-v1-16b-a3b": 8}
+# mesh -> {case: (arch, microbatches)}
+MESHES = {
+    (2, 2): {"minitron-m1": ("minitron-4b", 1), "minitron-m2": ("minitron-4b", 2),
+             "pixtral": ("pixtral-12b", 1), "moonshot": ("moonshot-v1-16b-a3b", 1)},
+    (1, 2): {"granite": ("granite-34b", 1), "gemma": ("gemma-7b", 1)},
+    (1, 3): {"minitron-tp3": ("minitron-4b", 1)},
+}
+# the archs held against the reference's step (its compile dominates this
+# file's time, so each runs once, at 1 microbatch: a dense model's 2
+# microbatches are the same arithmetic, within 1e-5 on either side); the
+# port's one-rank pixtral is held against the reference in test_torch_encdec.py
+REFERENCE = ("minitron-4b", "granite-34b", "gemma-7b", "moonshot-v1-16b-a3b")
+LAUNCH = ["--arch", "minitron-4b", "--smoke", "--steps", "6", "--batch", "4", "--seq", "16",
+          "--ckpt-every", "4", "--device", "cpu"]
+
+
+def rel_err(got, want) -> float:
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else got
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
+
+
+def close(got, want, what):
+    err = rel_err(got, want)
+    assert err <= TOL, f"{what}: norm-relative error {err:.3e} > {TOL:.0e}"
+
+
+@pytest.fixture(scope="module")
+def ref():
+    jax = pytest.importorskip("jax")
+    from repro.configs import registry
+    from repro.models import lm, steps
+    from repro.optim import adamw
+
+    jax.config.update("jax_enable_x64", False)
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, registry=registry, lm=lm, steps=steps,
+                                 adamw=adamw)
+
+
+def _inputs(arch, seed):
+    """An arch's float32 parameters (the port's init, from ``seed``) and its
+    global batch, drawn by numpy from ``seed``, as numpy arrays."""
+    cfg = f32_smoke(arch)
+    params = port_lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    tree = port_lm.tree_map(lambda a: a.numpy(), params)
+    rng = np.random.default_rng(seed)
+    rows = ROWS[arch]
+    batch = {"tokens": rng.integers(0, cfg.vocab, (rows, S + 1)).astype(np.int64)}
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = rng.standard_normal(
+            (rows, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return tree, batch
+
+
+def _reference(ref, arch, tree, batch, micro):
+    """The reference's one-device step: its ``loss_fn``'s gradient (jitted),
+    averaged over the microbatches as its train step does, then its AdamW
+    update -> (the gradient, the updated parameters, the metrics)."""
+    jax, jnp = ref.jax, ref.jnp
+    cfg = dataclasses.replace(ref.registry.smoke_config(arch), dtype="float32")
+    opt = ref.adamw.AdamWConfig(**OPT)
+
+    @jax.jit
+    def gradient(params, batch):
+        grads = jax.tree.map(jnp.zeros_like, params)
+        metrics = []
+        for i in range(micro):
+            mb = jax.tree.map(lambda a: a.reshape((micro, -1) + a.shape[1:])[i], batch)
+            (_, m), g = jax.value_and_grad(lambda p: ref.steps.loss_fn(p, cfg, mb),
+                                           has_aux=True)(params)
+            grads = jax.tree.map(lambda a, b: a + b / micro, grads, g)
+            metrics.append(m)
+        return grads, jax.tree.map(lambda *m: jnp.mean(jnp.stack(m)), *metrics)
+
+    rbatch = {k: jnp.asarray(v.astype(np.int32) if k == "tokens" else v)
+              for k, v in batch.items()}
+    grads, metrics = gradient(tree, rbatch)
+    params, _, opt_metrics = ref.adamw.update(tree, grads, ref.adamw.init(tree, opt), opt)
+    flat = lambda t: {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+                      np.asarray(leaf) for path, leaf in jax.tree_util.tree_leaves_with_path(t)}
+    metrics = {k: float(v) for k, v in dict(metrics, **opt_metrics).items()}
+    return flat(grads), flat(params), metrics
+
+
+def _one_rank(arch, tree, batch, micro):
+    """The port's one-rank step on the same numbers."""
+    cfg = f32_smoke(arch)
+    opt = port_adamw.AdamWConfig(**OPT)
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    state = port_steps.TrainState(params, port_adamw.init(params, opt),
+                                  torch.zeros((), dtype=torch.int32))
+    step = port_steps.make_train_step(cfg, opt, microbatches=micro)
+    with drop_counter() as kept, routing_ids() as ids:
+        metrics, grads = step.gradient(state, {k: torch.as_tensor(v) for k, v in batch.items()})
+    state, after = step.apply(state, metrics, grads)
+    paths = list(path_dict(state.params))
+    return dict(grads=dict(zip(paths, grads)), params=path_dict(state.params),
+                metrics={k: float(v) for k, v in after.items()}, kept=kept,
+                ids=ids[0] if ids else None)
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """The launcher: 6 one-rank steps (a step-4 checkpoint in ``one``); on
+    2 x 2, 6 steps from scratch (a step-4 checkpoint in ``two``) and 2 steps
+    resumed from ``one``'s; then 2 one-rank steps resumed from ``two``'s."""
+    root = tmp_path_factory.mktemp("sharded_launcher")
+    base_out, base = launcher(LAUNCH + ["--ckpt-dir", str(root / "one")])
+    shutil.copytree(root / "one", root / "one_copy")
+    return types.SimpleNamespace(root=root, base=base, base_out=base_out, runs=[
+        ("fresh", LAUNCH + ["--model-parallel", "2", "--ckpt-dir", str(root / "two")]),
+        ("resumed", LAUNCH + ["--model-parallel", "2", "--ckpt-dir", str(root / "one_copy")])])
+
+
+@pytest.fixture(scope="module")
+def spawned(ref, launched):
+    """mesh -> (the ranks' results, {case: (the reference's step or None,
+    the port's one-rank step)}).  One spawn per mesh, the three in a thread
+    while this process runs the reference and the one-rank steps."""
+    inputs = {arch: _inputs(arch, seed) for seed, arch in enumerate(ROWS)}
+    got = {}
+
+    def spawn_all():
+        for shape, cases in MESHES.items():
+            args = {name: dict(arch=arch, tree=inputs[arch][0], batch=inputs[arch][1],
+                               micro=micro, opt=OPT) for name, (arch, micro) in cases.items()}
+            runs = launched.runs if shape == (2, 2) else ()
+            got[shape] = spawn_fake_devices(int(np.prod(shape)), sharded_train_program, shape,
+                                            args, runs)[0]
+
+    ranks = threading.Thread(target=spawn_all)
+    ranks.start()
+    try:
+        refs = {arch: _reference(ref, arch, *inputs[arch], 1) for arch in REFERENCE}
+        want = {shape: {name: (refs.get(arch), _one_rank(arch, *inputs[arch], micro))
+                        for name, (arch, micro) in cases.items()}
+                for shape, cases in MESHES.items()}
+    finally:
+        ranks.join()
+    assert set(got) == set(MESHES), "a mesh's ranks failed (see their output above)"
+    return {shape: (got[shape], want[shape]) for shape in MESHES}
+
+
+CASES = [(shape, name) for shape, cases in MESHES.items() for name in cases]
+
+
+@pytest.mark.parametrize("shape,name", CASES, ids=[f"{n}-{s[0]}x{s[1]}" for s, n in CASES])
+def test_sharded_step_matches_reference_and_one_rank(spawned, shape, name):
+    got_all, want_all = spawned[shape]
+    got = got_all[name]
+    reference, one = want_all[name]
+    sides = [("one rank", one["metrics"], {k: v for k, v in one["grads"].items()},
+              {k: v.numpy() for k, v in one["params"].items()})]
+    if reference is not None:
+        sides.append(("the reference", reference[2], reference[0], reference[1]))
+    for side, metrics, grads, params in sides:
+        for key in ("loss", "aux", "grad_norm", "lr"):
+            close(got["metrics"][key], metrics[key], f"{key} vs {side}")
+        assert got["metrics"]["acc"] == pytest.approx(metrics["acc"], abs=1e-6)
+        assert sorted(got["grads"]) == sorted(grads) == sorted(got["params"]) == sorted(params)
+        for path, want in grads.items():
+            g = got["grads"][path]
+            if path.endswith("router_bias"):  # reaches the loss through topk's indices alone
+                assert g is None and (want is None or not np.any(want))
+                continue
+            close(g, want if isinstance(want, np.ndarray) else want.numpy(),
+                  f"grad {path} vs {side}")
+        for path, want in params.items():
+            close(got["params"][path], want, f"param {path} vs {side}")
+    assert got["kept"] == one["kept"]
+
+
+def test_sharding_is_real(spawned):
+    """The rules shard what the cases claim: heads and kv heads on 2 x 2,
+    heads over a replicated kv head on 1 x 2 (granite) and 1 x 3
+    (minitron), experts and FSDP for moonshot, the vocabulary everywhere;
+    rank 0's blocks are the shapes that says."""
+    two, one_by_two, one_by_three = (spawned[s][0] for s in ((2, 2), (1, 2), (1, 3)))
+    assert two["minitron-m1"]["rules"]["heads"] == two["minitron-m1"]["rules"]["kv_heads"] \
+        == "model"
+    assert one_by_two["granite"]["rules"]["heads"] == "model"
+    assert one_by_two["granite"]["rules"]["kv_heads"] is None
+    assert one_by_three["minitron-tp3"]["rules"]["heads"] == "model"
+    assert one_by_three["minitron-tp3"]["rules"]["kv_heads"] is None
+    moon = two["moonshot"]["rules"]
+    assert moon["experts"] == "model" and moon["fsdp"] == "data" and moon["vocab"] == "model"
+    assert (512 // 2, 48) in two["minitron-m1"]["local"]  # the vocab-split embedding table
+
+
+def test_moe_routing_is_global_and_drops(spawned):
+    """moonshot on 2 x 2: every routing keeps and drops the one-rank step's
+    (token, choice) pairs, some are dropped, and the first layer's expert
+    ids gathered over the data ranks equal the one-rank run's."""
+    got_all, want_all = spawned[(2, 2)]
+    got, (_, one) = got_all["moonshot"], want_all["moonshot"]
+    assert got["kept"] == one["kept"]
+    assert any(k < n for k, n in got["kept"])
+    assert torch.equal(got["ids"], one["ids"])
+
+
+def test_launcher_checkpoints_cross_meshes(spawned, launched, capsys):
+    """2 x 2 from scratch, 2 x 2 resumed from the one-rank run's step-4
+    checkpoint, one rank resumed from the 2 x 2 run's: each ends within 1e-5
+    of 6 one-rank steps."""
+    got = spawned[(2, 2)][0]
+    fresh_out, fresh = got["fresh"]
+    resumed_out, resumed = got["resumed"]
+    assert "resumed" not in fresh_out and fresh_out.rstrip().endswith("done")
+    assert "resumed from step 4 (re-sharded onto 2x2)" in resumed_out
+    out, back = launcher(LAUNCH + ["--ckpt-dir", str(launched.root / "two")])
+    assert "resumed from step 4" in out
+    for path, want in launched.base.items():
+        for what, run in (("2x2", fresh), ("2x2 resumed", resumed), ("1x1 resumed", back)):
+            close(run[path], want.numpy(), f"{what} {path}")

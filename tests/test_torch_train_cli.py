@@ -6,7 +6,7 @@ bit where an uninterrupted run ends: each step's batch depends on (seed,
 step, host) alone and the checkpoint holds the whole TrainState.  A
 TrainState crosses between the packages' checkpoints both ways, with
 ``opt.count`` and ``step`` int32 on both sides.  The sharded launcher's
-flags raise, naming the ROADMAP item that ports them; whisper-large-v3 and
+meshes raise in a process alone, whose world has one rank; whisper-large-v3 and
 pixtral-12b raise ``ValueError`` (their batches need frames or image
 embeddings, which the launcher does not draw).
 """
@@ -71,13 +71,20 @@ def test_batches_depend_on_seed_step_and_host_alone():
     assert not torch.equal(draw(0, 5, 0), draw(0, 5, 1))
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--mesh", "multipod"],
-                                   ["--model-parallel", "2"]],
-                         ids=["single", "multipod", "model-parallel"])
-def test_sharded_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.7"):
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "single"], "needs 256 ranks, but the world has 1"),
+    (["--mesh", "multipod"], "needs 512 ranks, but the world has 1"),
+    (["--model-parallel", "2"], "--model-parallel 2 does not divide the world of 1 rank"),
+], ids=["single", "multipod", "model-parallel"])
+def test_sharded_flags_raise(flags, match, tmp_path):
+    """In a process alone (a world of one rank, no process group joined):
+    the production meshes need 256 and 512 ranks, and a model axis of 2
+    does not divide 1 (the reference asserts it).  Sharded runs on gloo
+    ranks are in test_torch_sharded_train.py."""
+    with pytest.raises(ValueError, match=match):
         train.main(["--arch", "minitron-4b", "--smoke", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path), *flags])
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
