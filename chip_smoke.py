@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times [CHECKOUT]
     python3 chip_smoke.py --sharded
+    python3 chip_smoke.py --dr
 
 The second form only times a checkout's flash attention at phase 2's cases
 that do not route to the wgmma kernel, to compare two checkouts on one card;
-the third builds the kernels and runs Paths G4 and G5 alone (no result line).
+the third builds the kernels and runs Paths G4 and G5 alone, the fourth
+Path DR alone (neither prints a result line).
 
 Phases, each unguarded (any failure ends the run with a non-zero code and
 no result line):
@@ -201,7 +203,22 @@ no result line):
    ADAM_RHO_SCALE), the
    mma.sync flash kernel counted in every rank, G5's first routing and its
    drops; each step's host ms, its ms in gloo collectives and each rank's
-   peak memory printed beside the card;
+   peak memory printed beside the card; then the trained parameters serve
+   on the same ranks and on one rank: a prefill of 4 x 32 tokens, 2 of them
+   decoded and 8 greedy tokens (vocabulary-parallel logits gathered
+   over the model ranks, each rank's kv heads' cache, G5's MoE decode routed
+   under the global capacity), the logits within TOL_CARD_CPU of the one
+   rank's and the tokens equal;
+16c. Path DR — the dry run held against the card: ``cost_walk.walk`` on
+   real CUDA tensors, after one warm call each, of D1's CPADMM block (2
+   iterations, fp32 and bf16 wires: cpadmm_tail, pack_wire, unpack_wire)
+   and of minitron-4b FULL cut to 2 layers (a train step at 2 x 512
+   tokens, a prefill, a decode step: flash_attention_sm90); then the same
+   five walks on ``meta`` by the dry run's walkers in a subprocess (rank 0
+   of a fake world of one): launches, kernel launches, flops, bytes and
+   collective bytes gated equal (the card's decode less its host cache-room
+   check, which a dry run skips); the card's peak memory printed beside the
+   walk's argument plus peak live bytes;
 17. Path E6 — deepseek-v3-671b FULL (MLA: 128 heads, q / k head 128 + 64, v
    head 128, latent 512, q latent 1536) cut to 3 layers, one dense and two
    MoE of 32 of the 256 routed experts (top-8 and the shared expert kept;
@@ -3716,6 +3733,47 @@ def _sharded_batches(cfg, seed, batch, seq) -> list:
                                    device="cpu")} for s in range(SHARDED_STEPS)]
 
 
+# Paths G4 / G5 after training: a prefill of SERVE_PROMPT tokens, then the first
+# SERVE_FED of them fed through the decode step and SERVE_TOKENS greedy tokens (G5's
+# decode step gathers its experts' FSDP blocks through gloo: ~1.6 s a step)
+SERVE_PROMPT, SERVE_FED, SERVE_TOKENS = 32, 2, 8
+
+
+def _serve_prompt(cfg, seed):
+    """Paths G4 / G5's 4 x SERVE_PROMPT prompt, the launcher's batch drawing
+    past the trained steps."""
+    from repro_torch.data.synthetic import step_generator, token_batch
+
+    return token_batch(step_generator(seed, SHARDED_STEPS, 0), 4, SERVE_PROMPT, cfg.vocab,
+                       device="cpu")[:, :SERVE_PROMPT]
+
+
+def _serve(cfg, params, prompt, steps_n):
+    """The prefill of ``prompt`` (its last position's logits), then its
+    first SERVE_FED tokens fed one by one through the decode step and
+    ``steps_n`` greedy tokens (``greedy_generate``'s loop) -> (prefill
+    logits, the logits each greedy token was taken from (B, steps_n, V), the
+    tokens)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models import steps as steps_mod
+
+    prefill = steps_mod.make_prefill_step(cfg)(params, {"tokens": prompt})
+    decode = steps_mod.make_decode_step(cfg)
+    state = lm.init_decode_state(cfg, prompt.shape[0], SERVE_FED + steps_n,
+                                 device=prompt.device)
+    for i in range(SERVE_FED):
+        logits, state = decode(params, prompt[:, i:i + 1], state)
+    seen, out = [], []
+    for i in range(steps_n):
+        seen.append(logits)
+        out.append(torch.argmax(logits[:, :cfg.vocab], dim=-1))
+        if i + 1 < steps_n:
+            logits, state = decode(params, out[-1][:, None], state)
+    return prefill, torch.stack(seen, dim=1), torch.stack(out, dim=1)
+
+
 @contextlib.contextmanager
 def recorded_keeps():
     """(kept, total) (token, choice) pairs of every MoE dispatch, in call order."""
@@ -3810,6 +3868,13 @@ def sharded_baseline(name, cfg, dev, seed, batch, seq, store) -> dict:
         host_ms.append(grad_ms + (time.perf_counter() - t0) * 1e3)
         del grads
     counts = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_counts()
+    serve = tuple(t.cpu() for t in _serve(cfg, state.params, _serve_prompt(cfg, seed).to(dev),
+                                          SERVE_TOKENS))
+    out.update(serve=serve, serve_counts=read_counts(),
+               serve_ms=(time.perf_counter() - t0) * 1e3)
     torch.save({p: t.cpu() for p, t in zip(paths, (t for _, t in tree_items(state.params)))},
                f"{store}/params.pt")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4008,6 +4073,18 @@ def _sharded_rank(name, cfg, seed, batch, seq, store):
                                          [t for _, t in tree_items(state.params)],
                                          f"{store}/params.pt", dev, agree)
         local_params = sum(t.numel() for _, t in tree_items(state.params))
+        # the trained parameters serve: this rank's prompt rows, its heads and vocabulary
+        prompt = partition.data_rows({"tokens": _serve_prompt(cfg, seed).to(dev)}, mesh,
+                                     rules)["tokens"]
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        zero_counts()
+        served = _serve(cfg, state.params, prompt, SERVE_TOKENS)
+        torch.cuda.synchronize()
+        out.update(serve_counts=read_counts(), serve_ms=(time.perf_counter() - t0) * 1e3)
+        served = [partition.gather_leaf(t, ("data",), mesh) for t in served]
+        out["serve"] = tuple(t.cpu() for t in served) if dist.get_rank() == 0 else None
     del state, step, batches
     torch.cuda.empty_cache()
     return dict(out, losses=losses, gnorms=gnorms, host_ms=host_ms, coll_ms=coll_ms,
@@ -4119,7 +4196,31 @@ def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
     if any(r["counts"] != want_counts for r in ranks):
         fail(f"Path {name} launch counts by rank {[r['counts'] for r in ranks]}; expected "
              f"{want_counts} in every rank")
-    counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+    # the trained parameters' prefill and greedy decode, sharded against one rank
+    (pre, seen, toks), (bpre, bseen, btoks) = r0["serve"], base["serve"]
+    pre_err = rel(float((pre - bpre).abs().max()), float(bpre.abs().max()))
+    seen_err = rel(float((seen - bseen).abs().max()), float(bseen.abs().max()))
+    print(f"Path {name} serving the trained parameters: prefill {pre.shape[0]} x "
+          f"{SERVE_PROMPT} tokens, then {SERVE_FED} of them decoded and {SERVE_TOKENS} greedy "
+          f"tokens; "
+          f"sharded vs one rank: prefill logits {pre_err:.3e}, decode logits {seen_err:.3e} of "
+          f"the largest (tol {TOL_CARD_CPU:.0e}), greedy tokens equal "
+          f"{bool(torch.equal(toks, btoks))}; host ms sharded "
+          f"{[round(r['serve_ms'], 1) for r in ranks]}, one rank {base['serve_ms']:.1f}; "
+          f"launches by rank {[r['serve_counts'] for r in ranks]}, one rank "
+          f"{base['serve_counts']} [{card}]")
+    if not (pre_err <= TOL_CARD_CPU and seen_err <= TOL_CARD_CPU):
+        fail(f"Path {name}: sharded serving logits disagree with one rank's: prefill "
+             f"{pre_err}, decode {seen_err}")
+    if not torch.equal(toks, btoks):
+        fail(f"Path {name}: sharded greedy tokens {toks.tolist()} differ from one rank's "
+             f"{btoks.tolist()}")
+    want_serve = dict.fromkeys(r0["counts"], 0)
+    want_serve.update(flash_attention_mma=cfg.n_layers)  # the float32 prefill, once a layer
+    if any(r["serve_counts"] != want_serve for r in ranks):
+        fail(f"Path {name} serving launch counts {[r['serve_counts'] for r in ranks]}; "
+             f"expected {want_serve} in every rank")
+    counts = {k: sum(r["counts"][k] + r["serve_counts"][k] for r in ranks) for k in r0["counts"]}
     print(f"Path {name}: flash_attention_mma launched {mma} times by rank")
     return dict(counts=counts, loss_errs=loss_errs, norm_errs=norm_errs,
                 grad_worst=grad_worst[0], sign_flip=flip, later_grads=later,
@@ -4137,6 +4238,156 @@ def sharded_paths(dev) -> tuple:
                       17)
     print(f"Paths G4-G5 took {time.perf_counter() - t0:.1f} s")
     return g4, g5
+
+
+# -- Path DR: the dry run (repro_torch.launch.dryrun / cs_dryrun) held against the card --
+DR_WALKS = ("cs_fp32", "cs_bf16", "train", "prefill", "decode")
+DR_GATED = ("launches", "kernel_launches", "flops", "bytes", "collective_bytes")
+DR_CS_ITERS, DR_BATCH, DR_SEQ = 2, 2, 512
+
+
+def _dr_lm():
+    """Path DR's model: minitron-4b FULL cut to 2 layers (bf16 compute)."""
+    return lm_config("minitron-4b", n_layers=2)
+
+
+def dr_meta(knobs: dict) -> dict:
+    """Path DR's ``meta`` side, in a subprocess of its own: D1's CS block
+    (the card's plan knobs ``knobs[wire]``) and minitron-4b's train step,
+    prefill and decode step, each walked by the dry run's walkers
+    (``cs_dryrun.walk_variant``, ``dryrun.walk_step``) after one warm call,
+    on rank 0 of a fake world of one; the mesh of one rank is the card's."""
+    import torch
+
+    from repro_torch.dist.compat import init_dry_run, make_mesh
+    from repro_torch.launch import cs_dryrun, dryrun, specs
+    from repro_torch.models import steps
+
+    init_dry_run(1)
+    out = {}
+    for wire, k in knobs.items():
+        cost, arg = cs_dryrun.walk_variant(make_mesh((1,), ("model",)), k["n1"], k["n2"],
+                                           k["batch"], DR_CS_ITERS, k["fused"], k["rfft"],
+                                           k["overlap"], k["wire_dtype"])
+        out[f"cs_{wire}"] = dict(dryrun.walk_numbers(cost), peak=cost.peak_bytes, argument=arg)
+    cfg = _dr_lm()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    tokens = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
+    cases = {
+        "train": (steps.make_train_step(cfg, specs.opt_config()),
+                  (specs.train_state_specs(cfg), {"tokens": tokens(DR_BATCH, DR_SEQ + 1)})),
+        "prefill": (steps.make_prefill_step(cfg),
+                    (specs.params_specs(cfg), {"tokens": tokens(DR_BATCH, DR_SEQ)})),
+        "decode": (steps.make_decode_step(cfg),
+                   (specs.params_specs(cfg), tokens(DR_BATCH, 1),
+                    specs.decode_state_specs(cfg, DR_BATCH, DR_SEQ))),
+    }
+    for kind, (fn, args) in cases.items():
+        rec = dryrun.walk_step(cfg, kind, fn, args, mesh, warm=True)
+        if not rec["ok"]:
+            raise RuntimeError(f"Path DR meta {kind}: {rec['error']}")
+        out[kind] = dict(rec["walk"], peak=rec["memory"]["temp"],
+                         argument=rec["memory"]["argument"], static_bounds=rec["static_bounds"])
+    return out
+
+
+def path_dr(dev) -> dict:
+    """Path DR: the dry run held against the card.  In this process, on real
+    CUDA tensors with the kernels launching, ``cost_walk.walk`` after one
+    warm call of each: D1's problem (4 x 1024^2 frames, the one-rank NCCL
+    mesh) through 2 iterations of ``cpadmm_block`` at fp32 and bf16 wires
+    (cpadmm_tail, pack_wire, unpack_wire), and minitron-4b FULL cut to 2
+    layers: one train step at 2 x 512 tokens (flash_attention_sm90, and
+    FlashAttentionFn's plain recompute in the backward), one prefill of 2 x
+    512 and one decode step against a 512-deep cache.  Then the same five on
+    ``meta`` by the dry run's walkers in a subprocess (:func:`dr_meta`).
+    Gate: launches, kernel launches, flops, bytes and collective bytes equal,
+    walk for walk; the card's decode also runs ``lm._cache_room``'s host
+    check, which a dry run skips (a static bound), so its decode is held
+    less that check's own walk.  Printed, not gated: the card's peak memory
+    beside the walk's argument plus peak live bytes."""
+    import torch
+
+    from repro_torch.core.deblur import build_deblur_plan
+    from repro_torch.dist.compat import make_mesh
+    from repro_torch.launch.cost_walk import walk
+    from repro_torch.launch.dryrun import tree_bytes, walk_numbers
+    from repro_torch.launch.specs import opt_config
+    from repro_torch.models import lm, steps
+    from repro_torch.ops import tune
+
+    t0 = time.perf_counter()
+    card, knobs = {}, {}
+    zero_counts()
+
+    def walked(name, fn, *args):
+        fn(*args)  # the warm call: twiddles, the Triton JIT, the cast of the weights
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cost = walk(fn, *args)
+        torch.cuda.synchronize()
+        card[name] = dict(walk_numbers(cost), peak=cost.peak_bytes, argument=tree_bytes(args),
+                          card_peak=torch.cuda.max_memory_allocated() - base)
+        return cost
+
+    prob, p = sec7_problem(dev, 1, 1024, 4)
+    mesh = make_mesh((1,), ("model",), device=dev)
+    for wire in ("fp32", "bf16"):
+        pl = build_deblur_plan(p, mesh, rfft=True, tail="kernel", wire_dtype=wire)
+        walked(f"cs_{wire}", pl.cpadmm_block(DR_CS_ITERS), *tune._block_operands(pl, 4))
+        knobs[wire] = dict(n1=pl.n1, n2=pl.n2, rfft=pl.rfft, overlap=pl.overlap, fused=pl.fused,
+                           wire_dtype=pl.wire_dtype, batch=4)
+    del prob, p
+    cfg = _dr_lm()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    state = steps.init_train_state(gen, cfg, opt_config(), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (DR_BATCH, DR_SEQ + 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    walked("train", steps.make_train_step(cfg, opt_config()), state, {"tokens": tokens})
+    prompt = {"tokens": tokens[:, :DR_SEQ].contiguous()}
+    walked("prefill", steps.make_prefill_step(cfg), state.params, prompt)
+    cache = lm.init_decode_state(cfg, DR_BATCH, DR_SEQ, device=dev)
+    walked("decode", steps.make_decode_step(cfg), state.params, tokens[:, :1].contiguous(),
+           cache)
+    room = walk(lm._cache_room, cfg, cache)
+    counts = read_counts()
+    card_s = time.perf_counter() - t0
+    del state, cache
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dr-meta",
+                           json.dumps(knobs)], capture_output=True, text=True, timeout=300,
+                          cwd=str(ROOT))
+    if proc.returncode != 0:
+        fail(f"Path DR: the meta walks failed:\n{proc.stderr[-3000:]}")
+    meta = json.loads(proc.stdout.strip().splitlines()[-1])
+    meta_s = time.perf_counter() - t1
+    for key in ("launches", "flops", "bytes"):  # the card's decode less its host room check
+        card["decode"][key] -= getattr(room, key)
+    bad = []
+    for name in DR_WALKS:
+        c, m = card[name], meta[name]
+        diff = {k: (c[k], m[k]) for k in DR_GATED if c[k] != m[k]}
+        print(f"Path DR {name}: card walk launches {c['launches']}, kernels {c['kernel_launches']},"
+              f" {c['flops']:.6e} FLOP, {c['bytes']:.6e} B, collectives {c['collective_bytes']}; "
+              f"meta walk {'equal' if not diff else diff}; card peak {c['card_peak'] / 2**30:.3f} "
+              f"GiB beside the walk's argument {c['argument'] / 2**30:.3f} + peak live "
+              f"{c['peak'] / 2**30:.3f} GiB (meta: {m['argument'] / 2**30:.3f} + "
+              f"{m['peak'] / 2**30:.3f} GiB)")
+        if diff:
+            bad.append((name, diff))
+    print(f"Path DR: the card's decode less lm._cache_room's walk ({room.launches} launches, "
+          f"{room.bytes:.0f} B, the host check a dry run skips: "
+          f"{meta['decode']['static_bounds']}); launches {counts}; card walks {card_s:.1f} s, "
+          f"meta walks {meta_s:.1f} s (a subprocess) [{card_line()}]")
+    if bad:
+        fail(f"Path DR: the meta walks differ from the card's: {bad}")
+    for name in ("cpadmm_tail", "pack_wire", "unpack_wire", "flash_attention_sm90"):
+        if not counts[name]:
+            fail(f"Path DR: {name} never launched on the card")
+    return dict(counts=counts, card=card, meta=meta, seconds=card_s + meta_s)
 
 
 KERNEL_SOURCES = {
@@ -4186,6 +4437,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dr-meta"]:  # Path DR's meta walks: no card needed
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(dr_meta(json.loads(sys.argv[2]))))
+        return 0
     if sys.argv[1:2] == ["--flash-times"]:
         flash_times(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
@@ -4211,6 +4466,9 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--sharded"]:
         sharded_paths(dev)
+        return 0
+    if sys.argv[1:2] == ["--dr"]:
+        path_dr(dev)
         return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     launch_floors(dev)
@@ -4262,6 +4520,8 @@ def main() -> int:
     train_cli_phase()
     print(f"Paths G3, G1, G2, E5 and the train CLI took {time.perf_counter() - t_train:.1f} s")
     g4, g5 = sharded_paths(dev)
+    dr = path_dr(dev)
+    print(f"Path DR took {dr['seconds']:.1f} s")
     t_lm = time.perf_counter()
     e6 = path_e6(dev, 10)
     torch.cuda.empty_cache()
@@ -4288,7 +4548,7 @@ def main() -> int:
                "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"], "G1": g1["counts"],
                "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
                "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"], "E10": e10["counts"],
-               "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"]}
+               "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"], "DR": dr["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

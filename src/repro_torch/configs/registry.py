@@ -4,7 +4,7 @@ Port of ``repro/configs/registry.py``: the four dense decoder-only
 transformers, moonshot-v1-16b-a3b (MoE over GQA), deepseek-v3-671b (MoE over
 MLA), zamba2-1.2b (Mamba-2 with a shared attention block), pixtral-12b (an
 image prefix before the text), xlstm-350m (mLSTM and sLSTM) and
-whisper-large-v3 (encoder-decoder).
+whisper-large-v3 (encoder-decoder); and the dry run's shape cells.
 """
 
 from __future__ import annotations
@@ -59,3 +59,23 @@ def smoke_config(arch: str) -> ModelConfig:
 
 def all_arch_ids() -> List[str]:
     return list(ARCH_IDS)
+
+
+# Shape cells (assignment): name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# long_500k runs only for sub-quadratic (SSM/hybrid) archs per the assignment.
+LONG_CONTEXT_ARCHS = {"zamba2_1p2b", "xlstm_350m"}
+
+
+def cells_for(arch: str):
+    """The shape names assigned to ``arch``: every shape but ``long_500k``,
+    which only the sub-quadratic archs run."""
+    name = ALIASES.get(arch, arch)
+    return [shape for shape in SHAPES
+            if shape != "long_500k" or name in LONG_CONTEXT_ARCHS]

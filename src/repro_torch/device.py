@@ -1,8 +1,44 @@
-"""Device choice for the port's entry points."""
+"""Device choice for the port's entry points, and the ``meta`` device of
+the dry runs.
+
+A dry run (:mod:`repro_torch.launch.dryrun`) walks one rank's step on
+``meta`` tensors, which have shapes and no values: it prices the card's
+program, so every choice the port makes from ``device.type == "cuda"``
+takes the card's branch on ``meta`` too (:func:`models_the_card`).  Where
+the port reads a value on the host (a buffer size, a guard), a ``meta``
+tensor has none: the code takes the static bound the reference compiles
+with instead and names it through :func:`static_bound`, which the dry run
+records under ``"static_bounds"``.  On a real tensor each read stays as it
+is.
+"""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
+
+# where -> what bound was taken there, since the last reset_static_bounds()
+STATIC_BOUNDS: Dict[str, str] = {}
+
+
+def is_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def models_the_card(device) -> bool:
+    """A CUDA device, or ``meta``, which stands for one in a dry run."""
+    return device is not None and torch.device(device).type in ("cuda", "meta")
+
+
+def static_bound(where: str, what: str) -> None:
+    """Note that the code at ``where`` took the static bound ``what`` in
+    place of a value a ``meta`` tensor does not have."""
+    STATIC_BOUNDS[where] = what
+
+
+def reset_static_bounds() -> None:
+    STATIC_BOUNDS.clear()
 
 
 def default_device() -> torch.device:

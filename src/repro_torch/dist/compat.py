@@ -17,7 +17,13 @@ Three ways to start the ranks:
   ``device`` (the CPU, or one card shared by every rank — NCCL refuses two
   ranks on one GPU; gloo stages CUDA tensors through the host);
 * world size 1 needs no launcher: an in-process group over a ``HashStore``,
-  NCCL on the card.
+  NCCL on the card;
+* :func:`init_dry_run` ``(world, rank)``: one rank of a world of any size on
+  torch's fake process group, its tensors on ``meta``: its collectives
+  return at once and move nothing, so one process walks one rank of a
+  256- or 512-rank production mesh with no memory and no peers (the dry
+  runs of :mod:`repro_torch.launch.dryrun`; the reference's placeholder
+  devices).
 
 A world size that is not the product of the mesh shape raises; the mesh is
 never shrunk and never moved to the CPU.
@@ -153,6 +159,31 @@ def _joining_device(device) -> torch.device:
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         return resolve_device(torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
     return resolve_device(device)
+
+
+def init_dry_run(world: int, rank: int = 0) -> torch.device:
+    """Join a fake process group of ``world`` ranks as ``rank``; -> ``meta``,
+    the device this rank's tensors then live on.  A group this process
+    joined before is left first (so one process can walk meshes of several
+    sizes), with the meshes made over it.
+
+    The fake backend is torch's own (``torch.testing._internal.distributed.
+    fake_pg``, a private path imported here alone); it is named for the
+    ``meta`` device too, because point-to-point batches look their backend
+    up by the tensors' device.  After it, :func:`make_mesh` and
+    :func:`make_hier_mesh` build any mesh of ``world`` ranks unchanged."""
+    global _RANK_DEVICE
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a world of {world}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _MESHES.clear()
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    _RANK_DEVICE = torch.device("meta")
+    return _RANK_DEVICE
 
 
 def world_size() -> int:

@@ -240,6 +240,7 @@ def _host_hops(sends, mesh, host_axis: str, wire_dtype: str) -> list:
     group, H, h = mesh.group(host_axis), mesh.size(host_axis), mesh.index(host_axis)
     bufs = [torch.view_as_real(s.contiguous()) if wire_dtype == "fp32"
             else pack_wire(s.contiguous(), wire_dtype) for s in sends]
+    # never on meta (a dry run), whose fake group is not gloo
     staged = bufs[0].is_cuda and dist.get_backend(group) == "gloo"
     wire = [b.cpu() if staged else b for b in bufs]
     recvs = [torch.empty_like(b) for b in wire]

@@ -159,25 +159,44 @@ def is_sharded_run() -> bool:
     return rules is not None and mesh is not None and extent(mesh, tuple(mesh.axis_names)) > 1
 
 
+_SPLIT_AXES = (("model",), ("data",), ("pod", "data"))  # what the port shards over
+
+
 def split(logical: str) -> Tuple[int, int]:
     """(ranks, this rank's index) of the mesh axis the active rules shard
     ``logical`` over; (1, 0) when it is replicated or no rules are active.
-    Only ``model`` and ``data`` are taken: a logical axis that resolves to
-    another axis or to several (``pod``) raises ``NotImplementedError``."""
+    ``model``, ``data`` and the multi-pod batch's ``("pod", "data")`` (taken
+    row-major, as the reference's mesh lays it out) are taken; a logical
+    axis that resolves to anything else raises ``NotImplementedError``."""
     rules, mesh = current_rules()
     if rules is None or mesh is None:
         return 1, 0
     phys = resolve_axis(logical, rules, tuple(mesh.axis_names))
     if phys is None:
         return 1, 0
-    if phys not in ("model", "data"):
-        raise NotImplementedError(f"the port shards {logical!r} over 'model' or 'data' alone; "
-                                  f"these rules put it on {phys!r}")
-    return mesh.size(phys), mesh.index(phys)
+    axes = phys if isinstance(phys, tuple) else (phys,)
+    if axes not in _SPLIT_AXES:
+        raise NotImplementedError(f"the port shards {logical!r} over 'model', 'data' or "
+                                  f"('pod', 'data'); these rules put it on {phys!r}")
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * mesh.size(a), i * mesh.size(a) + mesh.index(a)
+    return n, i
 
 
-def _group(axis: str):
+def _group(axis):
+    """The active mesh's group over ``axis``, one axis or a tuple of them
+    (the multi-pod batch's joint (pod, data) group)."""
     return current_rules()[1].group(axis)
+
+
+def batch_axes():
+    """The mesh axis (or tuple of axes) the active rules shard the batch
+    over, ``None`` when it is replicated or no rules are active."""
+    rules, mesh = current_rules()
+    if rules is None or mesh is None:
+        return None
+    return resolve_axis("batch", rules, tuple(mesh.axis_names))
 
 
 def model_ranks() -> int:
@@ -258,15 +277,26 @@ def reduce_min(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     return out
 
 
+def model_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` of every model rank concatenated along ``dim`` in model order,
+    without a gradient (the vocabulary blocks of the serving logits)."""
+    if model_ranks() == 1:
+        return t
+    from .compat import gather_cat
+
+    return gather_cat(t.detach(), _group("model"), dim)
+
+
 def data_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """``t`` of every data rank concatenated along ``dim`` in data order,
-    without a gradient (routing ids); ``t`` itself on one data rank."""
+    """``t`` of every data rank (of the batch's axes: (pod, data) on the
+    multi-pod mesh) concatenated along ``dim`` in data order, without a
+    gradient (routing ids); ``t`` itself on one data rank."""
     n, _ = split("batch")
     if n == 1:
         return t
     from .compat import gather_cat
 
-    return gather_cat(t.detach(), _group("data"), dim)
+    return gather_cat(t.detach(), _group(batch_axes()), dim)
 
 
 class _FsdpGather(torch.autograd.Function):

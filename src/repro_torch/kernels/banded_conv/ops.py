@@ -6,7 +6,7 @@ import ctypes
 
 import torch
 
-from .. import report_launch, require_cuda_operands
+from .. import on_meta, report_launch, require_cuda_operands
 from .ref import banded_circulant_matvec_ref
 
 TILE = 1024  # outputs per block of the CUDA kernel (csrc/banded_conv.cu)
@@ -32,7 +32,8 @@ def blur_apply(taps: torch.Tensor, x: torch.Tensor, *, order: int) -> torch.Tens
 
     ``taps`` is (>= order,).  CPU tensors take the plain version; CUDA
     tensors launch the CUDA kernel, which needs contiguous float32 operands
-    and ``order <= MAX_ORDER``, and raises otherwise.
+    and ``order <= MAX_ORDER``, and raises otherwise; ``meta`` tensors take
+    the shape-propagation route (:mod:`repro_torch.kernels`).
     """
     n = x.shape[-1] if x.ndim else 0
     if taps.ndim != 1 or not 0 < order <= taps.shape[0] or n == 0:
@@ -48,15 +49,16 @@ def blur_apply(taps: torch.Tensor, x: torch.Tensor, *, order: int) -> torch.Tens
     if not 0 < batch <= 65535:
         raise ValueError(f"banded_conv kernel takes 1..65535 signals; got {batch}")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().banded_conv_f32(
-            taps.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch, order, stream
-        )
-    if err != 0:
-        raise RuntimeError(f"banded_conv kernel launch failed: cudaError {err}")
-    blur_apply.launches += 1
-    report_launch("banded_conv", taps[:order], x, y)
+    if not on_meta(taps, x):
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _library().banded_conv_f32(
+                taps.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch, order, stream
+            )
+        if err != 0:
+            raise RuntimeError(f"banded_conv kernel launch failed: cudaError {err}")
+        blur_apply.launches += 1
+    report_launch("banded_conv", taps[:order], x, y, flops=2 * order * x.numel())
     return y
 
 

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from .. import report_launch, require_cuda_operands
+from .. import on_meta, report_launch, require_cuda_operands
 from .ref import circulant_matvec_fft, circulant_matvec_ref
 
 FFT_CROSSOVER = 1 << 13
@@ -44,7 +44,8 @@ def circulant_matvec_direct(col: torch.Tensor, x: torch.Tensor, *, transpose: bo
     ``col`` is (n,), ``x`` is (..., n).  CPU tensors take the plain dense
     version; CUDA tensors launch the CUDA kernel, which needs fp32,
     contiguous, 16-byte aligned inputs and ``n % 128 == 0``, and raises
-    otherwise.
+    otherwise; ``meta`` tensors take the shape-propagation route
+    (:mod:`repro_torch.kernels`).
     """
     n = col.shape[-1]
     if col.ndim != 1 or x.shape[-1] != n:
@@ -63,15 +64,17 @@ def circulant_matvec_direct(col: torch.Tensor, x: torch.Tensor, *, transpose: bo
     if not 0 < batch <= 65535:
         raise ValueError(f"circulant_matvec kernel takes 1..65535 signals; got {batch}")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().circulant_matvec_f32(
-            col.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch, int(transpose), stream
-        )
-    if err != 0:
-        raise RuntimeError(f"circulant_matvec kernel launch failed: cudaError {err}")
-    circulant_matvec_direct.launches += 1
-    report_launch("circulant_matvec", col, x, y)
+    if not on_meta(col, x):
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _library().circulant_matvec_f32(
+                col.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch, int(transpose), stream
+            )
+        if err != 0:
+            raise RuntimeError(f"circulant_matvec kernel launch failed: cudaError {err}")
+        circulant_matvec_direct.launches += 1
+    # three bf16 products a term on the tensor cores (the design chip_smoke.py bounds)
+    report_launch("circulant_matvec", col, x, y, flops=3 * 2 * batch * n * n)
     return y
 
 

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .. import report_launch, require_cuda_operands
+from .. import on_meta, report_launch, require_cuda_operands
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the mma kernel's float32 instances
@@ -57,7 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain version; CUDA tensors launch the kernel :func:`kernel_for` names,
     which takes float32 or bf16, D in :data:`HEAD_DIMS`, any S, contiguous
     16-byte aligned operands of one dtype on one device, and raises
-    otherwise.
+    otherwise; ``meta`` tensors take the shape-propagation route of the
+    kernel the card would launch (:mod:`repro_torch.kernels`).
     """
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B, Sq, H, D) and k, v (B, Sk, KH, D); got "
@@ -89,11 +90,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_mma(q, k, v, causal=causal)
 
 
+def flops(q: torch.Tensor, k: torch.Tensor, causal: bool) -> float:
+    """The two products' operations, 4 B H Sq Sk D, halved when causal: the
+    count a launch reports to the cost walk (the float32 kernel's three TF32
+    products a term are not counted apart)."""
+    b, sq, h, d = q.shape
+    return 4.0 * b * h * sq * k.shape[1] * d / (2 if causal else 1)
+
+
 def flash_attention_sm90(q, k, v, *, causal: bool) -> torch.Tensor:
     """Launch the wgmma kernel on operands :func:`flash_attention` has
     checked (bf16, D in :data:`SM90_HEAD_DIMS`)."""
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
+    if on_meta(q, k, v):
+        report_launch("flash_attention_sm90", q, k, v, o, flops=flops(q, k, causal))
+        return o
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry("flash_attention_sm90", "flash_attention_sm90_fwd", _ARGS + _TAIL)(
@@ -103,7 +115,7 @@ def flash_attention_sm90(q, k, v, *, causal: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90 kernel launch failed: cudaError {err}")
     flash_attention_sm90.launches += 1
-    report_launch("flash_attention_sm90", q, k, v, o)
+    report_launch("flash_attention_sm90", q, k, v, o, flops=flops(q, k, causal))
     return o
 
 
@@ -112,6 +124,9 @@ def flash_attention_mma(q, k, v, *, causal: bool) -> torch.Tensor:
     checked (float32 at D in :data:`HEAD_DIMS`; bf16 at D = 8, 16, 32)."""
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
+    if on_meta(q, k, v):
+        report_launch("flash_attention_mma", q, k, v, o, flops=flops(q, k, causal))
+        return o
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry("flash_attention", "flash_attention_fwd", _ARGS + [ctypes.c_int] + _TAIL)(
@@ -121,7 +136,7 @@ def flash_attention_mma(q, k, v, *, causal: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention_mma.launches += 1
-    report_launch("flash_attention_mma", q, k, v, o)
+    report_launch("flash_attention_mma", q, k, v, o, flops=flops(q, k, causal))
     return o
 
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import report_launch, require_cuda_operands
+from .. import on_meta, report_launch, require_cuda_operands
 from .ref import admm_threshold_dual_update_ref, ista_step_update_ref, ista_threshold_update_ref
 
 
@@ -29,7 +29,8 @@ def fused_ista_update(x: torch.Tensor, delta: torch.Tensor, gamma, *, tau=None) 
     ``tau * delta`` rounded before the add.  ``gamma`` and ``tau`` are
     numbers or 1-element tensors.  CPU tensors take the plain version; CUDA
     tensors launch the Triton kernel, which needs contiguous float32
-    operands and raises otherwise.
+    operands and raises otherwise; ``meta`` tensors take the
+    shape-propagation route (:mod:`repro_torch.kernels`).
     """
     if x.shape != delta.shape:
         raise ValueError(f"fused_ista_update shapes: x {tuple(x.shape)}, "
@@ -40,13 +41,18 @@ def fused_ista_update(x: torch.Tensor, delta: torch.Tensor, gamma, *, tau=None) 
         return ista_step_update_ref(x, delta, tau, gamma)
     require_cuda_operands("soft_threshold", {"x": x, "delta": delta},
                           {"x": torch.float32, "delta": torch.float32})
-    from .kernel import ista_update
+    gamma = _scalar_operand("gamma", gamma, x)
+    tau = None if tau is None else _scalar_operand("tau", tau, x)
+    if on_meta(x, delta):
+        out = torch.empty_like(x)
+    else:
+        from .kernel import ista_update
 
-    with torch.cuda.device(x.device):
-        out = ista_update(x, delta, _scalar_operand("gamma", gamma, x),
-                          None if tau is None else _scalar_operand("tau", tau, x))
-    fused_ista_update.launches += 1
-    report_launch("soft_threshold_ista", x, delta, out)
+        with torch.cuda.device(x.device):
+            out = ista_update(x, delta, gamma, tau)
+        fused_ista_update.launches += 1
+    report_launch("soft_threshold_ista", x, delta, out,
+                  flops=(3 if tau is None else 4) * x.numel())
     return out
 
 
@@ -58,7 +64,8 @@ def fused_admm_update(x: torch.Tensor, nu: torch.Tensor, gamma, tau2):
 
     ``gamma`` and ``tau2`` are numbers or 1-element tensors.  CPU tensors
     take the plain version; CUDA tensors launch the Triton kernel, which
-    needs contiguous float32 operands and raises otherwise.
+    needs contiguous float32 operands and raises otherwise; ``meta`` tensors
+    take the shape-propagation route (:mod:`repro_torch.kernels`).
     """
     if x.shape != nu.shape:
         raise ValueError(f"fused_admm_update shapes: x {tuple(x.shape)}, nu {tuple(nu.shape)}")
@@ -66,13 +73,16 @@ def fused_admm_update(x: torch.Tensor, nu: torch.Tensor, gamma, tau2):
         return admm_threshold_dual_update_ref(x, nu, gamma, tau2)
     require_cuda_operands("soft_threshold", {"x": x, "nu": nu},
                           {"x": torch.float32, "nu": torch.float32})
-    from .kernel import admm_update
+    gamma, tau2 = _scalar_operand("gamma", gamma, x), _scalar_operand("tau2", tau2, x)
+    if on_meta(x, nu):
+        out = (torch.empty_like(x), torch.empty_like(x))
+    else:
+        from .kernel import admm_update
 
-    with torch.cuda.device(x.device):
-        out = admm_update(x, nu, _scalar_operand("gamma", gamma, x),
-                          _scalar_operand("tau2", tau2, x))
-    fused_admm_update.launches += 1
-    report_launch("soft_threshold_admm", x, nu, *out)
+        with torch.cuda.device(x.device):
+            out = admm_update(x, nu, gamma, tau2)
+        fused_admm_update.launches += 1
+    report_launch("soft_threshold_admm", x, nu, *out, flops=6 * x.numel())
     return out
 
 

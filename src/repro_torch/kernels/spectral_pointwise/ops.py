@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import report_launch, require_cuda_operands
+from .. import on_meta, report_launch, require_cuda_operands
 from .ref import cpadmm_spectral_update_ref
 
 
@@ -15,7 +15,8 @@ def spectral_update(c_spec, b_spec, vm_spec, zn_spec, rho, sigma) -> torch.Tenso
     spectra of length nf (any half-spectrum length); ``vm_spec`` /
     ``zn_spec`` are (..., nf) complex, leading axes being signals.  CPU
     tensors take the plain version; CUDA tensors launch the Triton kernel,
-    which needs complex64 / float32 contiguous inputs and raises otherwise.
+    which needs complex64 / float32 contiguous inputs and raises otherwise;
+    ``meta`` tensors take the shape-propagation route (:mod:`repro_torch.kernels`).
     """
     nf = c_spec.shape[-1]
     if (c_spec.shape, b_spec.shape) != ((nf,), (nf,)) or vm_spec.shape != zn_spec.shape \
@@ -32,15 +33,19 @@ def spectral_update(c_spec, b_spec, vm_spec, zn_spec, rho, sigma) -> torch.Tenso
     dtypes = dict.fromkeys(tensors, torch.complex64)
     dtypes["b_spec"] = torch.float32
     require_cuda_operands("spectral_pointwise", tensors, dtypes)
-    from .kernel import spectral_pointwise
-
     batch = vm_spec.shape[:-1]
-    with torch.cuda.device(vm_spec.device):
-        out = spectral_pointwise(
-            c_spec, b_spec, vm_spec.reshape(-1, nf), zn_spec.reshape(-1, nf), rho, sigma
-        )
-    spectral_update.launches += 1
-    report_launch("spectral_pointwise", c_spec, b_spec, vm_spec, zn_spec, out)
+    if on_meta(*tensors.values()):
+        out = torch.empty((vm_spec.numel() // nf, nf), dtype=torch.complex64, device="meta")
+    else:
+        from .kernel import spectral_pointwise
+
+        with torch.cuda.device(vm_spec.device):
+            out = spectral_pointwise(
+                c_spec, b_spec, vm_spec.reshape(-1, nf), zn_spec.reshape(-1, nf), rho, sigma
+            )
+        spectral_update.launches += 1
+    report_launch("spectral_pointwise", c_spec, b_spec, vm_spec, zn_spec, out,
+                  flops=12 * vm_spec.numel())
     return out.reshape(batch + (nf,))
 
 

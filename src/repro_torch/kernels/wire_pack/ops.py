@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import report_launch, require_cuda_operands
+from .. import on_meta, report_launch, require_cuda_operands
 from .ref import (
     WIRE_DTYPES,
     pack_geometry,
@@ -26,22 +26,26 @@ def pack_wire(z: torch.Tensor, wire_dtype: str, groups=None, axis: int = -1) -> 
     ``groups=G`` cuts ``axis`` into G chunks and returns (G, 2, *chunk), the
     layout ``all_to_all_single`` sends.  CPU tensors take the plain version;
     CUDA tensors launch the Triton kernel, which needs a contiguous
-    complex64 payload and raises otherwise.
+    complex64 payload and raises otherwise; ``meta`` tensors take the
+    shape-propagation route (:mod:`repro_torch.kernels`).
     """
     dt = WIRE_DTYPES[wire_dtype]
     if z.device.type == "cpu":
         return pack_wire_ref(z, wire_dtype, groups, axis)
     require_cuda_operands("pack_wire", {"z": z}, {"z": torch.complex64})
-    from .kernel import pack
-
     if groups is None:
         g, (o, i), shape = 1, (1, z.numel()), (2,) + tuple(z.shape)
     else:
         o, i, chunk = pack_geometry(z.shape, groups, axis)
         g, shape = groups, (groups, 2) + chunk
-    with torch.cuda.device(z.device):
-        out = pack(z, dt, o, g, i)
-    pack_wire.launches += 1
+    if on_meta(z):
+        out = torch.empty((g, 2, o, i), dtype=dt, device="meta")
+    else:
+        from .kernel import pack
+
+        with torch.cuda.device(z.device):
+            out = pack(z, dt, o, g, i)
+        pack_wire.launches += 1
     report_launch("pack_wire", z, out)
     return out.reshape(shape)
 
@@ -57,7 +61,8 @@ def unpack_wire(w: torch.Tensor, out_dtype=torch.complex64, grouped: bool = Fals
     ``all_to_all_single``, and the G chunks are concatenated along ``axis``
     of the chunk.  CPU tensors take the plain version; CUDA tensors launch
     the Triton kernel (complex64 out), which needs contiguous planes in a
-    wire dtype and raises otherwise.
+    wire dtype and raises otherwise; ``meta`` tensors take the
+    shape-propagation route (:mod:`repro_torch.kernels`).
     """
     if w.ndim < (3 if grouped else 1) or w.shape[1 if grouped else 0] != 2:
         raise ValueError(f"unpack_wire takes {'(G, 2, ...)' if grouped else '(2, ...)'} "
@@ -70,16 +75,19 @@ def unpack_wire(w: torch.Tensor, out_dtype=torch.complex64, grouped: bool = Fals
         raise ValueError(f"unpack_wire kernel takes planes in a wire dtype "
                          f"({sorted(WIRE_DTYPES)}); got {w.dtype}")
     require_cuda_operands("unpack_wire", {"w": w}, {"w": w.dtype})
-    from .kernel import unpack
-
     if grouped:
         g = w.shape[0]
         o, i, shape = unpack_geometry(tuple(w.shape[2:]), g, axis)
     else:
         g, (o, i), shape = 1, (1, w[0].numel()), tuple(w.shape[1:])
-    with torch.cuda.device(w.device):
-        out = unpack(w, o, g, i)
-    unpack_wire.launches += 1
+    if on_meta(w):
+        out = torch.empty((o, g, i), dtype=torch.complex64, device="meta")
+    else:
+        from .kernel import unpack
+
+        with torch.cuda.device(w.device):
+            out = unpack(w, o, g, i)
+        unpack_wire.launches += 1
     report_launch("unpack_wire", w, out)
     return out.reshape(shape)
 

@@ -15,35 +15,62 @@ every aten operation, and adds up for each one
 
 The kernel wrappers (``repro_torch.kernels.*.ops``) launch Triton and CUDA
 C++ around the dispatcher, where the mode cannot see them: each reports its
-launch and its operand and result bytes through
+launch, its operand and result bytes and its flops through
 :func:`repro_torch.kernels.report_launch`, which only a running walk hears.
+On ``meta`` tensors a wrapper reports the launch the card would make and
+computes nothing, so a walk on ``meta`` operands (the dry runs) counts what
+the card's would.
 
-Collective operations (the ``c10d`` namespace) add nothing here: their
-payload is wire bytes, read from :data:`repro_torch.dist.fft.WIRE_BYTES`
-before and after the call, under the reference's names so that a cost
-prices the same way in both packages: the flat and intra-host tiers as
-``"all-to-all"``, the inter-host hops as ``"collective-permute"``.
+Every collective the mode sees (the ``c10d`` namespace: the four-step
+exchange's all-to-alls and host hops, the LM's all-reduces and
+all-gathers) adds its payload, the bytes of its result tensors in their own
+dtype (a bf16 wire counts 2 bytes an element), to ``collective_bytes`` and
+one to ``collective_counts``, under the reference's names
+(``hlo_analysis.COLLECTIVES``): ``"all-reduce"``, ``"all-gather"``,
+``"reduce-scatter"``, ``"all-to-all"``, and ``"collective-permute"`` for a
+point-to-point ``send`` (its ``recv`` is the same hop, counted once).  A
+collective adds no launch and no HBM bytes here, as before the LM's were
+counted, so the tuner's numbers are the same.  ``group_bytes`` keeps the
+same payloads by the global ranks of the collective's group, which is how
+a dry run prices each group on its own link (:func:`repro_torch.launch.
+roofline.derive`).
+
+``peak_bytes`` is the most that the tensors the call made were holding at
+once (the counterpart of the reference's
+``memory_analysis().temp_size_in_bytes``): the walk sees each result
+when it is made and each storage when it dies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+import weakref
+from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from .. import kernels
-from ..dist import fft as dist_fft
 
 # allocations: a new buffer, nothing read or written on the device
 _ALLOCATIONS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                           "new_empty_strided"})
 _FFTS = {"_fft_c2c": 1.0, "_fft_r2c": 0.5, "_fft_c2r": 0.5}  # flops factor per 5 N log2 N
-_WIRE_NAMES = {"flat": "all-to-all", "intra": "all-to-all", "inter": "collective-permute"}
+# c10d op -> the reference's collective name; the payload is the first
+# argument's tensors (the result of every one of these, the sent buffer of a send)
+_COLLECTIVES = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "send": "collective-permute", "broadcast_": "broadcast",
+}
 
 
 @dataclasses.dataclass
@@ -53,8 +80,13 @@ class Cost:
     flops: float = 0.0
     bytes: float = 0.0
     collective_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
+    collective_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     launches: int = 0
     kernel_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    peak_bytes: int = 0
+    # the global ranks of a collective's group -> {collective: payload bytes}
+    group_bytes: Dict[Tuple[int, ...], Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
 
     def total_collective_bytes(self) -> float:
         return sum(self.collective_bytes.values())
@@ -82,16 +114,68 @@ def _tensors(tree) -> list:
     return out
 
 
+def _group_ranks(args) -> Tuple[int, ...]:
+    """The global ranks of the process group among a c10d op's arguments,
+    where the dispatcher hands it boxed (a ``torch.ScriptObject``); ``()``
+    when there is none."""
+    for a in args:
+        if not isinstance(a, torch.ScriptObject):
+            continue
+        try:
+            group = dist.ProcessGroup.unbox(a)
+        except RuntimeError:  # another boxed argument (the reduce op)
+            continue
+        return tuple(dist.get_process_group_ranks(group))
+    return ()
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
 class _CostMode(TorchDispatchMode):
     def __init__(self, cost: Cost):
         super().__init__()
         self.cost = cost
+        self.live = 0  # bytes of the storages the call made that are alive
+        self.owned: set = set()  # their keys
+
+    def _made(self, args, out) -> None:
+        """Follow the storages of ``out`` that are new (not an operand's):
+        add their bytes to the live count until they die."""
+        known = {_storage_key(t) for t in _tensors(args)}
+        for t in _tensors(out):
+            key = _storage_key(t)
+            if key in known or key in self.owned:
+                continue
+            self.owned.add(key)
+            nbytes = t.untyped_storage().nbytes()
+            self.live += nbytes
+            self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+            weakref.finalize(t, self._died, key, nbytes)
+
+    def _died(self, key: int, nbytes: int) -> None:
+        self.owned.discard(key)
+        self.live -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func._overloadpacket.__name__
-        if func.namespace != "aten" or func.is_view or name in _ALLOCATIONS:
+        if func.namespace == "c10d":
+            kind = _COLLECTIVES.get(name)
+            if kind is not None:
+                payload = float(sum(_nbytes(t) for t in _tensors(args[0])))
+                c = self.cost
+                c.collective_bytes[kind] = c.collective_bytes.get(kind, 0.0) + payload
+                c.collective_counts[kind] = c.collective_counts.get(kind, 0) + 1
+                by_kind = c.group_bytes.setdefault(_group_ranks(args), {})
+                by_kind[kind] = by_kind.get(kind, 0.0) + payload
+            return out
+        if func.namespace != "aten" or func.is_view:
+            return out
+        self._made((args, kwargs), out)
+        if name in _ALLOCATIONS:
             return out
         # operands read once (an out= buffer is only written), results written
         # once: an in-place operand counts on both sides, as it is read and written
@@ -109,23 +193,20 @@ class _CostMode(TorchDispatchMode):
 def walk(fn, *args) -> Cost:
     """Run ``fn(*args)`` once and return what it asked of the device (see the
     module docstring).  The call runs for real: on the rank's device, with
-    its collectives, so every rank of a mesh walks together."""
+    its collectives, so every rank of a mesh walks together (on ``meta``
+    operands over a fake process group, one rank walks alone)."""
     cost = Cost()
 
-    def hook(kernel: str, nbytes: int) -> None:
+    def hook(kernel: str, nbytes: int, flops: float) -> None:
         cost.launches += 1
         cost.bytes += nbytes
+        cost.flops += flops
         cost.kernel_launches[kernel] = cost.kernel_launches.get(kernel, 0) + 1
 
-    wire0 = dict(dist_fft.WIRE_BYTES)
     kernels._launch_hook = hook
     try:
         with _CostMode(cost):
             fn(*args)
     finally:
         kernels._launch_hook = None
-    for tier, name in _WIRE_NAMES.items():
-        sent = dist_fft.WIRE_BYTES[tier] - wire0[tier]
-        if sent:
-            cost.collective_bytes[name] = cost.collective_bytes.get(name, 0.0) + float(sent)
     return cost

@@ -14,10 +14,12 @@ from ..dist.compat import Mesh, make_mesh, world_size
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The production meshes: (data 16, model 16), or (pod 2, data 16,
-    model 16) with ``multi_pod``; they need 256 and 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+    model 16) with ``multi_pod``; they need 256 and 512 ranks.  The
+    three-axis mesh has a joint group over (pod, data), the batch's axes."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device=device,
+                         pairs=(("pod", "data"),))
+    return make_mesh((16, 16), ("data", "model"), device=device)
 
 
 def make_host_mesh(model: int = 1, device=None) -> Mesh:

@@ -39,8 +39,10 @@ split too, the output's partial sum reduced over the model axis.  When the
 rules split the query heads and replicate the kv heads (granite-34b's one
 kv head at any TP, minitron-4b's 8 at TP 3), a rank whose heads straddle
 two groups hands the kernel the kv head of each of its query heads (G = 1).
-:func:`gqa_decode` raises on a mesh of more than one rank (ROADMAP.md
-Queue 1 item 11.7c).
+:func:`gqa_decode` runs the same heads against a cache of the rank's kv
+heads (:func:`init_kv_cache` under the rules; all of them where
+``kv_heads`` is replicated, each query head then reading its own at G = 1
+as in the prefill), ``wo`` row-parallel and reduced.
 
 MLA has no kernel in the reference either: its prefill is the plain
 ``_attend_chunked`` with a q / k head of ``nope + rope`` and a v head of
@@ -187,8 +189,11 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=None) -> KVCache:
+    """An empty cache of ``batch`` rows; under active rules that split
+    ``kv_heads``, of this rank's kv heads."""
     hd = cfg.resolved_head_dim
-    shape = (batch, max_len, cfg.n_kv_heads, hd)
+    kh, _ = sharding.local_block(cfg.n_kv_heads, "kv_heads", "the KV cache")
+    shape = (batch, max_len, kh, hd)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -281,18 +286,22 @@ def gqa_decode(
     """One position per sequence against the cache.  The new key and value
     are written into ``cache.k`` / ``cache.v`` in place (the reference
     returns updated copies; in place saves a copy of the cache per layer
-    and token), so the returned cache shares its tensors with the old one."""
+    and token), so the returned cache shares its tensors with the old one.
+    Under rules that shard ``heads``: this rank's heads (as
+    :func:`gqa_forward`'s), its kv heads' cache, the output reduced over the
+    model axis."""
     b, s, d = x.shape
     if s != 1:
         raise ValueError(f"gqa_decode takes one position per sequence; got {s}")
-    if sharding.is_sharded_run():
-        raise NotImplementedError(f"{cfg.name}: decode on a mesh of more than one rank is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 11.7c)")
     hd = cfg.resolved_head_dim
+    h, kh, kv_of = _local_heads(params, cfg)
+    if cache.k.shape[2] != kh:
+        raise ValueError(f"{cfg.name}: a KV cache of {cache.k.shape[2]} kv heads, but the "
+                         f"active rules give this rank {kh}")
     pos = cache.length[:, None]  # (B, 1)
-    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, hd)
-    k = (x @ params["wk"]).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(b, 1, cfg.n_kv_heads, hd)
+    q = (x @ params["wq"]).reshape(b, 1, h, hd)
+    k = (x @ params["wk"]).reshape(b, 1, kh, hd)
+    v = (x @ params["wv"]).reshape(b, 1, kh, hd)
     if rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -300,14 +309,20 @@ def gqa_decode(
     idx = cache.length.long()
     cache.k[rows, idx] = k[:, 0].to(cache.k.dtype)
     cache.v[rows, idx] = v[:, 0].to(cache.v.dtype)
+    ck, cv = cache.k, cache.v
+    if kv_of is not None:  # G = 1: each local query head's own kv head
+        kv_of = kv_of.to(ck.device)
+        ck, cv = ck.index_select(2, kv_of), cv.index_select(2, kv_of)
     out = _attend_chunked(
-        q, cache.k, cache.v,
+        q, ck, cv,
         causal=False,  # masking via kv_valid_len
         chunk=cfg.attn_chunk,
         kv_valid_len=cache.length + 1,
         sliding_window=cfg.sliding_window,
     )
-    y = out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]
+    y = out.reshape(b, 1, h * hd) @ params["wo"]
+    if h != cfg.n_heads:
+        y = sharding.constrain(y)
     return y, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 

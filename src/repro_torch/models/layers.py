@@ -26,9 +26,21 @@ from ..dist import sharding
 # --------------------------------------------------------------------------
 
 
+class ShapeGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted
+    (:mod:`repro_torch.launch.specs`): its device is ``meta``, so every
+    ``init_*`` given it draws nothing and builds ``meta`` tensors of the
+    shapes and dtypes it would draw."""
+
+    device = torch.device("meta")
+
+
 def _truncated_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """N(0, 1) truncated to [-3, 3], times ``std``, drawn in float32 on the
-    generator's device and cast to ``dtype`` (the reference's order)."""
+    generator's device and cast to ``dtype`` (the reference's order); a
+    :class:`ShapeGenerator` draws nothing."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (t * std).to(dtype)

@@ -27,15 +27,21 @@ scaled embeddings (``use_rope=False``).  Pixtral: ``img_embeds`` (B, N, D),
 cast to the compute dtype and unscaled, go before the scaled token stream,
 and the RoPE positions run over image plus text.
 
-Sharded training (:mod:`repro_torch.dist.sharding`): under active rules
-over a mesh of more than one rank, the dense GQA stacks, the MoE layer and
-pixtral's text stack run on this rank's parameter blocks, with the
-collectives where the reference's ``constrain`` / ``grad_reduce_boundary``
-sit (each tensor-parallel block: :func:`.layers.mlp`,
-:func:`.attention.gqa_forward`, :func:`.moe.expert_ffn`, the embedding and
-the loss head).  MLA (deepseek-v3), Mamba-2 (zamba2), xLSTM and the
-encoder-decoder (whisper) raise ``NotImplementedError`` there (ROADMAP.md
-Queue 1 item 11.7c), as do decoding and prefill logits.
+Sharded runs (:mod:`repro_torch.dist.sharding`): under active rules over a
+mesh of more than one rank, the dense GQA stacks, the MoE layer and
+pixtral's text stack train, prefill and decode on this rank's parameter
+blocks and batch rows, with the collectives where the reference's
+``constrain`` / ``grad_reduce_boundary`` sit (each tensor-parallel block:
+:func:`.layers.mlp`, :func:`.attention.gqa_forward` and
+:func:`.attention.gqa_decode`, :func:`.moe.expert_ffn`, the embedding and
+the loss head).  The prefill and decode logits come from the
+vocabulary-sharded ``unembed`` and are gathered whole over the model axis
+(:func:`logits_for`), so each rank holds its rows' full logits and an
+argmax over them breaks ties as one rank's does.  A decode cache holds the
+rank's rows and its kv heads (all of them where ``kv_heads`` is not split:
+``launch.partition.cache_shardings``).  MLA (deepseek-v3), Mamba-2
+(zamba2), xLSTM and the encoder-decoder (whisper) raise
+``NotImplementedError`` there (ROADMAP.md Queue 1 item 11.7c).
 
 Two behaviours of the reference are kept, faults of the reference
 (ROADMAP.md Queue 3), so the port's decode does not agree with its prefill
@@ -57,7 +63,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import is_meta, resolve_device, static_bound
 from ..dist import sharding
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -490,14 +496,17 @@ def forward_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def logits_for(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    if sharding.is_sharded_run():
-        raise NotImplementedError(f"{cfg.name}: prefill and decode logits on a mesh of more "
-                                  "than one rank are not ported yet (ROADMAP.md Queue 1 item "
-                                  "11.7c); the sharded loss head is losses.chunked_cross_entropy")
+    """The logits (..., vocab_padded) of ``hidden``.  Under rules that shard
+    ``vocab`` the rank's block of them comes from its block of ``unembed``
+    and the blocks are gathered whole over the model axis (the reference's
+    GSPMD may keep them sharded; the port gives every model rank the whole
+    row, so a greedy argmax needs no cross-rank tie-break)."""
     logits = unembed(params["embed"], hidden, cfg.tie_embeddings)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
+    if sharding.split("vocab")[0] > 1:
+        logits = sharding.model_gather(logits, dim=-1)
     return logits
 
 
@@ -550,7 +559,11 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _cache_room(cfg: ModelConfig, state: DecodeState) -> None:
     """Raise ``ValueError`` unless every attention cache has room for this
-    token; one host sync.  Recurrent caches have no positions to fill."""
+    token; one host sync.  Recurrent caches have no positions to fill.  On
+    ``meta`` (a dry run) nothing is checked: nothing is written."""
+    if is_meta(state.segments[0][-1]):
+        static_bound("models/lm.py:_cache_room", "no room check (a dry run writes nothing)")
+        return
     checks = []  # (what, filled positions, positions this token takes, max_len)
     for seg_cache in state.segments:
         if isinstance(seg_cache, attn_mod.KVCache):

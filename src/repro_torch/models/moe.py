@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import is_meta, static_bound
 from ..dist import sharding
 from .config import ModelConfig
 from .layers import _activation, _truncated_normal, dense_init, init_mlp, mlp
@@ -117,7 +118,14 @@ def rebase_slots(cfg: ModelConfig, all_idx: torch.Tensor, slot: torch.Tensor,
     in ``keep`` need).  An expert's slots fill in the global order, so the
     rank's kept pairs of it hold one contiguous range after the earlier
     ranks' pairs: the rows are about ``capacity / D`` over D data ranks, at
-    most the capacity.  Reading the rows is a host sync."""
+    most the capacity.  Reading the rows is a host sync.  On ``meta`` (a
+    dry run) the slots stay global and the rows are the global capacity:
+    the buffers the reference allocates."""
+    if is_meta(slot):
+        cap = capacity(cfg, all_idx.shape[0])
+        static_bound("models/moe.py:rebase_slots",
+                     f"expert buffer rows = the global capacity {cap}, as the reference allocates")
+        return slot, cap
     flat = all_idx.reshape(-1)
     before = torch.bincount(flat[:first], minlength=cfg.n_experts)
     slot = slot - before[flat[first:first + slot.numel()]]

@@ -36,8 +36,8 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     dev = gen.device
     return {
         "in_proj": dense_init(gen, d, 2 * din + 2 * g * ns + nh, dtype),
-        "conv_w": (torch.randn((cfg.ssm_conv, conv_dim), generator=gen, device=dev)
-                   * 0.1).to(dtype),
+        "conv_w": (torch.randn((cfg.ssm_conv, conv_dim), device=dev,
+                               generator=None if dev.type == "meta" else gen) * 0.1).to(dtype),
         "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=dev),
         "a_log": torch.log(torch.linspace(1.0, 16.0, nh, device=dev)),
         "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),

@@ -14,8 +14,10 @@ Under active sharding rules over a mesh of more than one rank
 the state holds this rank's blocks (:mod:`repro_torch.dist.blocks`) and
 the batch its data rows (``launch.partition.data_rows``): the loss is its share of the
 global batch's mean, each gradient leaf not split over ``data`` is summed
-over the data ranks before the update (an FSDP leaf's already is, in its
-gather's backward), the metrics ``loss`` / ``acc`` / ``aux`` likewise, and
+over the batch's ranks (``data``, or (pod, data) on the multi-pod mesh)
+before the update (an FSDP leaf's already is over ``data``, in its
+gather's backward, and is summed over the pods), the metrics ``loss`` /
+``acc`` / ``aux`` likewise, and
 the clip reads the global norm, so every rank steps as the one-rank run.
 
 The serving steps cast the parameters to the compute dtype once and hand
@@ -136,13 +138,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig, microbatches
         if not sharding.is_sharded_run():
             return metrics, grads
         mesh, specs = mesh_specs(state.params)
-        if mesh.size("data") == 1:
+        dp = sharding.batch_axes()
+        if sharding.extent(mesh, dp) == 1:
             return metrics, grads
-        group = mesh.group("data")
+        group = mesh.group(dp)
+        # the multi-pod batch's pods: a leaf split over data (FSDP) is
+        # summed over its data ranks in its gather's backward, over the pods here
+        pods = tuple(a for a in (dp if isinstance(dp, tuple) else (dp,)) if a != "data")
         grads = [g if g is None else g.contiguous() for g in grads]
         for g, spec in zip(grads, specs):
-            if g is not None and "data" not in blocks.spec_axes(spec):
+            if g is None:
+                continue
+            if "data" not in blocks.spec_axes(spec):
                 dist.all_reduce(g, group=group)
+            for a in pods:
+                if "data" in blocks.spec_axes(spec) and mesh.size(a) > 1:
+                    dist.all_reduce(g, group=mesh.group(a))
         keys = sorted(metrics)
         vec = torch.stack([metrics[k].float() for k in keys])
         dist.all_reduce(vec, group=group)

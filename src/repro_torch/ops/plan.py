@@ -62,6 +62,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from ..device import models_the_card, static_bound
 from ..dist.compat import DEVICE_AXIS, HOST_AXIS, MODEL_AXIS, Mesh, gather_cat
 from ..dist.fft import (
     col_block,
@@ -585,6 +586,10 @@ def _wire_guard(wire_plan: ExecutionPlan) -> ExecutionPlan:
     takes the same decision."""
     if (wire_plan.wire_dtype, wire_plan.inter_wire_dtype) == ("fp32", "fp32"):
         return wire_plan
+    if wire_plan.mask2d.device.type == "meta":  # a dry run: no values to probe
+        static_bound("ops/plan.py:_wire_guard", "the demoted wire kept, unprobed, as the "
+                     "reference compiles it")
+        return wire_plan
     ref_plan = dataclasses.replace(wire_plan, config=dataclasses.replace(
         wire_plan.config, wire_dtype="fp32", inter_wire_dtype="fp32"))
     n = wire_plan.n1 * wire_plan.n2
@@ -622,7 +627,8 @@ def resolve_tail(tail: Optional[str], op=None, device=None) -> str:
     (``op=None``) the fused tail runs on any operator's blocks, and
     ``device`` is the one the rank's blocks live on.  The reference's plan
     defaults to its plain tail and leaves the choice to its tuner; the port
-    chooses from the device, so the CLI runs the kernels on the card.
+    chooses from the device, so the CLI runs the kernels on the card, and a
+    dry run's ``meta`` blocks (which stand for the card's) resolve to 'kernel'.
     """
     if tail is not None:
         return tail
@@ -632,7 +638,7 @@ def resolve_tail(tail: Optional[str], op=None, device=None) -> str:
         if not isinstance(op, PartialCirculant):
             return "plain"
         device = op.circ.col.device if device is None else device
-    return "kernel" if device is not None and torch.device(device).type == "cuda" else "plain"
+    return "kernel" if models_the_card(device) else "plain"
 
 
 def _check_mesh(mesh, cfg: PlanConfig) -> PlanConfig:

@@ -66,6 +66,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..device import models_the_card
 from ..dist.compat import DEVICE_AXIS, HOST_AXIS, MODEL_AXIS
 from . import spectral
 from .plan import PlanConfig, _factorize, _plan_with_config
@@ -267,7 +268,7 @@ def candidate_configs(op, mesh, pins: Optional[dict] = None, batch: Optional[int
     overlaps = (pins["overlap"],) if "overlap" in pins else OVERLAPS
     if "tail" in pins:
         tails: Tuple[str, ...] = (pins["tail"],)
-    elif mesh.device.type == "cuda":
+    elif models_the_card(mesh.device):  # the card, or meta standing for it
         tails = ("plain", "kernel")
     else:
         tails = ("plain",)  # off the card the kernel tail is the plain version

@@ -342,28 +342,30 @@ def test_blur_apply_rejects_bad_operands():
 @pytest.mark.parametrize("kernel", ["spectral_pointwise", "cpadmm_tail", "circulant_matvec",
                                     "soft_threshold", "banded_conv"])
 def test_wrappers_raise_on_tensors_they_cannot_launch(kernel, counters):
-    """Off the CPU a wrapper launches its kernel or raises: a tensor that is
-    neither CPU nor CUDA (here on the meta device) gets an error, never the
-    plain version."""
+    """Off the CPU a wrapper launches its kernel, or takes the dry run's
+    ``meta`` route when every operand is ``meta``, or raises: operands that
+    are neither all on the CPU nor all on one card or all ``meta`` (here a
+    ``meta`` tensor beside CPU ones) get an error, never the plain version."""
     meta = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device="meta")
+    cpu = lambda *s, dtype=torch.float32: torch.zeros(*s, dtype=dtype)
     with pytest.raises(ValueError, match="CUDA tensors"):
         if kernel == "spectral_pointwise":
             c = meta(9, dtype=torch.complex64)
-            spectral_update(c, meta(9), c, c, 0.1, 0.1)
+            spectral_update(c, cpu(9), c, c, 0.1, 0.1)
         elif kernel == "cpadmm_tail":
             a = meta(2, 8)
-            fused_cpadmm_tail(a, a, meta(8), meta(8), a, a, 0.1, 0.1, 1.0, 1.0)
+            fused_cpadmm_tail(a, a, cpu(8), meta(8), a, a, 0.1, 0.1, 1.0, 1.0)
         elif kernel == "circulant_matvec":
-            matvec_ops.circulant_matvec_direct(meta(128), meta(2, 128))
+            matvec_ops.circulant_matvec_direct(cpu(128), meta(2, 128))
         elif kernel == "soft_threshold":
-            fused_ista_update(meta(2, 7), meta(2, 7), 0.1)
+            fused_ista_update(meta(2, 7), cpu(2, 7), 0.1)
         else:
-            blur_apply(meta(5), meta(2, 1000), order=5)
+            blur_apply(cpu(5), meta(2, 1000), order=5)
     if kernel == "soft_threshold":
         with pytest.raises(ValueError, match="CUDA tensors"):
-            fused_admm_update(meta(2, 7), meta(2, 7), 0.1, 1.0)
+            fused_admm_update(meta(2, 7), cpu(2, 7), 0.1, 1.0)
         with pytest.raises(ValueError, match="CUDA tensors"):
-            fused_ista_update(meta(2, 7), meta(2, 7), 0.1, tau=torch.tensor(0.5))
+            fused_ista_update(cpu(2, 7), meta(2, 7), 0.1, tau=torch.tensor(0.5))
     assert counters() == [0] * 6
 
 

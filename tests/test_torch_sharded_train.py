@@ -23,7 +23,14 @@ updated parameter:
 * minitron-4b on 1 x 3: 2 query heads a rank over a replicated pair of kv
   heads, rank 1's heads straddling the two groups (gathered to G = 1);
 * the launcher on 2 x 2 and on one rank, each resuming the other's step-4
-  checkpoint for 2 more steps: every run ends where 6 one-rank steps end.
+  checkpoint for 2 more steps: every run ends where 6 one-rank steps end;
+* sharded prefill and decode (``torch_sharded_programs.sharded_serve``) of
+  minitron-4b and moonshot-v1-16b-a3b on 2 x 2 and 1 x 2, and of minitron-4b
+  on 1 x 3 (a rank's query heads straddling two kv groups, read at G = 1
+  from a cache of every kv head): the prefill's last-position logits and
+  every decode step's logits within 1e-5 of the reference's one-device
+  prefill and decode, the greedy tokens equal to the port's one-rank
+  ``greedy_generate``.
 """
 
 import dataclasses
@@ -62,6 +69,13 @@ MESHES = {
 # microbatches are the same arithmetic, within 1e-5 on either side); the
 # port's one-rank pixtral is held against the reference in test_torch_encdec.py
 REFERENCE = ("minitron-4b", "granite-34b", "gemma-7b", "moonshot-v1-16b-a3b")
+# mesh -> {serve case: arch}: sharded prefill and decode from the initial parameters
+SERVES = {
+    (2, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b"},
+    (1, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b"},
+    (1, 3): {"serve-minitron": "minitron-4b"},
+}
+PROMPT, MAX_LEN, GEN = 8, 16, 4  # prompt tokens, cache positions, greedy tokens
 LAUNCH = ["--arch", "minitron-4b", "--smoke", "--steps", "6", "--batch", "4", "--seq", "16",
           "--ckpt-every", "4", "--device", "cpu"]
 
@@ -152,6 +166,35 @@ def _one_rank(arch, tree, batch, micro):
                 ids=ids[0] if ids else None)
 
 
+def _serve_case(arch, tree, batch):
+    return dict(arch=arch, tree=tree, prompt=batch["tokens"][:, :PROMPT], max_len=MAX_LEN,
+                steps=GEN)
+
+
+def _reference_serve(ref, arch, tree, batch):
+    """The reference's one-device prefill (jitted) and decode (jitted, the
+    prompt fed token by token) -> (prefill logits, (B, PROMPT, V) decode
+    logits)."""
+    jax, jnp = ref.jax, ref.jnp
+    cfg = dataclasses.replace(ref.registry.smoke_config(arch), dtype="float32")
+    prompt = jnp.asarray(batch["tokens"][:, :PROMPT].astype(np.int32))
+    prefill = jax.jit(ref.steps.make_prefill_step(cfg))(tree, {"tokens": prompt})
+    decode = jax.jit(ref.steps.make_decode_step(cfg))
+    state = ref.lm.init_decode_state(cfg, prompt.shape[0], MAX_LEN)
+    logits = []
+    for i in range(PROMPT):
+        step_logits, state = decode(tree, prompt[:, i:i + 1], state)
+        logits.append(np.asarray(step_logits))
+    return np.asarray(prefill), np.stack(logits, axis=1)
+
+
+def _one_rank_tokens(arch, tree, batch):
+    cfg = f32_smoke(arch)
+    params = lm_params_from_numpy(tree, cfg, "cpu")
+    return port_steps.greedy_generate(params, cfg, torch.as_tensor(batch["tokens"][:, :PROMPT]),
+                                      GEN, MAX_LEN)
+
+
 @pytest.fixture(scope="module")
 def launched(tmp_path_factory):
     """The launcher: 6 one-rank steps (a step-4 checkpoint in ``one``); on
@@ -178,8 +221,10 @@ def spawned(ref, launched):
             args = {name: dict(arch=arch, tree=inputs[arch][0], batch=inputs[arch][1],
                                micro=micro, opt=OPT) for name, (arch, micro) in cases.items()}
             runs = launched.runs if shape == (2, 2) else ()
+            serves = {name: _serve_case(arch, *inputs[arch])
+                      for name, arch in SERVES[shape].items()}
             got[shape] = spawn_fake_devices(int(np.prod(shape)), sharded_train_program, shape,
-                                            args, runs)[0]
+                                            args, runs, serves)[0]
 
     ranks = threading.Thread(target=spawn_all)
     ranks.start()
@@ -188,6 +233,11 @@ def spawned(ref, launched):
         want = {shape: {name: (refs.get(arch), _one_rank(arch, *inputs[arch], micro))
                         for name, (arch, micro) in cases.items()}
                 for shape, cases in MESHES.items()}
+        serve_archs = {a for s in SERVES.values() for a in s.values()}
+        served = {arch: (_reference_serve(ref, arch, *inputs[arch]),
+                         _one_rank_tokens(arch, *inputs[arch])) for arch in serve_archs}
+        for shape, cases in SERVES.items():
+            want[shape].update({name: served[arch] for name, arch in cases.items()})
     finally:
         ranks.join()
     assert set(got) == set(MESHES), "a mesh's ranks failed (see their output above)"
@@ -265,3 +315,32 @@ def test_launcher_checkpoints_cross_meshes(spawned, launched, capsys):
     for path, want in launched.base.items():
         for what, run in (("2x2", fresh), ("2x2 resumed", resumed), ("1x1 resumed", back)):
             close(run[path], want.numpy(), f"{what} {path}")
+
+
+SERVE_CASES = [(shape, name) for shape, cases in SERVES.items() for name in cases]
+
+
+@pytest.mark.parametrize("shape,name", SERVE_CASES,
+                         ids=[f"{n}-{s[0]}x{s[1]}" for s, n in SERVE_CASES])
+def test_sharded_prefill_and_decode_match_reference(spawned, shape, name):
+    """The prefill's logits and every decode step's, gathered over the data
+    ranks, within 1e-5 of the reference's one-device prefill and decode (the
+    vocabulary gathered over the model ranks; the MoE decode routing each
+    step's B tokens under the global capacity); the greedy tokens those of
+    the port's one rank."""
+    got_all, want_all = spawned[shape]
+    got = got_all[name]
+    (prefill, decode), tokens = want_all[name]
+    close(got["prefill"], prefill, f"{name} prefill logits")
+    assert got["decode"].shape == decode.shape
+    for i in range(PROMPT):
+        close(got["decode"][:, i], decode[:, i], f"{name} decode step {i} logits")
+    assert torch.equal(got["tokens"], tokens)
+
+
+def test_sharded_decode_cache_holds_the_ranks_kv_heads(spawned):
+    """minitron-4b SMOKE's kv heads split over 2 model ranks, and replicated
+    over 3 (the straddling case reads them at G = 1)."""
+    kv = f32_smoke("minitron-4b").n_kv_heads
+    assert spawned[(2, 2)][0]["serve-minitron"]["cache_heads"] == kv // 2
+    assert spawned[(1, 3)][0]["serve-minitron"]["cache_heads"] == kv

@@ -4,7 +4,8 @@ Free of JAX, like ``torch_mesh_programs.py``: the ranks import this module
 and need torch and ``repro_torch`` alone.  Every rank builds the same global
 parameters and batch from the numpy arrays it is given, keeps its blocks
 (``launch.partition``) under ``rules_for_arch`` of its mesh, and runs the
-port's train step; rank 0 returns the gathered results, the others ``None``.
+port's train step, or its prefill and decode; rank 0 returns the gathered
+results, the others ``None``.
 """
 
 import contextlib
@@ -101,6 +102,32 @@ def sharded_step(mesh, case: dict) -> dict:
                 local=[tuple(t.shape) for t in lm.tree_leaves(state.params)])
 
 
+def sharded_serve(mesh, case: dict) -> dict:
+    """The prefill of ``case["prompt"]`` (the last position's logits), the
+    logits of each decode step feeding the prompt token by token, and
+    ``greedy_generate``'s tokens after it, on this rank's blocks and batch
+    rows (its kv heads' cache); each gathered over the data ranks."""
+    cfg = f32_smoke(case["arch"])
+    rules = rules_for_arch(cfg, mesh)
+    with activate_rules(rules, mesh):
+        params = interop.lm_params_from_numpy(case["tree"], cfg, "cpu")
+        params = partition.shard_tree(params, partition.param_shardings(mesh, params, rules),
+                                      mesh)
+        prompt = partition.data_rows({"tokens": torch.as_tensor(case["prompt"])}, mesh,
+                                     rules)["tokens"]
+        prefill = steps.make_prefill_step(cfg)(params, {"tokens": prompt})
+        decode = steps.make_decode_step(cfg)
+        state = lm.init_decode_state(cfg, prompt.shape[0], case["max_len"], device="cpu")
+        logits = []
+        for i in range(prompt.shape[1]):
+            step_logits, state = decode(params, prompt[:, i:i + 1], state)
+            logits.append(step_logits)
+        tokens = steps.greedy_generate(params, cfg, prompt, case["steps"], case["max_len"])
+    rows = lambda t: partition.gather_leaf(t, ("data",), mesh)
+    return dict(prefill=rows(prefill), decode=rows(torch.stack(logits, dim=1)),
+                tokens=rows(tokens), cache_heads=state.segments[0].k.shape[3])
+
+
 def launcher(argv, arch="minitron-4b") -> tuple:
     """The training CLI in this rank (its SMOKE config in float32) -> (its
     standard output, the gathered parameters at the end)."""
@@ -123,11 +150,13 @@ def launcher(argv, arch="minitron-4b") -> tuple:
     return out.getvalue(), path_dict(params)
 
 
-def sharded_train_program(shape, cases: dict, runs=()) -> dict:
-    """Every case's :func:`sharded_step` on one ``shape`` mesh, then the
-    launcher ``runs`` (name -> argv) in order."""
+def sharded_train_program(shape, cases: dict, runs=(), serves=None) -> dict:
+    """Every case's :func:`sharded_step` on one ``shape`` mesh, every
+    ``serves`` case's :func:`sharded_serve`, then the launcher ``runs``
+    (name -> argv) in order."""
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     out = {name: sharded_step(mesh, case) for name, case in cases.items()}
+    out.update({name: sharded_serve(mesh, case) for name, case in (serves or {}).items()})
     for name, argv in runs:
         out[name] = launcher(argv)
     return _lead(out)
