@@ -8,7 +8,7 @@
 
 The second form only times a checkout's flash attention at phase 2's cases
 that do not route to the wgmma kernel, to compare two checkouts on one card;
-the third builds the kernels and runs Paths G4 and G5 alone, the fourth
+the third builds the kernels and runs Paths G4 to G7 alone, the fourth
 Path DR alone (neither prints a result line).
 
 Phases, each unguarded (any failure ends the run with a non-zero code and
@@ -108,7 +108,7 @@ no result line):
    ``method="ista"`` (circulant_matvec twice a step, soft_threshold_ista
    once), held the same way against its solo solves (CPISTA at these
    settings stops short of 1e-4 in MSE, alone as in the engine, and the
-   reference's does too: printed, not gated); Path S-D1: 32 requests on
+   reference's does too: printed, not gated); Path S-D1: 16 requests on
    the one-rank NCCL mesh, an fp32-wire and a bf16-wire bucket (rfft, the
    kernel tail, eager rounds: cpadmm_tail and both wire_pack kernels
    counted), fp32 lanes against their solo solve under the same plan, bf16
@@ -142,7 +142,7 @@ no result line):
    ``make_prefill_step``: the bf16 wgmma flash attention kernel in
    every layer (32 launches); device and host ms, tokens/s, peak memory,
    the attention's share of a profiled prefill;
-10. Path E2 — the same prompts cut to 128 tokens through
+10. Path E2 — the same prompts cut to 32 tokens through
    ``make_decode_step`` one token at a time (the reference's cache
    attention, no kernel), the last steps profiled, held against a prefill
    of the same prompts (5e-2 norm-relative);
@@ -205,10 +205,28 @@ no result line):
    drops; each step's host ms, its ms in gloo collectives and each rank's
    peak memory printed beside the card; then the trained parameters serve
    on the same ranks and on one rank: a prefill of 4 x 32 tokens, 2 of them
-   decoded and 8 greedy tokens (vocabulary-parallel logits gathered
+   decoded and 2 greedy tokens (vocabulary-parallel logits gathered
    over the model ranks, each rank's kv heads' cache, G5's MoE decode routed
    under the global capacity), the logits within TOL_CARD_CPU of the one
    rank's and the tokens equal;
+16d. Paths G6 and G7 — the same serving at full width from a seed, without
+   training, on one rank and then on the same four gloo ranks (float32,
+   TF32 off): whisper-large-v3 FULL (20 heads of 64, 10 a rank; d_ff 5120,
+   vocab 51866) cut to 2 encoder and 2 decoder layers, 4 x 1500 frames and
+   a 4 x 32 prompt: the prefill, the decode state's ``encoder_forward``, 2
+   fed tokens and 2 greedy ones from an argmax loop over
+   ``make_decode_step`` (``greedy_generate`` refuses Whisper), the mma.sync
+   kernel counted in every rank (non-causal S = 1500, causal 32, cross Sq =
+   32 and 1 against 1500); deepseek-v3-671b FULL cut to one dense and one
+   MoE layer of 16 of its 256 routed experts (3.373 B parameters), decoding
+   with ``mla_absorbed`` False, then True (no kernel: MLA is plain code);
+   the ranks draw the global parameters one at a time and keep their blocks;
+   every prefill's and greedy token's logits within TOL_CARD_CPU of one
+   rank's, the tokens equal; each rank's host ms, its ms in gloo
+   collectives and its peak memory printed beside the card; then G6 + G7's
+   time beside what the cuts that pay for them save (E2 128 -> 32 tokens,
+   G4 / G5's serving 8 -> 2 greedy tokens, S-D1 32 -> 16 requests),
+   estimated at this run's rates;
 16c. Path DR — the dry run held against the card: ``cost_walk.walk`` on
    real CUDA tensors, after one warm call each, of D1's CPADMM block (2
    iterations, fp32 and bf16 wires: cpadmm_tail, pack_wire, unpack_wire)
@@ -808,6 +826,14 @@ FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 2048, 24, 8, 
                 ("D=256", "bfloat16", 2, 512, 512, 4, 2, 256, True),
                 ("path E1's shape", "float32", 4, 2048, 2048, 24, 8, 128, True),
                 ("path G3", "float32", 2, 64, 64, 24, 8, 128, True),
+                ("path G6's rank: whisper-large-v3 encoder", "float32", 2, 1500, 1500, 10, 10, 64,
+                 False),
+                ("path G6's rank: whisper-large-v3 decoder", "float32", 2, 32, 32, 10, 10, 64,
+                 True),
+                ("path G6's rank: whisper-large-v3 cross", "float32", 2, 32, 1500, 10, 10, 64,
+                 False),
+                ("path G6's rank: whisper-large-v3 decode cross", "float32", 2, 1, 1500, 10, 10,
+                 64, False),
                 ("train CLI: minitron-4b SMOKE", "bfloat16", 16, 256, 256, 6, 2, 8, True),
                 ("D=16", "bfloat16", 2, 256, 256, 4, 4, 16, True),
                 ("D=32", "bfloat16", 2, 512, 512, 4, 2, 32, True)]
@@ -893,7 +919,9 @@ def check_flash(dev, gen, results) -> None:
     1 against Sk = 1500), E11's (pixtral-12b, 32 over 8 heads of 128), D = 64,
     a ragged GQA (8, 1) S = 1000, a full (non-causal) S = 300 and D = 256
     (gemma-7b's head).  The mma.sync
-    kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, the training
+    kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, Path G6's
+    four at a rank's 10 heads of 64 (the non-causal encoder at S = 1500, the
+    causal decoder at 32, the cross at Sq = 32 and 1 against 1500), the training
     CLI's (minitron-4b SMOKE, bf16, B = 16, S = 256, H = 6 over KH = 2, D = 8)
     and D = 16 (the other SMOKE heads) and D = 32 in bf16, then
     tests/test_flash_attention.py's float32 shapes, its GQA mappings, a
@@ -2094,7 +2122,10 @@ def path_s(dev, n=16384, requests=64, method="cpadmm", name="S") -> dict:
                 dev_ms=dev_ms, worst=worst, gap=gap)
 
 
-def path_s_d1(dev, requests=32) -> dict:
+S_D1_REQUESTS_BEFORE = 32  # S-D1's stream until Paths G6 / G7 came: its cut pays for them
+
+
+def path_s_d1(dev, requests=16) -> dict:
     """S's stream (n = 16384) on the one-rank NCCL mesh: an fp32-wire bucket
     and a bf16-wire bucket (rfft, the kernel tail), eager rounds; fp32 lanes
     against their solo solve under the same plan (TOL_PATHS, equal counts),
@@ -2105,6 +2136,7 @@ def path_s_d1(dev, requests=32) -> dict:
     from repro_torch.ops.plan import PlanConfig, plan
     from repro_torch.serve import RecoveryServer, WallClock
 
+    t_path = time.perf_counter()
     mesh = make_mesh((1,), ("model",))
     op, base = serve_stream(dev, 16384, requests, "cpadmm")
     cfgs = [PlanConfig(rfft=True, tail="kernel"),
@@ -2148,6 +2180,9 @@ def path_s_d1(dev, requests=32) -> dict:
              "does not must run to max_iters")
     if max(max(v) for v in mse.values()) > PAPER_TARGET_MSE:
         fail("Path S-D1: a request's MSE is above 1e-4")
+    # the stream's rounds and its solo solves scale with the requests
+    CUTS[f"S-D1, {S_D1_REQUESTS_BEFORE} -> {requests} requests"] = \
+        (time.perf_counter() - t_path) * (S_D1_REQUESTS_BEFORE - requests) / requests
     return dict(counts=counts, summary=s, host_ms=host_ms)
 
 
@@ -2334,8 +2369,11 @@ def path_e1(dev, seed, batch=4, seq=2048) -> dict:
 PROFILED_STEPS = 5  # Path E2's last decode steps, run under torch.profiler
 
 
-def path_e2(e1, seq=128) -> dict:
-    """The same prompts cut to 128 tokens through make_decode_step one token
+E2_TOKENS_BEFORE = 128  # E2 decoded 128 tokens until Paths G6 / G7 came: its cut pays for them
+
+
+def path_e2(e1, seq=32) -> dict:
+    """The same prompts cut to 32 tokens through make_decode_step one token
     at a time (the reference's cache attention, no kernel), against a
     prefill (the kernel) of the same prompts."""
     import torch
@@ -2390,6 +2428,8 @@ def path_e2(e1, seq=128) -> dict:
     want.update(flash_attention_sm90=cfg.n_layers)
     if counts != want:
         fail(f"Path E2 launch counts {counts}; expected {want}")
+    CUTS[f"E2 decode, {E2_TOKENS_BEFORE} -> {seq} tokens"] = \
+        (E2_TOKENS_BEFORE - seq) * decode_s / n_timed
     return dict(counts=counts, err=err, agree=agree, ms_step=1e3 * decode_s / n_timed,
                 busy_ms=prof["busy_ms"])
 
@@ -3733,10 +3773,14 @@ def _sharded_batches(cfg, seed, batch, seq) -> list:
                                    device="cpu")} for s in range(SHARDED_STEPS)]
 
 
-# Paths G4 / G5 after training: a prefill of SERVE_PROMPT tokens, then the first
-# SERVE_FED of them fed through the decode step and SERVE_TOKENS greedy tokens (G5's
-# decode step gathers its experts' FSDP blocks through gloo: ~1.6 s a step)
-SERVE_PROMPT, SERVE_FED, SERVE_TOKENS = 32, 2, 8
+# Paths G4 / G5 after training, and G6 / G7: a prefill of SERVE_PROMPT tokens, then
+# the first SERVE_FED of them fed through the decode step and SERVE_TOKENS greedy
+# tokens (G5's and G7's decode steps gather their experts' FSDP blocks through gloo:
+# ~1.6 s a step). SERVE_TOKENS was 8 until G6 / G7 came: its cut pays for them.
+SERVE_PROMPT, SERVE_FED, SERVE_TOKENS = 32, 2, 2
+SERVE_TOKENS_BEFORE = 8
+CUTS: dict = {}  # cut -> seconds it saves, estimated at this run's rate (printed by G6 / G7)
+LAST_SERVE: dict = {}  # the last _serve's host ms a decode step (to a synchronize)
 
 
 def _serve_prompt(cfg, seed):
@@ -3748,21 +3792,29 @@ def _serve_prompt(cfg, seed):
                        device="cpu")[:, :SERVE_PROMPT]
 
 
-def _serve(cfg, params, prompt, steps_n):
-    """The prefill of ``prompt`` (its last position's logits), then its
-    first SERVE_FED tokens fed one by one through the decode step and
-    ``steps_n`` greedy tokens (``greedy_generate``'s loop) -> (prefill
-    logits, the logits each greedy token was taken from (B, steps_n, V), the
-    tokens)."""
+def _serve(cfg, params, prompt, steps_n, frames=None, prefill=True):
+    """The prefill of ``prompt`` (its last position's logits; ``None`` when
+    ``prefill`` is false), then its first SERVE_FED tokens fed one by one
+    through the decode step and ``steps_n`` greedy tokens (an argmax loop
+    over the decode step, ``greedy_generate``'s) -> (prefill logits, the
+    logits each greedy token was taken from (B, steps_n, V), the tokens).
+    An encoder-decoder prefills with ``frames`` and decodes against their
+    encoder output (``encoder_forward``, the state's ``cross_kv``)."""
     import torch
 
     from repro_torch.models import lm
     from repro_torch.models import steps as steps_mod
 
-    prefill = steps_mod.make_prefill_step(cfg)(params, {"tokens": prompt})
+    batch = {"tokens": prompt} if frames is None else {"tokens": prompt, "frames": frames}
+    first = steps_mod.make_prefill_step(cfg)(params, batch) if prefill else None
     decode = steps_mod.make_decode_step(cfg)
-    state = lm.init_decode_state(cfg, prompt.shape[0], SERVE_FED + steps_n,
+    cross_kv = None
+    if frames is not None:
+        with torch.no_grad():
+            cross_kv = lm.encoder_forward(params, cfg, frames)
+    state = lm.init_decode_state(cfg, prompt.shape[0], SERVE_FED + steps_n, cross_kv=cross_kv,
                                  device=prompt.device)
+    t0 = time.perf_counter()
     for i in range(SERVE_FED):
         logits, state = decode(params, prompt[:, i:i + 1], state)
     seen, out = [], []
@@ -3771,7 +3823,10 @@ def _serve(cfg, params, prompt, steps_n):
         out.append(torch.argmax(logits[:, :cfg.vocab], dim=-1))
         if i + 1 < steps_n:
             logits, state = decode(params, out[-1][:, None], state)
-    return prefill, torch.stack(seen, dim=1), torch.stack(out, dim=1)
+    if prompt.is_cuda:
+        torch.cuda.synchronize()
+    LAST_SERVE["step_ms"] = (time.perf_counter() - t0) * 1e3 / (SERVE_FED + steps_n - 1)
+    return first, torch.stack(seen, dim=1), torch.stack(out, dim=1)
 
 
 @contextlib.contextmanager
@@ -3874,7 +3929,7 @@ def sharded_baseline(name, cfg, dev, seed, batch, seq, store) -> dict:
     serve = tuple(t.cpu() for t in _serve(cfg, state.params, _serve_prompt(cfg, seed).to(dev),
                                           SERVE_TOKENS))
     out.update(serve=serve, serve_counts=read_counts(),
-               serve_ms=(time.perf_counter() - t0) * 1e3)
+               serve_ms=(time.perf_counter() - t0) * 1e3, serve_step_ms=LAST_SERVE["step_ms"])
     torch.save({p: t.cpu() for p, t in zip(paths, (t for _, t in tree_items(state.params)))},
                f"{store}/params.pt")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4082,7 +4137,8 @@ def _sharded_rank(name, cfg, seed, batch, seq, store):
         zero_counts()
         served = _serve(cfg, state.params, prompt, SERVE_TOKENS)
         torch.cuda.synchronize()
-        out.update(serve_counts=read_counts(), serve_ms=(time.perf_counter() - t0) * 1e3)
+        out.update(serve_counts=read_counts(), serve_ms=(time.perf_counter() - t0) * 1e3,
+                   serve_step_ms=LAST_SERVE["step_ms"])
         served = [partition.gather_leaf(t, ("data",), mesh) for t in served]
         out["serve"] = tuple(t.cpu() for t in served) if dist.get_rank() == 0 else None
     del state, step, batches
@@ -4222,6 +4278,9 @@ def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
              f"expected {want_serve} in every rank")
     counts = {k: sum(r["counts"][k] + r["serve_counts"][k] for r in ranks) for k in r0["counts"]}
     print(f"Path {name}: flash_attention_mma launched {mma} times by rank")
+    step_ms = max(r["serve_step_ms"] for r in ranks) + base["serve_step_ms"]
+    CUTS[f"{name} serving, {SERVE_TOKENS_BEFORE} -> {SERVE_TOKENS} greedy tokens"] = \
+        (SERVE_TOKENS_BEFORE - SERVE_TOKENS) * step_ms / 1e3
     return dict(counts=counts, loss_errs=loss_errs, norm_errs=norm_errs,
                 grad_worst=grad_worst[0], sign_flip=flip, later_grads=later,
                 param_worst=param_worst, undecided=n_undecided, ranks_s=ranks_s,
@@ -4229,15 +4288,212 @@ def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
                 coll_ms=[r["coll_ms"] for r in ranks], peak_gib=[r["peak_gib"] for r in ranks])
 
 
+# -- Paths G6, G7: sharded serving of whisper-large-v3 and deepseek-v3 -------------
+WHISPER_FRAMES = 1500  # the encoder's 30 s window after the stubbed conv front end
+
+
+def _serve_inputs(cfg, seed) -> dict:
+    """Paths G6 / G7's inputs, drawn on the host from ``seed``: 4 x
+    SERVE_PROMPT tokens and, for an encoder-decoder, 4 x WHISPER_FRAMES
+    frames, N(0, 0.02^2)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab, (4, SERVE_PROMPT), generator=gen)}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn(4, WHISPER_FRAMES, cfg.d_model, generator=gen) * 0.02
+    return out
+
+
+def _serve_variants(cfgs, params, inputs) -> list:
+    """:func:`_serve` of ``inputs`` under each config of ``cfgs`` (the same
+    parameters; the prefill under the first alone)."""
+    return [_serve(c, params, inputs["tokens"], SERVE_TOKENS, inputs.get("frames"),
+                   prefill=i == 0) for i, c in enumerate(cfgs)]
+
+
+def _serve_rank(cfgs, seed):
+    """One of Paths G6 / G7's four ranks: a data 2 x model 2 mesh
+    (``make_host_mesh(2)``) under ``rules_for_arch``; the one-rank run's
+    parameters drawn from ``seed`` on the card, one rank at a time, and cut
+    to this rank's blocks; its data rows of the inputs; :func:`_serve_variants`
+    with its host ms, its ms in gloo collectives, its launches and its peak
+    memory; the results gathered over the data ranks on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.compat import rank_device
+    from repro_torch.dist.sharding import activate_rules, rules_for_arch
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import init_params, tree_items
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device()
+    mesh = make_host_mesh(2)
+    cfg = cfgs[0]
+    rules = rules_for_arch(cfg, mesh)
+    with activate_rules(rules, mesh):
+        t0 = time.perf_counter()
+        for r in range(dist.get_world_size()):  # one global copy on the card at a time
+            if dist.get_rank() == r:
+                params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                     device=dev)
+                params = partition.shard_tree(
+                    params, partition.param_shardings(mesh, params, rules), mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        init_s = time.perf_counter() - t0
+        inputs = partition.data_rows({k: v.to(dev) for k, v in _serve_inputs(cfg, seed).items()},
+                                     mesh, rules)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        dist.barrier()
+        with collective_timer() as coll:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = _serve_variants(cfgs, params, inputs)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = LAST_SERVE["step_ms"]
+        gathered = [tuple(None if t is None else partition.gather_leaf(t, ("data",), mesh).cpu()
+                          for t in o) for o in outs]
+        local_params = sum(t.numel() for _, t in tree_items(params))
+    del params, outs
+    torch.cuda.empty_cache()
+    return dict(serve=gathered if dist.get_rank() == 0 else None, host_ms=host_ms,
+                coll_ms=coll["ms"], coll_calls=coll["calls"], counts=counts, peak_gib=peak,
+                init_s=init_s, step_ms=step_ms, local_params=local_params,
+                rules={k: v for k, v in rules.items() if v is not None},
+                coords=dict(zip(mesh.axis_names, mesh.coords)))
+
+
+def _serve_launches(cfg, variants: int) -> dict:
+    """The launches of :func:`_serve_variants` in every rank: float32
+    attention without a sliding window runs the mma.sync kernel, once a
+    layer in a prefill (an encoder-decoder's encoder, decoder and cross
+    layers), once an encoder layer in the decode state's ``encoder_forward``,
+    once a cross layer a decode step (Sq = 1); MLA none (plain code)."""
+    want = dict.fromkeys(_wrappers(), 0)
+    if cfg.attn_type != "mla":
+        steps = variants * (SERVE_FED + SERVE_TOKENS - 1)
+        n = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.is_encdec else 0)
+        if cfg.is_encdec:
+            n += variants * cfg.n_enc_layers + steps * cfg.n_layers
+        want["flash_attention_mma"] = n
+    return want
+
+
+def path_sharded_serve(name, cfgs, dev, seed) -> dict:
+    """Paths G6 / G7: ``cfgs[0]`` (the others the same model under another
+    decode setting) from ``seed`` served on one rank of the card, then on a
+    data 2 x model 2 mesh of four gloo ranks sharing it
+    (``spawn_fake_devices(4, ..., device="cuda:0")``), float32 with cuBLAS
+    TF32 off: a prefill of 4 x SERVE_PROMPT tokens, SERVE_FED of them fed
+    through the decode step and SERVE_TOKENS greedy tokens under each
+    config. Gates: every prefill's and every greedy token's logits within
+    TOL_CARD_CPU of the one-rank run's largest, the tokens equal, and the
+    launches of :func:`_serve_launches` on one rank and in every rank."""
+    import torch
+
+    from repro_torch.dist.compat import spawn_fake_devices
+    from repro_torch.models.lm import init_params, tree_items
+
+    cfg = cfgs[0]
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    shapes = {k: tuple(v.shape) for k, v in _serve_inputs(cfg, seed).items()}
+    inputs = {k: v.to(dev) for k, v in _serve_inputs(cfg, seed).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.perf_counter()
+    base = [tuple(None if t is None else t.cpu() for t in o)
+            for o in _serve_variants(cfgs, params, inputs)]
+    base_ms = (time.perf_counter() - t1) * 1e3
+    base_counts, base_peak, base_step = read_counts(), torch.cuda.max_memory_allocated() / 2**30, \
+        LAST_SERVE["step_ms"]
+    del params, inputs
+    torch.cuda.empty_cache()
+    base_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_fake_devices(4, _serve_rank, cfgs, seed, device=str(dev))
+    ranks_s = time.perf_counter() - t0
+    card = card_line()
+    r0 = ranks[0]
+    shape = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers" if cfg.is_encdec
+             else f"{cfg.n_layers} layers {cfg.layer_kinds()}, {cfg.n_experts} experts")
+    print(f"Path {name}: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads), "
+          f"{shape}, {n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.2f} GB in float32), "
+          f"{r0['local_params'] / 1e9:.3f} B on rank 0; inputs {shapes}; mesh data 2 x model 2 "
+          f"of four gloo ranks on one card, rules {r0['rules']} [{card}]")
+    for i, r in enumerate(ranks):
+        print(f"Path {name} rank {i} {r['coords']}: init {r['init_s']:.2f} s, host ms "
+              f"{r['host_ms']:.1f} (decode {r['step_ms']:.1f} a step) of which in gloo "
+              f"collectives (staged through the host) {r['coll_ms']:.1f} over "
+              f"{r['coll_calls']} calls, peak memory {r['peak_gib']:.2f} GiB, launches "
+              f"{r['counts']} [{card}]")
+    print(f"Path {name} one rank: host ms {base_ms:.1f} (decode {base_step:.1f} a step), peak "
+          f"{base_peak:.2f} GiB, launches {base_counts}; baseline {base_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s [{card}]")
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    errs = []
+    for c, got, want in zip(cfgs, r0["serve"], base):
+        pre = None if want[0] is None else rel(got[0], want[0])
+        seen = rel(got[1], want[1])
+        equal = bool(torch.equal(got[2], want[2]))
+        tag = f"mla_absorbed={c.mla_absorbed}" if c.attn_type == "mla" else "decode"
+        print(f"Path {name} [{tag}] sharded vs one rank: prefill logits "
+              f"{'-' if pre is None else f'{pre:.3e}'}, greedy tokens' logits {seen:.3e} of the "
+              f"largest (tol {TOL_CARD_CPU:.0e}), tokens equal {equal} {got[2].tolist()}")
+        errs.append((pre, seen, equal))
+        if not all(bool(torch.isfinite(t).all()) for t in got[:2] if t is not None):
+            fail(f"Path {name} [{tag}]: non-finite logits")
+        if not ((pre is None or pre <= TOL_CARD_CPU) and seen <= TOL_CARD_CPU):
+            fail(f"Path {name} [{tag}]: sharded logits disagree with one rank's: prefill {pre}, "
+                 f"decode {seen}")
+        if not equal:
+            fail(f"Path {name} [{tag}]: sharded greedy tokens {got[2].tolist()} differ from one "
+                 f"rank's {want[2].tolist()}")
+    want = _serve_launches(cfg, len(cfgs))
+    if base_counts != want or any(r["counts"] != want for r in ranks):
+        fail(f"Path {name} launch counts: one rank {base_counts}, by rank "
+             f"{[r['counts'] for r in ranks]}; expected {want} on each")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in want}
+    return dict(counts=counts, errs=errs, base_s=base_s, ranks_s=ranks_s,
+                host_ms=[r["host_ms"] for r in ranks], coll_ms=[r["coll_ms"] for r in ranks],
+                peak_gib=[r["peak_gib"] for r in ranks], n_params=n_params)
+
+
 def sharded_paths(dev) -> tuple:
     """Paths G4 (minitron-4b) and G5 (moonshot-v1-16b-a3b: its dense first
-    layer and one MoE layer), each at full width cut to 2 layers."""
+    layer and one MoE layer), each at full width cut to 2 layers; then G6
+    (whisper-large-v3 cut to 2 encoder and 2 decoder layers) and G7
+    (deepseek-v3-671b cut to one dense and one MoE layer of 16 of its 256
+    routed experts, decoding naive and absorbed), float32."""
+    import dataclasses
+
     t0 = time.perf_counter()
     g4 = path_sharded("G4", lm_config("minitron-4b", n_layers=2, dtype="float32"), dev, 16)
     g5 = path_sharded("G5", lm_config("moonshot-v1-16b-a3b", n_layers=2, dtype="float32"), dev,
                       17)
     print(f"Paths G4-G5 took {time.perf_counter() - t0:.1f} s")
-    return g4, g5
+    t0 = time.perf_counter()
+    g6 = path_sharded_serve("G6", [lm_config("whisper-large-v3", n_layers=2, n_enc_layers=2,
+                                             dtype="float32")], dev, 18)
+    ds = lm_config("deepseek-v3-671b", n_layers=2, first_k_dense=1, n_experts=16,
+                   dtype="float32")
+    g7 = path_sharded_serve("G7", [dataclasses.replace(ds, mla_absorbed=a) for a in (False, True)],
+                            dev, 19)
+    g67_s = time.perf_counter() - t0
+    print(f"Paths G6-G7 took {g67_s:.1f} s; the cuts that pay for them, each's saving estimated "
+          f"at this run's rate: " + ", ".join(f"{k} {v:.1f} s" for k, v in CUTS.items())
+          + f" ({sum(CUTS.values()):.1f} s in all)")
+    return g4, g5, g6, g7
 
 
 # -- Path DR: the dry run (repro_torch.launch.dryrun / cs_dryrun) held against the card --
@@ -4519,7 +4775,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cli_phase()
     print(f"Paths G3, G1, G2, E5 and the train CLI took {time.perf_counter() - t_train:.1f} s")
-    g4, g5 = sharded_paths(dev)
+    g4, g5, g6, g7 = sharded_paths(dev)
     dr = path_dr(dev)
     print(f"Path DR took {dr['seconds']:.1f} s")
     t_lm = time.perf_counter()
@@ -4548,7 +4804,8 @@ def main() -> int:
                "E2": e2["counts"], "E3": e3["counts"], "E4": e4["counts"], "G1": g1["counts"],
                "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
                "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"], "E10": e10["counts"],
-               "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"], "DR": dr["counts"]}
+               "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"], "G6": g6["counts"],
+               "G7": g7["counts"], "DR": dr["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

@@ -84,8 +84,13 @@ def memory(cfg, kind: str, local: tuple) -> dict:
     """The rank's argument, output and alias bytes from its blocks: a train
     step returns its state, updated in place, and a few scalars; a prefill
     its rows' last-position logits, whole over the vocabulary; a decode
-    step those logits and its cache, written in place."""
+    step those logits and its cache, written in place.  An encoder-decoder's
+    decode step never reads the encoder's weights (its output is the
+    cache's ``cross_kv``): the reference's compiled step drops an unused
+    argument, and neither counts them."""
     argument = tree_bytes(local)
+    if kind == "decode" and cfg.is_encdec:
+        argument -= tree_bytes(local[0]["encoder"])
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     if kind == "train":
         state = tree_bytes(local[0])

@@ -13,9 +13,9 @@ reference's partition specs (:mod:`repro_torch.launch.partition`) and the
 rules of :func:`repro_torch.dist.sharding.rules_for_arch`, and trains on
 its data rows of the global batch.  ``--mesh single|multipod`` asks for
 the production meshes, (16, 16) and (2, 16, 16), and raises ``ValueError``
-on a world without their 256 or 512 ranks.  MLA, Mamba-2, xLSTM and
-encoder-decoder configs raise ``NotImplementedError`` on a mesh of more
-than one rank (ROADMAP.md Queue 1 item 11.7c).
+on a world without their 256 or 512 ranks.  Mamba-2 (zamba2) and xLSTM
+configs raise ``NotImplementedError`` on a mesh of more than one rank
+(ROADMAP.md Queue 1 item 11.7c-b).
 
 The parameters are drawn from ``--seed`` on the device, and each step's
 global batch from a generator seeded by ``(seed, step, host)``

@@ -52,7 +52,14 @@ the latent ``c_kv`` and the shared RoPE key alone, written in place as the
 GQA cache is; :func:`mla_decode` expands it to per-head K / V every step,
 :func:`mla_decode_absorbed` folds ``w_uk`` into the query and ``w_uv`` into
 the output and attends in the latent space in float32 (``cfg.mla_absorbed``
-picks one in ``lm``).
+picks one in ``lm``).  Under rules that shard ``heads``, each runs this
+rank's heads (its blocks of ``w_uq`` or ``w_q``, ``w_uk``, ``w_uv`` and
+the row-parallel ``wo``, reduced over the model axis) against the latent
+path, which is replicated: ``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm`` and
+``w_krope`` compute the same ``cq``, ``c_kv`` and ``k_rope`` on every model
+rank (a decode cache holds the whole latent of the rank's rows), and the
+three sum their cotangents over the model axis where they enter the
+head-parallel products.
 """
 
 from __future__ import annotations
@@ -366,16 +373,34 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=Non
     )
 
 
-def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """-> q (B, S, H, nope + rope), the rope half rotated."""
+def _mla_local_heads(params: dict, cfg: ModelConfig) -> int:
+    """This rank's MLA heads under the active rules (all of them without
+    rules, or where ``heads`` does not split), checked against the widths of
+    its blocks of ``w_uq`` (or ``w_q``), ``w_uk``, ``w_uv`` and ``wo``."""
+    h, _ = sharding.local_block(cfg.n_heads, "heads", "attn/w_uk")
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    wq = params["w_uq"] if cfg.q_lora_rank else params["w_q"]
+    got = (wq.shape[-1], params["w_uk"].shape[-1], params["w_uv"].shape[-1],
+           params["wo"].shape[-2])
+    if got != (h * (dn + dr), h * dn, h * dv, h * dv):
+        raise ValueError(f"{cfg.name}: MLA blocks of widths {got} (w_q / w_uq, w_uk, w_uv, wo), "
+                         f"but the active rules give this rank {h} heads of {dn} + {dr} / {dv}")
+    return h
+
+
+def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+           h: int, tp: bool = False) -> torch.Tensor:
+    """-> q (B, S, h, nope + rope) of this rank's ``h`` heads, the rope half
+    rotated.  Under tensor parallelism (``tp``) the replicated activation
+    entering the head-parallel product (``cq``, or ``x`` without a q latent)
+    sums its cotangent over the model axis."""
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
     if cfg.q_lora_rank:
         cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
-        q = cq @ params["w_uq"]
+        q = (sharding.grad_reduce_boundary(cq) if tp else cq) @ params["w_uq"]
     else:
-        q = x @ params["w_q"]
+        q = (sharding.grad_reduce_boundary(x) if tp else x) @ params["w_q"]
     q = q.reshape(b, s, h, dn + dr)
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     return torch.cat([q[..., :dn], q_rope], dim=-1)
@@ -384,7 +409,7 @@ def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def _mla_latent(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (c_kv (B, S, kv_lora_rank) normed, k_rope (B, S, rope) rotated):
-    what the decode cache keeps of x."""
+    what the decode cache keeps of x, whole on every model rank."""
     c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
     k_rope = apply_rope((x @ params["w_krope"])[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
@@ -392,10 +417,15 @@ def _mla_latent(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mla_kv_from_latent(params: dict, cfg: ModelConfig, c_kv: torch.Tensor,
-                        k_rope: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expand the latent to per-head K (nope || rope) and V."""
+                        k_rope: torch.Tensor, h: int,
+                        tp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand the latent to per-head K (nope || rope) and V of this rank's
+    ``h`` heads; under ``tp`` the replicated latent and rope key sum their
+    cotangents over the model axis."""
     b, sk, _ = c_kv.shape
-    h, dn, dv = cfg.n_heads, cfg.nope_head_dim, cfg.v_head_dim
+    dn, dv = cfg.nope_head_dim, cfg.v_head_dim
+    if tp:
+        c_kv, k_rope = sharding.grad_reduce_boundary(c_kv), sharding.grad_reduce_boundary(k_rope)
     k_nope = (c_kv @ params["w_uk"]).reshape(b, sk, h, dn)
     v = (c_kv @ params["w_uv"]).reshape(b, sk, h, dv)
     k_rope_b = k_rope[:, :, None, :].expand(b, sk, h, cfg.rope_head_dim)
@@ -405,19 +435,24 @@ def _mla_kv_from_latent(params: dict, cfg: ModelConfig, c_kv: torch.Tensor,
 def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """Causal MLA over (B, S, D): the plain ``_attend_chunked`` with q / k
-    heads of nope + rope and v heads of ``v_head_dim``."""
+    heads of nope + rope and v heads of ``v_head_dim``, on this rank's heads
+    (``wo`` row-parallel, its partial sum reduced over the model axis)."""
     b, s, _ = x.shape
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    q = _mla_q(params, cfg, x, positions)
-    k, v = _mla_kv_from_latent(params, cfg, *_mla_latent(params, cfg, x, positions))
+    h = _mla_local_heads(params, cfg)
+    tp = h != cfg.n_heads
+    q = _mla_q(params, cfg, x, positions, h, tp)
+    k, v = _mla_kv_from_latent(params, cfg, *_mla_latent(params, cfg, x, positions), h, tp)
     out = _attend_chunked(q, k, v, causal=True, chunk=cfg.attn_chunk, scale=(dn + dr) ** -0.5)
-    return out.reshape(b, s, cfg.n_heads * dv) @ params["wo"]
+    y = out.reshape(b, s, h * dv) @ params["wo"]
+    return sharding.constrain(y) if tp else y
 
 
-def _mla_append(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                cache: MLACache) -> torch.Tensor:
+def _mla_append(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: MLACache,
+                h: int) -> torch.Tensor:
     """Write x's latent and rope key at each row's ``cache.length``, in
-    place; -> the query (B, 1, H, nope + rope) at that position."""
+    place (every model rank writes the same latent); -> the query (B, 1, h,
+    nope + rope) of this rank's ``h`` heads at that position."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"MLA decode takes one position per sequence; got {s}")
@@ -426,7 +461,7 @@ def _mla_append(params: dict, cfg: ModelConfig, x: torch.Tensor,
     rows, idx = torch.arange(b, device=x.device), cache.length.long()
     cache.c_kv[rows, idx] = c_new[:, 0].to(cache.c_kv.dtype)
     cache.k_rope[rows, idx] = kr_new[:, 0].to(cache.k_rope.dtype)
-    return _mla_q(params, cfg, x, pos)
+    return _mla_q(params, cfg, x, pos, h)
 
 
 def mla_decode_absorbed(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -434,11 +469,14 @@ def mla_decode_absorbed(params: dict, cfg: ModelConfig, x: torch.Tensor,
     """One position against the latent cache with DeepSeek's weight
     absorption, in float32 as the reference: scores = (q_nope W_uk) . c_kv +
     q_rope . k_rope, out = softmax(scores) . c_kv, y = out W_uv W_o.  No
-    (S, H) key or value is built.  The cache is written in place."""
+    (S, H) key or value is built.  The cache is written in place.  Under
+    rules that shard ``heads``: this rank's heads against the whole latent,
+    the output reduced over the model axis."""
     b = x.shape[0]
-    h, r = cfg.n_heads, cfg.kv_lora_rank
+    r = cfg.kv_lora_rank
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    q = _mla_append(params, cfg, x, cache)
+    h = _mla_local_heads(params, cfg)
+    q = _mla_append(params, cfg, x, cache, h)
     q_nope, q_rope = q[:, 0, :, :dn].float(), q[:, 0, :, dn:].float()
     c_kv = cache.c_kv.float()
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope, params["w_uk"].reshape(r, h, dn).float())
@@ -447,9 +485,11 @@ def mla_decode_absorbed(params: dict, cfg: ModelConfig, x: torch.Tensor,
     valid = torch.arange(c_kv.shape[1], device=x.device)[None, None, :] \
         < (cache.length + 1)[:, None, None]
     w = torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1)
-    out_lat = torch.einsum("bhs,bsr->bhr", w, c_kv)  # (B, H, R)
+    out_lat = torch.einsum("bhs,bsr->bhr", w, c_kv)  # (B, h, R)
     out_v = torch.einsum("bhr,rhv->bhv", out_lat, params["w_uv"].reshape(r, h, dv).float())
     y = out_v.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"]
+    if h != cfg.n_heads:
+        y = sharding.constrain(y)
     return y, MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, length=cache.length + 1)
 
 
@@ -457,12 +497,16 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                cache: MLACache) -> Tuple[torch.Tensor, MLACache]:
     """One position against the latent cache, expanded to per-head K / V
     over the whole cache (``_attend_chunked`` with a valid-length mask).
-    The cache is written in place."""
+    The cache is written in place.  Under rules that shard ``heads``: this
+    rank's heads, the output reduced over the model axis."""
     b = x.shape[0]
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    q = _mla_append(params, cfg, x, cache)
-    k, v = _mla_kv_from_latent(params, cfg, cache.c_kv, cache.k_rope)
+    h = _mla_local_heads(params, cfg)
+    q = _mla_append(params, cfg, x, cache, h)
+    k, v = _mla_kv_from_latent(params, cfg, cache.c_kv, cache.k_rope, h)
     out = _attend_chunked(q, k, v, causal=False, chunk=cfg.attn_chunk,
                           scale=(dn + dr) ** -0.5, kv_valid_len=cache.length + 1)
-    y = out.reshape(b, 1, cfg.n_heads * dv) @ params["wo"]
+    y = out.reshape(b, 1, h * dv) @ params["wo"]
+    if h != cfg.n_heads:
+        y = sharding.constrain(y)
     return y, MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, length=cache.length + 1)

@@ -28,20 +28,24 @@ cast to the compute dtype and unscaled, go before the scaled token stream,
 and the RoPE positions run over image plus text.
 
 Sharded runs (:mod:`repro_torch.dist.sharding`): under active rules over a
-mesh of more than one rank, the dense GQA stacks, the MoE layer and
-pixtral's text stack train, prefill and decode on this rank's parameter
-blocks and batch rows, with the collectives where the reference's
-``constrain`` / ``grad_reduce_boundary`` sit (each tensor-parallel block:
-:func:`.layers.mlp`, :func:`.attention.gqa_forward` and
-:func:`.attention.gqa_decode`, :func:`.moe.expert_ffn`, the embedding and
-the loss head).  The prefill and decode logits come from the
+mesh of more than one rank, the dense GQA stacks, the MoE layer, MLA
+(deepseek-v3), Whisper's encoder-decoder and pixtral's text stack train,
+prefill and decode on this rank's parameter blocks and batch rows, with the
+collectives where the reference's ``constrain`` / ``grad_reduce_boundary``
+sit (each tensor-parallel block: :func:`.layers.mlp`,
+:func:`.attention.gqa_forward` and :func:`.attention.gqa_decode`, the MLA
+functions, :func:`.moe.expert_ffn`, the embedding and the loss head).
+Whisper's encoder and cross layers are :func:`.attention.gqa_forward` on
+the rank's heads; the cross source (the encoder's output, and a decode's
+``DecodeState.cross_kv``) is whole on every model rank, its rows the
+rank's data rows.  The prefill and decode logits come from the
 vocabulary-sharded ``unembed`` and are gathered whole over the model axis
 (:func:`logits_for`), so each rank holds its rows' full logits and an
 argmax over them breaks ties as one rank's does.  A decode cache holds the
 rank's rows and its kv heads (all of them where ``kv_heads`` is not split:
-``launch.partition.cache_shardings``).  MLA (deepseek-v3), Mamba-2
-(zamba2), xLSTM and the encoder-decoder (whisper) raise
-``NotImplementedError`` there (ROADMAP.md Queue 1 item 11.7c).
+``launch.partition.cache_shardings``); an MLA cache holds the rank's rows of
+the whole latent.  Mamba-2 (zamba2) and xLSTM raise
+``NotImplementedError`` there (ROADMAP.md Queue 1 item 11.7c-b).
 
 Two behaviours of the reference are kept, faults of the reference
 (ROADMAP.md Queue 3), so the port's decode does not agree with its prefill
@@ -169,14 +173,13 @@ def check_sharded(cfg: ModelConfig, what: str = "training") -> None:
     yet when rules are active over a mesh of more than one rank."""
     if not sharding.is_sharded_run():
         return
-    family = ("MLA" if cfg.attn_type == "mla" else
-              "Mamba-2" if cfg.block_type == "mamba2" else
-              "xLSTM" if cfg.block_type == "xlstm" else
-              "the encoder-decoder" if cfg.is_encdec else None)
+    family = ("Mamba-2" if cfg.block_type == "mamba2" else
+              "xLSTM" if cfg.block_type == "xlstm" else None)
     if family is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {what} on a mesh of more than one rank is ported for the dense GQA "
-            f"and MoE stacks; {family} is not sharded yet (ROADMAP.md Queue 1 item 11.7c)")
+            f"{cfg.name}: {what} on a mesh of more than one rank is ported for the dense GQA, "
+            f"MoE, MLA and encoder-decoder stacks; {family} is not sharded yet (ROADMAP.md "
+            f"Queue 1 item 11.7c-b)")
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:

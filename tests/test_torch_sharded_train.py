@@ -22,15 +22,23 @@ updated parameter:
   1 x 2 (tied embeddings, the softcap);
 * minitron-4b on 1 x 3: 2 query heads a rank over a replicated pair of kv
   heads, rank 1's heads straddling the two groups (gathered to G = 1);
+* deepseek-v3-671b (MLA over the MoE) and whisper-large-v3 (the
+  encoder-decoder, ``frames`` in the batch) on 2 x 2, 1 x 2 and 1 x 3: MLA's
+  heads split with its latent path replicated (every replicated latent
+  leaf's gradient held on its own), Whisper's encoder, decoder and cross
+  heads split; at TP 3 their 4 heads replicate with no collective;
 * the launcher on 2 x 2 and on one rank, each resuming the other's step-4
   checkpoint for 2 more steps: every run ends where 6 one-rank steps end;
 * sharded prefill and decode (``torch_sharded_programs.sharded_serve``) of
-  minitron-4b and moonshot-v1-16b-a3b on 2 x 2 and 1 x 2, and of minitron-4b
+  minitron-4b and moonshot-v1-16b-a3b on 2 x 2 and 1 x 2, of minitron-4b
   on 1 x 3 (a rank's query heads straddling two kv groups, read at G = 1
-  from a cache of every kv head): the prefill's last-position logits and
-  every decode step's logits within 1e-5 of the reference's one-device
-  prefill and decode, the greedy tokens equal to the port's one-rank
-  ``greedy_generate``.
+  from a cache of every kv head), and of deepseek-v3-671b (the naive and
+  the absorbed MLA decode, each rank's cache the whole latent of its data
+  rows) and whisper-large-v3 (decoding against ``cross_kv``) on all three:
+  the prefill's last-position logits and every decode step's logits within
+  1e-5 of the reference's one-device prefill and decode, the greedy tokens
+  equal to the port's one rank's (``greedy_generate``, or Whisper's argmax
+  loop over the decode step).
 """
 
 import dataclasses
@@ -48,7 +56,7 @@ from repro_torch.models import lm as port_lm
 from repro_torch.models import steps as port_steps
 from repro_torch.optim import adamw as port_adamw
 from torch_sharded_programs import (drop_counter, f32_smoke, launcher, path_dict, routing_ids,
-                                    sharded_train_program)
+                                    serve_run, sharded_train_program)
 
 TOL = 1e-5
 S = 24
@@ -56,24 +64,40 @@ S = 24
 OPT = {}
 # arch -> global batch rows (one set of parameters and one batch an arch)
 ROWS = {"minitron-4b": 4, "granite-34b": 2, "gemma-7b": 2, "pixtral-12b": 4,
-        "moonshot-v1-16b-a3b": 8}
+        "moonshot-v1-16b-a3b": 8, "deepseek-v3-671b": 4, "whisper-large-v3": 4}
+S_ENC = 12  # whisper's frames a row
 # mesh -> {case: (arch, microbatches)}
 MESHES = {
     (2, 2): {"minitron-m1": ("minitron-4b", 1), "minitron-m2": ("minitron-4b", 2),
-             "pixtral": ("pixtral-12b", 1), "moonshot": ("moonshot-v1-16b-a3b", 1)},
-    (1, 2): {"granite": ("granite-34b", 1), "gemma": ("gemma-7b", 1)},
-    (1, 3): {"minitron-tp3": ("minitron-4b", 1)},
+             "pixtral": ("pixtral-12b", 1), "moonshot": ("moonshot-v1-16b-a3b", 1),
+             "deepseek": ("deepseek-v3-671b", 1), "whisper": ("whisper-large-v3", 1)},
+    (1, 2): {"granite": ("granite-34b", 1), "gemma": ("gemma-7b", 1),
+             "deepseek": ("deepseek-v3-671b", 1), "whisper": ("whisper-large-v3", 1)},
+    (1, 3): {"minitron-tp3": ("minitron-4b", 1), "deepseek": ("deepseek-v3-671b", 1),
+             "whisper": ("whisper-large-v3", 1)},
 }
 # the archs held against the reference's step (its compile dominates this
 # file's time, so each runs once, at 1 microbatch: a dense model's 2
 # microbatches are the same arithmetic, within 1e-5 on either side); the
 # port's one-rank pixtral is held against the reference in test_torch_encdec.py
-REFERENCE = ("minitron-4b", "granite-34b", "gemma-7b", "moonshot-v1-16b-a3b")
-# mesh -> {serve case: arch}: sharded prefill and decode from the initial parameters
+REFERENCE = ("minitron-4b", "granite-34b", "gemma-7b", "moonshot-v1-16b-a3b",
+             "deepseek-v3-671b", "whisper-large-v3")
+# serve key -> (arch, config fields over its f32 SMOKE config)
+SERVE_KEYS = {"minitron-4b": ("minitron-4b", {}),
+              "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}),
+              "deepseek-naive": ("deepseek-v3-671b", {"mla_absorbed": False}),
+              "deepseek-absorbed": ("deepseek-v3-671b", {"mla_absorbed": True}),
+              "whisper-large-v3": ("whisper-large-v3", {})}
+_MLA_WHISPER = {"serve-deepseek-naive": "deepseek-naive",
+                "serve-deepseek-absorbed": "deepseek-absorbed",
+                "serve-whisper": "whisper-large-v3"}
+# mesh -> {serve case: serve key}: sharded prefill and decode from the initial parameters
 SERVES = {
-    (2, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b"},
-    (1, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b"},
-    (1, 3): {"serve-minitron": "minitron-4b"},
+    (2, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b",
+             **_MLA_WHISPER},
+    (1, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b",
+             **_MLA_WHISPER},
+    (1, 3): {"serve-minitron": "minitron-4b", **_MLA_WHISPER},
 }
 PROMPT, MAX_LEN, GEN = 8, 16, 4  # prompt tokens, cache positions, greedy tokens
 LAUNCH = ["--arch", "minitron-4b", "--smoke", "--steps", "6", "--batch", "4", "--seq", "16",
@@ -116,6 +140,9 @@ def _inputs(arch, seed):
     if cfg.n_img_tokens:
         batch["img_embeds"] = rng.standard_normal(
             (rows, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = (rng.standard_normal((rows, S_ENC, cfg.d_model)) * 0.02).astype(
+            np.float32)
     return tree, batch
 
 
@@ -166,21 +193,29 @@ def _one_rank(arch, tree, batch, micro):
                 ids=ids[0] if ids else None)
 
 
-def _serve_case(arch, tree, batch):
-    return dict(arch=arch, tree=tree, prompt=batch["tokens"][:, :PROMPT], max_len=MAX_LEN,
-                steps=GEN)
+def _serve_case(key, tree, batch):
+    arch, kw = SERVE_KEYS[key]
+    return dict(arch=arch, cfg=kw, tree=tree, prompt=batch["tokens"][:, :PROMPT],
+                frames=batch.get("frames"), max_len=MAX_LEN, steps=GEN)
 
 
-def _reference_serve(ref, arch, tree, batch):
+def _reference_serve(ref, key, tree, batch):
     """The reference's one-device prefill (jitted) and decode (jitted, the
-    prompt fed token by token) -> (prefill logits, (B, PROMPT, V) decode
-    logits)."""
+    prompt fed token by token; an encoder-decoder's against the encoder's
+    output of its frames) -> (prefill logits, (B, PROMPT, V) decode logits)."""
     jax, jnp = ref.jax, ref.jnp
-    cfg = dataclasses.replace(ref.registry.smoke_config(arch), dtype="float32")
+    arch, kw = SERVE_KEYS[key]
+    cfg = dataclasses.replace(ref.registry.smoke_config(arch), dtype="float32", **kw)
     prompt = jnp.asarray(batch["tokens"][:, :PROMPT].astype(np.int32))
-    prefill = jax.jit(ref.steps.make_prefill_step(cfg))(tree, {"tokens": prompt})
+    inputs = {"tokens": prompt}
+    cross_kv = None
+    if cfg.is_encdec:
+        inputs["frames"] = jnp.asarray(batch["frames"])
+        cross_kv = jax.jit(lambda p, f: ref.lm.encoder_forward(p, cfg, f))(tree,
+                                                                          inputs["frames"])
+    prefill = jax.jit(ref.steps.make_prefill_step(cfg))(tree, inputs)
     decode = jax.jit(ref.steps.make_decode_step(cfg))
-    state = ref.lm.init_decode_state(cfg, prompt.shape[0], MAX_LEN)
+    state = ref.lm.init_decode_state(cfg, prompt.shape[0], MAX_LEN, cross_kv=cross_kv)
     logits = []
     for i in range(PROMPT):
         step_logits, state = decode(tree, prompt[:, i:i + 1], state)
@@ -188,11 +223,14 @@ def _reference_serve(ref, arch, tree, batch):
     return np.asarray(prefill), np.stack(logits, axis=1)
 
 
-def _one_rank_tokens(arch, tree, batch):
-    cfg = f32_smoke(arch)
+def _one_rank_serve(key, tree, batch):
+    """The port's one-rank ``serve_run`` on the same numbers."""
+    arch, kw = SERVE_KEYS[key]
+    cfg = f32_smoke(arch, **kw)
     params = lm_params_from_numpy(tree, cfg, "cpu")
-    return port_steps.greedy_generate(params, cfg, torch.as_tensor(batch["tokens"][:, :PROMPT]),
-                                      GEN, MAX_LEN)
+    frames = batch.get("frames")
+    return serve_run(cfg, params, torch.as_tensor(batch["tokens"][:, :PROMPT]), MAX_LEN, GEN,
+                     None if frames is None else torch.as_tensor(frames))
 
 
 @pytest.fixture(scope="module")
@@ -221,8 +259,8 @@ def spawned(ref, launched):
             args = {name: dict(arch=arch, tree=inputs[arch][0], batch=inputs[arch][1],
                                micro=micro, opt=OPT) for name, (arch, micro) in cases.items()}
             runs = launched.runs if shape == (2, 2) else ()
-            serves = {name: _serve_case(arch, *inputs[arch])
-                      for name, arch in SERVES[shape].items()}
+            serves = {name: _serve_case(key, *inputs[SERVE_KEYS[key][0]])
+                      for name, key in SERVES[shape].items()}
             got[shape] = spawn_fake_devices(int(np.prod(shape)), sharded_train_program, shape,
                                             args, runs, serves)[0]
 
@@ -233,11 +271,12 @@ def spawned(ref, launched):
         want = {shape: {name: (refs.get(arch), _one_rank(arch, *inputs[arch], micro))
                         for name, (arch, micro) in cases.items()}
                 for shape, cases in MESHES.items()}
-        serve_archs = {a for s in SERVES.values() for a in s.values()}
-        served = {arch: (_reference_serve(ref, arch, *inputs[arch]),
-                         _one_rank_tokens(arch, *inputs[arch])) for arch in serve_archs}
+        serve_keys = {k for s in SERVES.values() for k in s.values()}
+        served = {key: (_reference_serve(ref, key, *inputs[SERVE_KEYS[key][0]]),
+                        _one_rank_serve(key, *inputs[SERVE_KEYS[key][0]]))
+                  for key in serve_keys}
         for shape, cases in SERVES.items():
-            want[shape].update({name: served[arch] for name, arch in cases.items()})
+            want[shape].update({name: served[key] for name, key in cases.items()})
     finally:
         ranks.join()
     assert set(got) == set(MESHES), "a mesh's ranks failed (see their output above)"
@@ -276,7 +315,8 @@ def test_sharded_step_matches_reference_and_one_rank(spawned, shape, name):
 def test_sharding_is_real(spawned):
     """The rules shard what the cases claim: heads and kv heads on 2 x 2,
     heads over a replicated kv head on 1 x 2 (granite) and 1 x 3
-    (minitron), experts and FSDP for moonshot, the vocabulary everywhere;
+    (minitron), experts and FSDP for moonshot, the vocabulary everywhere,
+    MLA's heads over its whole latent path, Whisper's heads where 4 divide;
     rank 0's blocks are the shapes that says."""
     two, one_by_two, one_by_three = (spawned[s][0] for s in ((2, 2), (1, 2), (1, 3)))
     assert two["minitron-m1"]["rules"]["heads"] == two["minitron-m1"]["rules"]["kv_heads"] \
@@ -288,6 +328,23 @@ def test_sharding_is_real(spawned):
     moon = two["moonshot"]["rules"]
     assert moon["experts"] == "model" and moon["fsdp"] == "data" and moon["vocab"] == "model"
     assert (512 // 2, 48) in two["minitron-m1"]["local"]  # the vocab-split embedding table
+    # MLA's heads split on 2 x 2: rank 0's blocks of the first layer's w_uq, w_uk, w_uv
+    # and wo (2 of 4 heads), its latent path whole
+    ds = f32_smoke("deepseek-v3-671b")
+    assert two["deepseek"]["rules"]["heads"] == "model"
+    local = two["deepseek"]["local"]
+    for want in ((1, ds.q_lora_rank, 2 * (ds.nope_head_dim + ds.rope_head_dim)),
+                 (1, ds.kv_lora_rank, 2 * ds.nope_head_dim),
+                 (1, ds.kv_lora_rank, 2 * ds.v_head_dim), (1, 2 * ds.v_head_dim, ds.d_model),
+                 (1, ds.d_model, ds.kv_lora_rank), (1, ds.d_model, ds.q_lora_rank)):
+        assert want in local, (want, local)
+    # whisper's 4 heads split on 2 x 2 and on 1 x 2, replicated at TP 3 (so are its
+    # MLP and vocabulary: 128 and 256 do not divide over 3), as are deepseek's
+    for mesh in (two, one_by_two):
+        assert mesh["whisper"]["rules"]["heads"] == mesh["whisper"]["rules"]["kv_heads"] \
+            == "model"
+    assert one_by_three["whisper"]["rules"]["heads"] is None
+    assert one_by_three["deepseek"]["rules"]["heads"] is None
 
 
 def test_moe_routing_is_global_and_drops(spawned):
@@ -330,12 +387,12 @@ def test_sharded_prefill_and_decode_match_reference(spawned, shape, name):
     the port's one rank."""
     got_all, want_all = spawned[shape]
     got = got_all[name]
-    (prefill, decode), tokens = want_all[name]
+    (prefill, decode), one = want_all[name]
     close(got["prefill"], prefill, f"{name} prefill logits")
     assert got["decode"].shape == decode.shape
     for i in range(PROMPT):
         close(got["decode"][:, i], decode[:, i], f"{name} decode step {i} logits")
-    assert torch.equal(got["tokens"], tokens)
+    assert torch.equal(got["tokens"], one["tokens"])
 
 
 def test_sharded_decode_cache_holds_the_ranks_kv_heads(spawned):
@@ -344,3 +401,20 @@ def test_sharded_decode_cache_holds_the_ranks_kv_heads(spawned):
     kv = f32_smoke("minitron-4b").n_kv_heads
     assert spawned[(2, 2)][0]["serve-minitron"]["cache_heads"] == kv // 2
     assert spawned[(1, 3)][0]["serve-minitron"]["cache_heads"] == kv
+
+
+@pytest.mark.parametrize("shape", list(SERVES), ids=[f"{s[0]}x{s[1]}" for s in SERVES])
+def test_sharded_mla_cache_holds_the_whole_latent(spawned, shape):
+    """deepseek-v3-671b SMOKE: rank 0's first-segment MLA cache is the whole
+    latent (kv_lora_rank wide) of its data rows, and the ranks' caches,
+    gathered over the data axis after the fed prompt, hold the one-rank
+    run's latent; the naive and the absorbed decode each write it."""
+    cfg = f32_smoke("deepseek-v3-671b")
+    rows = ROWS["deepseek-v3-671b"] // shape[0]
+    got_all, want_all = spawned[shape]
+    for name in ("serve-deepseek-naive", "serve-deepseek-absorbed"):
+        got, (_, one) = got_all[name], want_all[name]
+        # (layers of the first segment, rows, positions, latent)
+        assert got["cache_shape"] == (cfg.first_k_dense, rows, MAX_LEN, cfg.kv_lora_rank), name
+        assert got["cache_heads"] is None
+        close(got["latent"], one["cache"].c_kv.numpy(), f"{name} latent cache")

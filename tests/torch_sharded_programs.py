@@ -102,30 +102,63 @@ def sharded_step(mesh, case: dict) -> dict:
                 local=[tuple(t.shape) for t in lm.tree_leaves(state.params)])
 
 
+def serve_run(cfg, params, prompt, max_len, steps_n, frames=None) -> dict:
+    """The prefill of ``prompt`` (the last position's logits, (B, V)), the
+    logits of each decode step feeding it token by token (B, S, V), the
+    first layer's decode cache after them, and ``steps_n`` greedy tokens:
+    ``greedy_generate``'s, or for an encoder-decoder (whose decode reads
+    ``cross_kv``, the encoder's output of ``frames``, and which
+    ``greedy_generate`` refuses) an argmax loop over the same decode step
+    continuing from the fed prompt."""
+    batch = {"tokens": prompt} if frames is None else {"tokens": prompt, "frames": frames}
+    prefill = steps.make_prefill_step(cfg)(params, batch)
+    decode = steps.make_decode_step(cfg)
+    cross_kv = None
+    if cfg.is_encdec:
+        with torch.no_grad():
+            cross_kv = lm.encoder_forward(params, cfg, frames)
+    state = lm.init_decode_state(cfg, prompt.shape[0], max_len, cross_kv=cross_kv,
+                                 device=prompt.device)
+    logits = []
+    for i in range(prompt.shape[1]):
+        step_logits, state = decode(params, prompt[:, i:i + 1], state)
+        logits.append(step_logits)
+    cache = state.segments[0]
+    if cfg.is_encdec:
+        out = [torch.argmax(step_logits[:, :cfg.vocab], dim=-1)]
+        for _ in range(steps_n - 1):
+            step_logits, state = decode(params, out[-1][:, None], state)
+            out.append(torch.argmax(step_logits[:, :cfg.vocab], dim=-1))
+        tokens = torch.stack(out, dim=1)
+    else:
+        tokens = steps.greedy_generate(params, cfg, prompt, steps_n, max_len)
+    return dict(prefill=prefill, decode=torch.stack(logits, dim=1), tokens=tokens, cache=cache)
+
+
 def sharded_serve(mesh, case: dict) -> dict:
-    """The prefill of ``case["prompt"]`` (the last position's logits), the
-    logits of each decode step feeding the prompt token by token, and
-    ``greedy_generate``'s tokens after it, on this rank's blocks and batch
-    rows (its kv heads' cache); each gathered over the data ranks."""
-    cfg = f32_smoke(case["arch"])
+    """:func:`serve_run` of ``case["prompt"]`` (and ``case["frames"]``) on
+    this rank's blocks and batch rows (its kv heads' cache, or the whole MLA
+    latent), each result gathered over the data ranks; the first layer's
+    cache as this rank holds it (its shape) and, for MLA, its latent
+    gathered over the data ranks."""
+    cfg = f32_smoke(case["arch"], **case.get("cfg", {}))
     rules = rules_for_arch(cfg, mesh)
     with activate_rules(rules, mesh):
         params = interop.lm_params_from_numpy(case["tree"], cfg, "cpu")
         params = partition.shard_tree(params, partition.param_shardings(mesh, params, rules),
                                       mesh)
-        prompt = partition.data_rows({"tokens": torch.as_tensor(case["prompt"])}, mesh,
-                                     rules)["tokens"]
-        prefill = steps.make_prefill_step(cfg)(params, {"tokens": prompt})
-        decode = steps.make_decode_step(cfg)
-        state = lm.init_decode_state(cfg, prompt.shape[0], case["max_len"], device="cpu")
-        logits = []
-        for i in range(prompt.shape[1]):
-            step_logits, state = decode(params, prompt[:, i:i + 1], state)
-            logits.append(step_logits)
-        tokens = steps.greedy_generate(params, cfg, prompt, case["steps"], case["max_len"])
-    rows = lambda t: partition.gather_leaf(t, ("data",), mesh)
-    return dict(prefill=rows(prefill), decode=rows(torch.stack(logits, dim=1)),
-                tokens=rows(tokens), cache_heads=state.segments[0].k.shape[3])
+        inputs = {"tokens": torch.as_tensor(case["prompt"])}
+        if case.get("frames") is not None:
+            inputs["frames"] = torch.as_tensor(case["frames"])
+        inputs = partition.data_rows(inputs, mesh, rules)
+        out = serve_run(cfg, params, inputs["tokens"], case["max_len"], case["steps"],
+                        inputs.get("frames"))
+    rows = lambda t, dim=0: partition.gather_leaf(t, (None,) * dim + ("data",), mesh)
+    cache = out["cache"]
+    return dict(prefill=rows(out["prefill"]), decode=rows(out["decode"]),
+                tokens=rows(out["tokens"]), cache_shape=tuple(cache[0].shape),
+                cache_heads=cache.k.shape[3] if hasattr(cache, "k") else None,
+                latent=rows(cache.c_kv, 1) if hasattr(cache, "c_kv") else None)
 
 
 def launcher(argv, arch="minitron-4b") -> tuple:
