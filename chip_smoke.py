@@ -8,7 +8,7 @@
 
 The second form only times a checkout's flash attention at phase 2's cases
 that do not route to the wgmma kernel, to compare two checkouts on one card;
-the third builds the kernels and runs Paths G4 to G7 alone, the fourth
+the third builds the kernels and runs Paths G4 to G9 alone, the fourth
 Path DR alone (neither prints a result line).
 
 Phases, each unguarded (any failure ends the run with a non-zero code and
@@ -74,9 +74,7 @@ no result line):
    solve read apart, each after its own zeroing); Path T-D2: the
    measure-mode tune on D2's four gloo ranks (2x2): one config on every
    rank, the store written once; after each, every wire-kernel signature
-   the tune launched replayed bit-exact against the plain version; then
-   ``--tune measure`` through the recovery CLI twice (the second run hits
-   the store) and ``--tune`` through the serve CLI, as subprocesses;
+   the tune launched replayed bit-exact against the plain version;
 6b. Path M — Sec. 7 map-making (Herschel-style) at Path A's frame size: an
    ``extended_emission`` sky of 1024x1024 seen at 4 dithered offsets (0, 1,
    W, W + 1) through one optic (gaussian PSF sigma 1.5, romberg sensing,
@@ -95,8 +93,9 @@ no result line):
    model) mesh, the same problem at 200 iterations with ``overlap=2``, fp32
    and bf16 wires, held against a local kernel-step solve;
 7b. Path S — Sec. 6 serving at the serve CLI's defaults: n = 16384, m =
-   n/2, k = n/10, 64 requests from a seeded Poisson stream at 200/s, slots
-   8, round_iters 32, tolerances 3:1 from 1e-3 and 1e-6, max_iters 2000,
+   n/2, k = n/10, 32 requests (64 until Paths G8 / G9) from a seeded
+   Poisson stream at 200/s, slots 8, round_iters 32, tolerances 3:1 from
+   1e-3 and 1e-6, max_iters 2000,
    min_iters 50, CPADMM (alpha 1e-4, rho = sigma = 0.01) on a WallClock:
    ``warmup`` (the engine captures its round as a CUDA graph), the
    continuous run (spectral_pointwise and cpadmm_tail counted: once a
@@ -104,9 +103,9 @@ no result line):
    signals/s, p50/p99, host against device ms a round, the device's idle
    share; every result against a solo eager ``solve_until`` (x within
    TOL_PATHS, equal iteration counts), every request converged with MSE <=
-   1e-4; Path S4096: 32 requests of the stream at n = 4096 with
-   ``method="ista"`` (circulant_matvec twice a step, soft_threshold_ista
-   once), held the same way against its solo solves (CPISTA at these
+   1e-4; Path S4096: 16 requests (32 until G8 / G9) of the stream at n =
+   4096 with ``method="ista"`` (circulant_matvec twice a step,
+   soft_threshold_ista once), held the same way against its solo solves (CPISTA at these
    settings stops short of 1e-4 in MSE, alone as in the engine, and the
    reference's does too: printed, not gated); Path S-D1: 16 requests on
    the one-rank NCCL mesh, an fp32-wire and a bf16-wire bucket (rfft, the
@@ -114,28 +113,39 @@ no result line):
    counted), fp32 lanes against their solo solve under the same plan, bf16
    lanes within twice the wire bound;
 7c. Path H — D2's problem on four gloo ranks sharing the card on
-   ``make_hier_mesh(1, 2, 2)`` at ``overlap=2``, 200 iterations: the flat
+   ``make_hier_mesh(1, 2, 2)`` at ``overlap=2``, 50 iterations (200 until
+   G8 / G9): the flat
    exchange over the factored axis, the two-stage exchange (bit-equal to
    it) and the two-stage exchange with bf16 inter-host hops (within the
    wire bound); ms/iter on rank 0 and the bytes a transpose hands each
-   tier; then the serve CLI (``python -m repro_torch.launch.serve``) as a
-   subprocess, ``--n 16384 --requests 16 --compare-static`` and ``--mesh
-   1 --rfft``, its report lines checked;
+   tier;
 8. the recovery CLI (``python -m repro_torch.launch.recover``) as a user
    runs it, with no flag for the step (on the card the plan resolves to
    the kernel step): a checkpointed CPADMM run at its default n = 65536,
    B = 4, run a second time to resume from the checkpoint, a Sec. 7 deblur
    run of two 512x512 frames in tolerance mode (one spectral_pointwise and
-   one cpadmm_tail launch an iteration, counted), and a 2x2-mesh deblur run
-   of four 512x512 frames on four ranks sharing the card with bf16 wires,
-   run twice to resume; then ``--prior nonneg-l1``, ``wavelet`` and ``tv``
-   at n = 65536 = 256^2, B = 4 (no kernel launch), and ``--deblur --size
-   512 --prior tv`` as a subprocess;
-8b. the six ``examples/torch_*.py`` as subprocesses at their defaults (the
-   training example ``torch_train_lm.py`` among them: 200 steps of a ~40M
-   parameter widened codeqwen), and the distributed one again with
-   ``--fake-devices 4``: each must exit 0, and the quickstart must recover
-   with both methods;
+   one cpadmm_tail launch an iteration, counted); then ``--prior
+   nonneg-l1``, ``wavelet`` and ``tv`` at n = 65536 = 256^2, B = 4 (no
+   kernel launch);
+8b. every command a user runs as a process, in one batch (15 chains, up to
+   PROCESS_WORKERS at once, a chain's commands in order; its wall time
+   beside the commands' summed time): ``--tune measure`` through the
+   recovery CLI twice on one store (the second run hits it) and ``--tune``
+   through the serve CLI on a one-rank mesh; the serve CLI (``python -m
+   repro_torch.launch.serve``) ``--n 16384 --requests 16
+   --compare-static`` and ``--mesh 1 --rfft``, its report lines checked;
+   the recovery CLI's 2x2-mesh deblur run of four 512x512 frames on four
+   ranks sharing the card with bf16 wires, run twice to resume, and
+   ``--deblur --size 512 --prior tv``; the six ``examples/torch_*.py`` at
+   their defaults, each from a directory of its own (the training example
+   ``torch_train_lm.py`` among them: 200 steps of a ~40M parameter widened
+   codeqwen), and the distributed one again with ``--fake-devices 4``: the
+   quickstart must recover with both methods; Path DR's meta walks (below);
+   the training CLI
+   (``python -m repro_torch.launch.train --arch minitron-4b --smoke
+   --steps 20 --ckpt-every 10``, the SMOKE head D = 8 on the mma.sync
+   kernel), then again: the second run must resume from step 20; every
+   command must exit 0;
 9. Path E1 — minitron-4b FULL (32 layers, d_model 3072, GQA 24/8, head_dim
    128, vocab 256000; float32 parameters, bf16 compute) initialised on the
    card from a seed, prefilling 4 prompts of 2048 tokens through
@@ -148,7 +158,8 @@ no result line):
    of the same prompts (5e-2 norm-relative);
 11. Path E4 — ``greedy_generate``: 4 prompts of 32 tokens, 32 new tokens;
 12. Path E3 — minitron-4b's width cut to 2 layers in float32, initialised
-   once on the CPU: a prefill on the CPU (plain attention) against the same
+   once on the card and copied to the CPU: a prefill on the CPU (plain
+   attention) against the same
    prefill on the card (the mma.sync kernel, 3xTF32), 1e-4 norm-relative;
 12b. Path G3 — E3's parameters: ``loss_fn``'s loss and every gradient leaf on
    the CPU (plain attention, autograd) against the card (the mma.sync
@@ -184,10 +195,6 @@ no result line):
    gated on finiteness, shapes and launches only (an MoE decode routes B
    tokens a step under capacity 1: it does not agree with a prefill, on the
    reference either);
-16. the training CLI (``python -m repro_torch.launch.train --arch
-   minitron-4b --smoke --steps 20 --ckpt-every 10``, the SMOKE head D = 8
-   on the mma.sync kernel) as a subprocess, then again: the second run must
-   resume from step 20;
 16b. Paths G4 and G5 — sharded training at full width: minitron-4b FULL
    (24 / 8 heads, d_model 3072, d_ff 9216, vocab 256000) and
    moonshot-v1-16b-a3b FULL (its dense first layer, then one layer of 64
@@ -227,13 +234,29 @@ no result line):
    time beside what the cuts that pay for them save (E2 128 -> 32 tokens,
    G4 / G5's serving 8 -> 2 greedy tokens, S-D1 32 -> 16 requests),
    estimated at this run's rates;
+16e. Paths G8 and G9 — the same serving of the recurrent families at full
+   width from a seed, float32, TF32 off: zamba2-1.2b FULL (64 SSM heads of
+   64 in 8 groups, 32 a rank, so the rank's heads read their groups' B and
+   C; the shared block's 32 heads, 16 a rank) cut to 7 Mamba-2 layers, so
+   that the shared block runs twice into its one KV cache (the mma.sync
+   kernel at 16 heads of 64 in every rank's prefill), its decode cache
+   ``shared_invocations`` positions a token; xlstm-350m FULL (4 heads of
+   512, d_model 1024, vocab 50304) cut to 8 layers, 7 mLSTM (the rank's 1024
+   columns: 2 whole heads) and 1 sLSTM (its weights gathered whole, the
+   recurrence run on every rank), no kernel; every prefill's and greedy
+   token's logits within TOL_CARD_CPU of one rank's, the tokens equal; each
+   rank's host ms, its ms in gloo collectives and its peak memory printed
+   beside the card; then G8 + G9's time beside what the cuts that pay for
+   them save (S 64 -> 32 requests, S4096 32 -> 16, H 200 -> 50
+   iterations), estimated at this run's rates;
 16c. Path DR — the dry run held against the card: ``cost_walk.walk`` on
    real CUDA tensors, after one warm call each, of D1's CPADMM block (2
    iterations, fp32 and bf16 wires: cpadmm_tail, pack_wire, unpack_wire)
    and of minitron-4b FULL cut to 2 layers (a train step at 2 x 512
    tokens, a prefill, a decode step: flash_attention_sm90); then the same
    five walks on ``meta`` by the dry run's walkers in a subprocess (rank 0
-   of a fake world of one): launches, kernel launches, flops, bytes and
+   of a fake world of one; run in phase 8b's batch on this run's knobs):
+   launches, kernel launches, flops, bytes and
    collective bytes gated equal (the card's decode less its host cache-room
    check, which a dry run skips); the card's peak memory printed beside the
    walk's argument plus peak live bytes;
@@ -283,8 +306,9 @@ no result line):
    tokens) (40 launches), its bound; how far the image moves the last
    logits against a text-only prefill (printed); 32 text tokens decoded
    against a text-only prefill of them at TOL_PREFILL_DECODE;
-23. one JSON line with every kernel's launches, error, times, bound and
-   floor, then the device line ``{"ok": true, "device": {...}}`` last.
+23. the seconds of every phase, one JSON line with every kernel's
+   launches, error, times, bound and floor, then the device line ``{"ok":
+   true, "device": {...}}`` last.
 
 Launch counters are zeroed just before each driven path and read just
 after (inside each rank for Path D2); the comparison launches of phase 2
@@ -520,6 +544,12 @@ def check_kernels(dev, gen) -> dict:
         *shape, generator=gen, device=dev, dtype=dtype
     )
     results = {name: [] for name in KERNEL_SOURCES}
+    t0 = [time.perf_counter()]
+
+    def took(what):  # host seconds of each part of this phase
+        now = time.perf_counter()
+        print(f"phase 2 {what}: {now - t0[0]:.1f} s")
+        t0[0] = now
 
     # spectral_pointwise over the half spectrum: Path A nf = 2^19 + 1 (B = 4
     # frames), Path B nf = 8193 (B = 8 signals); both ragged against any block
@@ -571,9 +601,11 @@ def check_kernels(dev, gen) -> dict:
             ))
             print(f"circulant_matvec [{shape}]: beside the bound, 2Bn^2 in fp32 on the "
                   f"CUDA cores: {bound(4 * n + 8 * B * n, 2 * B * n * n)[0]:.4f} ms")
+    took("spectral_pointwise, cpadmm_tail, circulant_matvec")
     crossover_sweep(rnd)
-
+    took("the crossover sweep")
     check_thresholds(dev, gen, rnd, results)
+    took("the soft-threshold pair and its grid sweep")
 
     # the banded blur: the Sec. 7 frame (n = 2^20, B = 4, order-5 moving
     # average), random order-17 taps at n = 16384, B = 8, and a ragged n
@@ -597,8 +629,11 @@ def check_kernels(dev, gen) -> dict:
                   f"{err[0]:.3e}, norm-rel {err[1]:.3e} (tol {TOL_BLUR:.0e})")
             if not err[1] <= TOL_BLUR:
                 fail(f"banded_conv disagrees with moving_average_blur at n={n}: {err}")
+    took("banded_conv")
     check_wire(dev, gen, results)
+    took("the wire kernels")
     check_flash(dev, gen, results)
+    took("the flash kernels")
     return results
 
 
@@ -834,6 +869,8 @@ FLASH_CASES = ([("paths E1, G1: minitron-4b", "bfloat16", 4, 2048, 2048, 24, 8, 
                  False),
                 ("path G6's rank: whisper-large-v3 decode cross", "float32", 2, 1, 1500, 10, 10,
                  64, False),
+                ("path G8's rank: zamba2-1.2b's shared block", "float32", 2, 32, 32, 16, 16, 64,
+                 True),
                 ("train CLI: minitron-4b SMOKE", "bfloat16", 16, 256, 256, 6, 2, 8, True),
                 ("D=16", "bfloat16", 2, 256, 256, 4, 4, 16, True),
                 ("D=32", "bfloat16", 2, 512, 512, 4, 2, 32, True)]
@@ -921,7 +958,8 @@ def check_flash(dev, gen, results) -> None:
     (gemma-7b's head).  The mma.sync
     kernel: E1's shape and Path G3's (B = 2, S = 64) in float32, Path G6's
     four at a rank's 10 heads of 64 (the non-causal encoder at S = 1500, the
-    causal decoder at 32, the cross at Sq = 32 and 1 against 1500), the training
+    causal decoder at 32, the cross at Sq = 32 and 1 against 1500), Path G8's
+    (zamba2-1.2b's shared block at a rank's 16 heads of 64, causal S = 32), the training
     CLI's (minitron-4b SMOKE, bf16, B = 16, S = 256, H = 6 over KH = 2, D = 8)
     and D = 16 (the other SMOKE heads) and D = 32 in bf16, then
     tests/test_flash_attention.py's float32 shapes, its GQA mappings, a
@@ -1647,15 +1685,15 @@ def _t_d2_rank(seed, size, frames, store):
                 wire_calls=sorted(wire_calls, key=repr))
 
 
-def path_t_d2(dev, seed, size=1024, frames=4) -> dict:
+def path_t_d2(dev, seed, size=1024, frames=4):
     """Path T-D2: the measure-mode tune on four gloo ranks sharing the card
-    (2x2): every rank must return one config, and the store is written once."""
-    from repro_torch.dist.compat import spawn_fake_devices
+    (2x2): every rank must return one config, and the store is written once.
+    A rank path (:func:`run_on_ranks`)."""
     from repro_torch.ops import tune
 
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as store_dir:
         store = str(Path(store_dir) / "plan_cache.json")
-        ranks = spawn_fake_devices(4, _t_d2_rank, seed, size, frames, store, device=str(dev))
+        ranks, _ = yield _t_d2_rank, (seed, size, frames, store)
         entries = tune.PlanCache(store).entries()
     r0 = ranks[0]
     counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
@@ -1672,32 +1710,28 @@ def path_t_d2(dev, seed, size=1024, frames=4) -> dict:
     return dict(counts=counts, config=r0["config"], wall_s=r0["wall_s"])
 
 
-def tune_cli_phase() -> None:
-    """``--tune`` through both CLIs as subprocesses on one store: the
-    recovery CLI's measure-mode deblur run twice (the second must hit the
-    store), then the serve CLI on a one-rank mesh."""
-    import os
+def tune_cli_chains(d: Path) -> dict:
+    """``--tune`` through both CLIs as processes: the recovery CLI's
+    measure-mode deblur run twice on one store (the second must hit it),
+    and the serve CLI on a one-rank mesh on a store of its own."""
+    recover = lambda run: recover_cmd(
+        ["--deblur", "--size", "512", "--mesh", "1", "--rfft", "--tune", "measure",
+         "--ckpt-dir", str(d / run)], env={"REPRO_TORCH_PLAN_CACHE": str(d / "plan_cache.json")})
+    return {"tune recover": [recover("first"), recover("second")],
+            "tune serve": [serve_cmd(["--n", "16384", "--requests", "16", "--mesh", "1",
+                                      "--tune"],
+                                     env={"REPRO_TORCH_PLAN_CACHE": str(d / "serve_plans.json")})]}
 
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        old = os.environ.get("REPRO_TORCH_PLAN_CACHE")
-        os.environ["REPRO_TORCH_PLAN_CACHE"] = str(Path(d) / "plan_cache.json")
-        try:
-            runs = [run_cli_process(["--deblur", "--size", "512", "--mesh", "1", "--rfft",
-                                     "--tune", "measure", "--ckpt-dir", str(Path(d) / run)])
-                    for run in ("first", "second")]
-            serve_out = run_serve_cli(["--n", "16384", "--requests", "16", "--mesh", "1",
-                                       "--tune"])
-        finally:
-            if old is None:
-                os.environ.pop("REPRO_TORCH_PLAN_CACHE")
-            else:
-                os.environ["REPRO_TORCH_PLAN_CACHE"] = old
-    tuned = [[ln for ln in out.splitlines() if ln.startswith("tuned plan [measure]: ")]
-             for out in runs]
+
+def check_tune_cli(out: dict) -> None:
+    runs, (serve_out,) = out["tune recover"], out["tune serve"]
+    check_serve_out(serve_out)
+    tuned = [[ln for ln in run.splitlines() if ln.startswith("tuned plan [measure]: ")]
+             for run in runs]
     if [len(t) for t in tuned] != [1, 1] or not tuned[0][0].endswith("(tuned, stored)") \
             or tuned[1][0] != tuned[0][0].replace("(tuned, stored)", "(cache hit)"):
         fail(f"tune CLI: the recovery CLI's tuned plans were {tuned}")
-    if any(out.count("PSNR") != 4 for out in runs):
+    if any(run.count("PSNR") != 4 for run in runs):
         fail("tune CLI: a --tune deblur run reported no PSNR for its 4 frames")
     if not any(ln.startswith("tuned plan [model]: ") for ln in serve_out.splitlines()):
         fail("tune CLI: the serve CLI reported no tuned plan")
@@ -1913,19 +1947,17 @@ def _d2_rank(seed, size, frames, iters):
     return out
 
 
-def path_d2(dev, seed, size=1024, frames=4, iters=200) -> dict:
-    """Four gloo ranks sharing the card, against a local kernel-step solve."""
+def path_d2(dev, seed, size=1024, frames=4, iters=200):
+    """Four gloo ranks sharing the card, against a local kernel-step solve.
+    A rank path (:func:`run_on_ranks`)."""
     import torch
 
     from repro_torch.core.deblur import build_deblur_plan
-    from repro_torch.dist.compat import spawn_fake_devices
 
     prob, p = sec7_problem(dev, seed, size, frames)
     x_local, _, _ = timed_solve(prob, build_deblur_plan(p, tail="kernel"), iters, iters,
                                 **SEC7_KW)
-    t0 = time.perf_counter()
-    ranks = spawn_fake_devices(4, _d2_rank, seed, size, frames, iters, device=str(dev))
-    wall = time.perf_counter() - t0
+    ranks, wall = yield _d2_rank, (seed, size, frames, iters)
     out = {"counts": {}}
     for wire in ("fp32", "bf16"):
         r0 = ranks[0][wire]
@@ -1951,8 +1983,63 @@ def path_d2(dev, seed, size=1024, frames=4, iters=200) -> dict:
             fail(f"Path D2 ({wire}) launch counts {counts}; expected {want}")
         for k, v in counts.items():
             out["counts"][k] = out["counts"].get(k, 0) + v
-    print(f"Path D2: four ranks started, ran both solves and stopped in {wall:.2f} s")
+    print(f"Path D2: the four ranks ran both solves in {wall:.2f} s")
     return out
+
+
+# -- one start of four gloo ranks for several paths ---------------------------
+# A path that runs on four gloo ranks sharing the card is a generator: it does
+# its one-rank part, yields its rank task (fn, args), receives (the ranks'
+# results, the task's seconds on rank 0) and returns its result.  Starting the
+# ranks costs ~12 s (the processes, torch, CUDA, gloo), so the paths that run
+# next to each other share one start.
+def _rank_tasks(tasks):
+    """Each (fn, args) of ``tasks`` in turn on this rank, the ranks meeting
+    before and after each -> [(result, seconds)]."""
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    for fn, args in tasks:
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out.append((res, time.perf_counter() - t0))
+    return out
+
+
+def run_on_ranks(dev, paths: list, label: str) -> list:
+    """Drive each rank path of ``paths`` to its task, run the tasks in turn
+    on one start of four gloo ranks sharing the card
+    (``spawn_fake_devices(4, ..., device="cuda:0")``: NCCL refuses two ranks
+    on one GPU), then hand each path its ranks' results -> the paths'
+    results.  Prints the start's own seconds (the wall time less the
+    tasks')."""
+    from repro_torch.dist.compat import spawn_fake_devices
+
+    try:
+        tasks = [next(path) for path in paths]
+        t0 = time.perf_counter()
+        ranks = spawn_fake_devices(4, _rank_tasks, tasks, device=str(dev))
+        wall = time.perf_counter() - t0
+        outs = []
+        for i, path in enumerate(paths):
+            try:
+                path.send(([r[i][0] for r in ranks], ranks[0][i][1]))
+            except StopIteration as done:
+                outs.append(done.value)
+            else:
+                fail(f"Paths {label}: a rank path yielded a second task")
+    finally:
+        for path in paths:
+            path.close()
+    print(f"Paths {label}: {len(tasks)} tasks on one start of four gloo ranks, {wall:.1f} s, "
+          f"of which the start and stop {wall - sum(r[1] for r in ranks[0]):.1f} s")
+    return outs
 
 
 # -- Paths S, S4096, S-D1 (Sec. 6 serving), H (the hierarchical exchange) ---
@@ -2060,12 +2147,21 @@ def _serve_report(name, srv, results, reqs, window_s, host_ms, engines):
     return s, stats, dev_ms
 
 
-def path_s(dev, n=16384, requests=64, method="cpadmm", name="S") -> dict:
+# S's (CPADMM) and S4096's (CPISTA) streams until Paths G8 / G9 came, 64 and 32
+# requests: their cuts, with H's 200 -> 50 iterations, pay for G8 / G9
+# (CUTS_G8_G9, printed by them)
+S_REQUESTS_BEFORE = {"cpadmm": 64, "ista": 32}
+CUTS_G8_G9: dict = {}  # cut -> seconds it saves, estimated at this run's rate
+
+
+def path_s(dev, n=16384, requests=32, method="cpadmm", name="S") -> dict:
     """Sec. 6 serving at the serve CLI's defaults on the card: slots 8,
     round_iters 32, a WallClock; warmup first (it captures the engine's
     round), then the continuous run with its launches counted, then the
     static baseline on the same stream and engine; every result against a
-    solo eager solve_until."""
+    solo eager solve_until.  The stream, the baseline and the solo solves
+    scale with the requests: their time, scaled to the requests before the
+    cut (S_REQUESTS_BEFORE), is the cut's saving."""
     from repro_torch.serve import RecoveryServer, WallClock, static_batch_serve, summarize
 
     op, reqs = serve_stream(dev, n, requests, method)
@@ -2102,15 +2198,21 @@ def path_s(dev, n=16384, requests=64, method="cpadmm", name="S") -> dict:
     eng.replay_events.clear()
     host_ms.clear()
     srv.clock = WallClock()
+    t0 = time.perf_counter()
     static = summarize(static_batch_serve(reqs, server=srv, clock=WallClock()))
+    static_s = time.perf_counter() - t0
     ratio = s["signals_per_sec"] / static["signals_per_sec"]
     print(f"Path {name} static baseline: {static['signals_per_sec']:.4f} signals/s, p50 "
           f"{static['p50_latency_s'] * 1e3:.2f} ms, p99 {static['p99_latency_s'] * 1e3:.2f} ms; "
           f"continuous vs static: {ratio:.4f}x signals/s")
     t0 = time.perf_counter()
     worst, gap, mse = _hold_against_solo(name, results, reqs, method)
+    solo_s = time.perf_counter() - t0
+    before = S_REQUESTS_BEFORE[method]
+    CUTS_G8_G9[f"{name}, {before} -> {requests} requests"] = \
+        (window + static_s + solo_s) * (before - requests) / requests
     print(f"Path {name}: every result against its solo eager solve_until "
-          f"({(time.perf_counter() - t0):.1f} s): x within {worst:.3e} relative, largest "
+          f"({solo_s:.1f} s): x within {worst:.3e} relative, largest "
           f"iteration-count gap {gap}; MSE against x_true by tol: "
           + ", ".join(f"{tol:g}: max {max(v):.3e} over {len(v)}" for tol, v in mse.items()))
     if method == "cpadmm":
@@ -2220,14 +2322,16 @@ def _h_rank(seed, size, frames, iters):
     return out
 
 
-def path_h(dev, seed, size=1024, frames=4, iters=200) -> dict:
-    """Four gloo ranks sharing the card on a (1, 2, 2) hierarchical mesh."""
+H_ITERS_BEFORE = 200  # H's solves until Paths G8 / G9 came: its cut pays for them
+
+
+def path_h(dev, seed, size=1024, frames=4, iters=50):
+    """Four gloo ranks sharing the card on a (1, 2, 2) hierarchical mesh;
+    the cut's saving is the three solves' iterations left out at rank 0's
+    ms/iter.  A rank path (:func:`run_on_ranks`)."""
     import torch
 
-    from repro_torch.dist.compat import spawn_fake_devices
-
-    t0 = time.perf_counter()
-    ranks = spawn_fake_devices(4, _h_rank, seed, size, frames, iters, device=str(dev))
+    ranks, wall = yield _h_rank, (seed, size, frames, iters)
     r0 = ranks[0]
     counts = {}
     for name, got in r0.items():
@@ -2244,40 +2348,38 @@ def path_h(dev, seed, size=1024, frames=4, iters=200) -> dict:
         fail("Path H: the fp32 two-stage exchange is not bit-equal to the flat exchange")
     rel = ((r0["hier-inter-bf16"]["x"] - r0["hier"]["x"]).norm() / r0["hier"]["x"].norm()).item()
     print(f"Path H: fp32 hierarchical == flat bit for bit; bf16 inter-host hops vs fp32 "
-          f"norm-rel {rel:.3e} (bound {WIRE_ERROR_BOUND}); {time.perf_counter() - t0:.2f} s")
+          f"norm-rel {rel:.3e} (bound {WIRE_ERROR_BOUND}); the ranks ran it in {wall:.2f} s")
     if r0["hier-inter-bf16"]["wires"] != ("fp32", "bf16") or not 0 < rel <= WIRE_ERROR_BOUND:
         fail(f"Path H: the bf16 inter-host run is {rel} from fp32 or fell back")
+    CUTS_G8_G9[f"H, {H_ITERS_BEFORE} -> {iters} iterations"] = \
+        sum(v["ms_iter"] for v in r0.values()) * (H_ITERS_BEFORE - iters) / 1e3
     flat_b, hier_b = r0["flat"]["bytes"], r0["hier"]["bytes"]
     if hier_b["intra"] != flat_b["flat"] or 2 * hier_b["inter"] != flat_b["flat"]:
         fail(f"Path H: tier bytes {hier_b} against the flat exchange's {flat_b}")
     return dict(counts=counts, ms={k: v["ms_iter"] for k, v in r0.items()}, rel=rel)
 
 
-def run_serve_cli(args: list) -> str:
-    """``python -m repro_torch.launch.serve *args`` as its own process; its
-    standard output, echoed; the reference's report lines must be there."""
-    import os
-
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args], cwd=ROOT,
-                          env=env, capture_output=True, text=True, timeout=600)
-    print(f"$ python -m repro_torch.launch.serve {' '.join(args)}   "
-          f"[{time.perf_counter() - t0:.2f} s, exit {proc.returncode}]\n{proc.stdout.rstrip()}")
-    if proc.returncode != 0:
-        fail(f"serve CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+def check_serve_out(out: str) -> None:
+    """The serve CLI's report lines, which the reference's also prints."""
     for line in ("serving ", "continuous: ", "signals/s", "buckets ", "recycled "):
-        if line not in proc.stdout:
+        if line not in out:
             fail(f"serve CLI: no {line!r} in its output")
-    return proc.stdout
 
 
-def serve_cli_phase() -> None:
-    out = run_serve_cli(["--n", "16384", "--requests", "16", "--compare-static"])
-    if "static baseline: " not in out or "continuous vs static: " not in out:
+def serve_cli_chains() -> dict:
+    return {"serve static": [serve_cmd(["--n", "16384", "--requests", "16",
+                                        "--compare-static"])],
+            "serve mesh": [serve_cmd(["--n", "16384", "--requests", "16", "--mesh", "1",
+                                      "--rfft"])]}
+
+
+def check_serve_cli(out: dict) -> None:
+    (static,), (mesh,) = out["serve static"], out["serve mesh"]
+    for text in (static, mesh):
+        check_serve_out(text)
+    if "static baseline: " not in static or "continuous vs static: " not in static:
         fail("serve CLI: --compare-static printed no baseline or ratio")
-    out = run_serve_cli(["--n", "16384", "--requests", "16", "--mesh", "1", "--rfft"])
-    if "mesh=1 (plan API)" not in out:
+    if "mesh=1 (plan API)" not in mesh:
         fail("serve CLI: --mesh 1 did not report the plan API")
 
 
@@ -2464,8 +2566,8 @@ def path_e4(e1, prompt_len=32, steps=32, max_len=64) -> dict:
 
 def path_e3(dev, seed, batch=2, seq=256) -> dict:
     """minitron-4b at full width cut to 2 layers, float32, initialised once
-    on the CPU: a prefill on the CPU (plain attention) against the same
-    prefill on the card (the kernel)."""
+    on the card from ``seed`` and copied to the CPU: a prefill on the CPU
+    (plain attention) against the same prefill on the card (the kernel)."""
     import torch
 
     from repro_torch.data.synthetic import token_batch
@@ -2474,22 +2576,22 @@ def path_e3(dev, seed, batch=2, seq=256) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
     cfg = lm_config("minitron-4b", n_layers=2, dtype="float32")
-    gen = torch.Generator().manual_seed(seed)
     t0 = time.perf_counter()
-    params = init_params(gen, cfg, device="cpu")
-    tokens = token_batch(gen, batch, seq - 1, cfg.vocab, device="cpu")
+    params_dev = init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    params = tree_map(lambda a: a.cpu(), params_dev)
+    tokens = token_batch(torch.Generator().manual_seed(seed), batch, seq - 1, cfg.vocab,
+                         device="cpu")
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = make_prefill_step(cfg)(params, {"tokens": tokens})
     cpu_s = time.perf_counter() - t0
-    params_dev = tree_map(lambda a: a.to(dev), params)
     zero_counts()
     got = make_prefill_step(cfg)(params_dev, {"tokens": tokens.to(dev)})
     torch.cuda.synchronize()
     counts = read_counts()
     err = rel_err(got.float().cpu(), want.float())
-    print(f"Path E3: minitron-4b width, 2 layers, float32, B={batch} S={seq}: CPU init "
-          f"{init_s:.2f} s, CPU prefill {cpu_s:.2f} s; card vs CPU last logits max abs err "
+    print(f"Path E3: minitron-4b width, 2 layers, float32, B={batch} S={seq}: init on the "
+          f"card and copy to the CPU {init_s:.2f} s, CPU prefill {cpu_s:.2f} s; card vs CPU last logits max abs err "
           f"{err[0]:.3e}, norm-rel {err[1]:.3e} (tol {TOL_CARD_CPU:.0e}); launches {counts}")
     if not bool(torch.isfinite(got).all()) or not err[1] <= TOL_CARD_CPU:
         fail(f"Path E3: the card's prefill disagrees with the CPU's: {err}")
@@ -2866,41 +2968,55 @@ def path_e5(g2, dev, seed, batch=4, seq=2048, prompt_len=32, steps=16) -> dict:
     return dict(counts=counts, dev_ms=dev_ms, host_ms=host_ms, gen_ms=gen_ms)
 
 
-def train_cli_phase() -> dict:
+def train_cli_chains(d: Path) -> dict:
     """``python -m repro_torch.launch.train --arch minitron-4b --smoke
-    --steps 20 --ckpt-every 10`` on the card as a subprocess, then again
-    with the same checkpoint directory: the second run must resume from
-    step 20.  Its attention is the mma.sync kernel at the SMOKE head, D = 8,
-    in bf16: bf16 products, P split into hi + lo (held against its plain
-    version at this shape in phase 2)."""
-    import os
+    --steps 20 --ckpt-every 10`` on the card as a process, then again with
+    the same checkpoint directory: the second run must resume from step 20.
+    Its attention is the mma.sync kernel at the SMOKE head, D = 8, in bf16:
+    bf16 products, P split into hi + lo (held against its plain version at
+    this shape in phase 2)."""
+    cmd = dict(argv=["-m", "repro_torch.launch.train", "--arch", "minitron-4b", "--smoke",
+                     "--steps", "20", "--ckpt-every", "10", "--ckpt-dir", str(d / "train_ckpt")],
+               env={})
+    return {"train CLI": [cmd, cmd]}
 
-    build_dir = ROOT / "build"
-    build_dir.mkdir(exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    outs = []
-    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
-        args = ["--arch", "minitron-4b", "--smoke", "--steps", "20", "--ckpt-every", "10",
-                "--ckpt-dir", ckpt_dir]
-        for _ in range(2):
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args],
-                                  cwd=ROOT, env=env, capture_output=True, text=True,
-                                  timeout=600)
-            print(f"$ python -m repro_torch.launch.train {' '.join(args)}   "
-                  f"[{time.perf_counter() - t0:.2f} s, exit {proc.returncode}]\n"
-                  f"{proc.stdout.rstrip()}")
-            if proc.returncode != 0:
-                fail(f"train CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
-            outs.append(proc.stdout)
-    first, second = outs
+
+def check_train_cli(out: dict) -> None:
+    first, second = out["train CLI"]
     losses = [_floats(ln.split("loss")[1])[0] for ln in first.splitlines()
               if ln.startswith("step")]
     if "resumed" in first or len(losses) != 2 or not all(math.isfinite(v) for v in losses):
         fail(f"train CLI: the first run's progress lines {losses}")
     if "resumed from step 20" not in second:
         fail("train CLI: the second run did not resume from step 20")
-    return dict(losses=losses)
+
+
+def process_phase(extra: dict) -> tuple[dict, dict]:
+    """Every command a user runs as a process, in one batch on the card:
+    the recovery and serve CLIs under ``--tune``, the serve CLI, the
+    recovery CLI's 2x2-mesh and TV runs, the examples and the training CLI
+    (each chain's checks as before), and the ``extra`` chains, whose output
+    a later path reads; its wall time beside the commands' summed time,
+    which running them one at a time would take.  -> run_chains' result."""
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        d = Path(d)
+        # the longest chains first (~50, 40, 39, 35 and 28 s alone on the H100)
+        chains = {**cli_chains(d), **tune_cli_chains(d), **train_cli_chains(d), **extra,
+                  **example_chains(d), **serve_cli_chains()}
+        t0 = time.perf_counter()
+        out, walls = run_chains(chains)
+        wall = time.perf_counter() - t0
+    check_tune_cli(out)
+    check_serve_cli(out)
+    check_cli(out)
+    check_examples(out)
+    check_train_cli(out)
+    n, summed = sum(len(c) for c in chains.values()), sum(map(sum, walls.values()))
+    print(f"Processes: {n} commands in {len(chains)} chains, {PROCESS_WORKERS} at a time, took "
+          f"{wall:.1f} s against {summed:.1f} s one after another (saving {summed - wall:.1f} s)")
+    return out, walls
 
 
 # ---------------------------------------------------------------------------
@@ -3598,20 +3714,57 @@ def run_cli(args: list) -> str:
     return out
 
 
-def run_cli_process(args: list) -> str:
-    """``python -m repro_torch.launch.recover *args`` as its own process (its
-    ranks print from child processes); its standard output, echoed."""
-    import os
+# Every command a user runs as a process (the CLIs, the examples) goes into
+# one batch: a process spends ~10 s reaching the card and importing torch, so
+# chains of commands run side by side, each chain's commands in order.
+PROCESS_WORKERS = 8
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.recover", *args],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    print(f"$ python -m repro_torch.launch.recover {' '.join(args)}   "
-          f"[{time.perf_counter() - t0:.2f} s, exit {proc.returncode}]\n{proc.stdout.rstrip()}")
-    if proc.returncode != 0:
-        fail(f"CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
-    return proc.stdout
+
+def recover_cmd(args: list, env=None) -> dict:
+    return dict(argv=["-m", "repro_torch.launch.recover", *args], env=env or {})
+
+
+def serve_cmd(args: list, env=None) -> dict:
+    return dict(argv=["-m", "repro_torch.launch.serve", *args], env=env or {})
+
+
+def run_chains(chains: dict) -> tuple[dict, dict]:
+    """Run ``chains`` ({name: [command, ...]}, a command being ``argv`` after
+    the interpreter, ``env`` added to this process's and an optional
+    ``cwd``), PROCESS_WORKERS chains at a time, a chain's commands one after
+    another; echo every command's output in the chains' order and fail on
+    the first that exited non-zero.  -> ({name: [stdout, ...]}, {name:
+    [wall seconds, ...]})."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    def chain_run(chain):
+        done = []
+        for cmd in chain:
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **cmd["env"])
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *cmd["argv"]], cwd=cmd.get("cwd", ROOT),
+                                  env=env, capture_output=True, text=True, timeout=600)
+            done.append((time.perf_counter() - t0, proc))
+            if proc.returncode != 0:
+                break
+        return done
+
+    with ThreadPoolExecutor(PROCESS_WORKERS) as pool:
+        futures = {name: pool.submit(chain_run, chain) for name, chain in chains.items()}
+    out, walls = {}, {}
+    for name, chain in chains.items():
+        out[name], walls[name] = [], []
+        for cmd, (wall, proc) in zip(chain, futures[name].result()):
+            shown = " ".join(a.replace(f"{ROOT}/", "") for a in cmd["argv"])
+            print(f"$ python {shown}   [{wall:.2f} s, exit {proc.returncode}]\n"
+                  f"{proc.stdout.rstrip()}")
+            if proc.returncode != 0:
+                fail(f"{name}: `python {shown}` exited {proc.returncode}: "
+                     f"{proc.stderr[-3000:]}")
+            out[name].append(proc.stdout)
+            walls[name].append(wall)
+    return out, walls
 
 
 def _floats(text: str) -> list:
@@ -3623,7 +3776,7 @@ def cli_phase() -> dict:
     a resume from its checkpoint, and a Sec. 7 deblur run, all on the kernel
     step the plan resolves to on the card, one spectral_pointwise and one
     cpadmm_tail launch an iteration (the resume runs none: its checkpoint is
-    at the budget); then the 2x2-mesh deblur run twice, as a subprocess."""
+    at the budget).  The 2x2-mesh deblur runs are :func:`cli_chains`'."""
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     zero_counts()
@@ -3634,17 +3787,6 @@ def cli_phase() -> dict:
     deblur = run_cli(["--deblur", "--size", "512", "--batch", "2", "--tol", "1e-4",
                       "--iters", "400"])
     counts = read_counts()
-    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
-        args = ["--deblur", "--size", "512", "--batch", "4", "--mesh", "2x2", "--fake-devices",
-                "4", "--rfft", "--wire-dtype", "bf16", "--iters", "200", "--chunk", "100",
-                "--ckpt-dir", ckpt_dir]
-        mesh_first, mesh_second = run_cli_process(args), run_cli_process(args)
-    if "resumed" in mesh_first or "resumed from iteration 200" not in mesh_second:
-        fail("CLI: the second 2x2-mesh run did not resume from iteration 200")
-    mesh_psnr = [_floats(ln.split("PSNR")[1])[0] for ln in mesh_second.splitlines()
-                 if "PSNR" in ln]
-    if len(mesh_psnr) != 4 or not all(math.isfinite(v) and v > 0 for v in mesh_psnr):
-        fail(f"CLI: per-frame PSNR of the 2x2-mesh deblur run is {mesh_psnr}")
     if "resumed" in first or "resumed from iteration 200" not in second:
         fail("CLI: the second checkpointed run did not resume from iteration 200")
     mse = _floats(second.split("per-signal MSE:")[-1])
@@ -3669,11 +3811,38 @@ def cli_phase() -> dict:
     return dict(counts=counts, mse=mse, psnr=psnr)
 
 
+def cli_chains(d: Path) -> dict:
+    """The recovery CLI's runs that need processes of their own: the 2x2-mesh
+    deblur run of four 512x512 frames on four ranks sharing the card (bf16
+    wires) twice on one checkpoint directory, and ``--deblur --size 512
+    --prior tv``."""
+    mesh = recover_cmd(["--deblur", "--size", "512", "--batch", "4", "--mesh", "2x2",
+                        "--fake-devices", "4", "--rfft", "--wire-dtype", "bf16", "--iters",
+                        "200", "--chunk", "100", "--ckpt-dir", str(d / "mesh_ckpt")])
+    tv = recover_cmd(["--deblur", "--size", "512", "--batch", "2", "--prior", "tv", "--iters",
+                      "200", "--chunk", "100", "--ckpt-dir", str(d / "tv_ckpt")])
+    return {"recover mesh": [mesh, mesh], "recover tv": [tv]}
+
+
+def check_cli(out: dict) -> None:
+    mesh_first, mesh_second = out["recover mesh"]
+    if "resumed" in mesh_first or "resumed from iteration 200" not in mesh_second:
+        fail("CLI: the second 2x2-mesh run did not resume from iteration 200")
+    mesh_psnr = [_floats(ln.split("PSNR")[1])[0] for ln in mesh_second.splitlines()
+                 if "PSNR" in ln]
+    if len(mesh_psnr) != 4 or not all(math.isfinite(v) and v > 0 for v in mesh_psnr):
+        fail(f"CLI: per-frame PSNR of the 2x2-mesh deblur run is {mesh_psnr}")
+    (tv,) = out["recover tv"]
+    psnr = [_floats(ln.split("PSNR")[1])[0] for ln in tv.splitlines() if "PSNR" in ln]
+    if "prior=tv" not in tv or len(psnr) != 2 or not all(math.isfinite(v) for v in psnr):
+        fail(f"CLI --deblur --prior tv: per-frame PSNR {psnr}")
+
+
 def cli_priors_phase() -> dict:
     """``--prior`` through the recovery CLI on the card: non-negative l1,
     wavelet and TV at n = 65536 = 256^2, B = 4 (the plain step: no kernel
-    launch), then a 512 x 512 deblur under TV as a subprocess.  Each must
-    end with finite per-signal or per-frame metrics."""
+    launch).  Each must end with finite per-signal metrics; the 512 x 512
+    deblur under TV is :func:`cli_chains`'."""
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     zero_counts()
@@ -3689,54 +3858,39 @@ def cli_priors_phase() -> dict:
     counts = read_counts()
     if any(counts.values()):
         fail(f"CLI priors launched kernels: {counts}")
-    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
-        out = run_cli_process(["--deblur", "--size", "512", "--batch", "2", "--prior", "tv",
-                               "--iters", "200", "--chunk", "100", "--ckpt-dir", ckpt_dir])
-    psnr = [_floats(ln.split("PSNR")[1])[0] for ln in out.splitlines() if "PSNR" in ln]
-    if "prior=tv" not in out or len(psnr) != 2 or not all(math.isfinite(v) for v in psnr):
-        fail(f"CLI --deblur --prior tv: per-frame PSNR {psnr}")
-    return dict(counts=counts, mse=mse, psnr=psnr)
+    return dict(counts=counts, mse=mse)
 
 
 # (script, arguments): each example at its defaults, the distributed one also
-# on four gloo ranks sharing the card
+# on four gloo ranks sharing the card; the longest first (process_phase)
 EXAMPLES = (
+    ("torch_train_lm.py", []),
+    ("torch_distributed_recovery.py", ["--fake-devices", "4"]),
     ("torch_quickstart.py", []),
     ("torch_deblur_astronomy.py", []),
     ("torch_deblur_multiframe.py", []),
     ("torch_distributed_recovery.py", []),
-    ("torch_distributed_recovery.py", ["--fake-devices", "4"]),
     ("torch_mapmaking_herschel.py", []),
-    ("torch_train_lm.py", []),
 )
 
 
-def examples_phase() -> dict:
-    """Run the port's examples on the card as a user does, each as its own
-    process from a scratch directory (their renders and checkpoints land
-    there); every one must exit 0, and the quickstart must recover with
-    both methods."""
-    import os
+def example_chains(d: Path) -> dict:
+    """The port's examples as a user runs them, each from a scratch
+    directory of its own (their renders and checkpoints land there)."""
+    chains = {}
+    for i, (script, args) in enumerate(EXAMPLES):
+        cwd = d / f"example{i}"
+        cwd.mkdir()
+        chains[" ".join([script, *args])] = [
+            dict(argv=[str(ROOT / "examples" / script), *args], env={}, cwd=cwd)]
+    return chains
 
-    build_dir = ROOT / "build"
-    build_dir.mkdir(exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = {}
-    with tempfile.TemporaryDirectory(dir=build_dir) as cwd:
-        for script, args in EXAMPLES:
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, str(ROOT / "examples" / script), *args],
-                                  cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
-            wall = time.perf_counter() - t0
-            print(f"$ python examples/{script} {' '.join(args)}   [{wall:.2f} s, exit "
-                  f"{proc.returncode}]\n{proc.stdout.rstrip()}")
-            if proc.returncode != 0:
-                fail(f"example {script} {args} exited {proc.returncode}: {proc.stderr[-3000:]}")
-            out[" ".join([script, *args])] = dict(wall_s=wall, stdout=proc.stdout)
-    quick = out["torch_quickstart.py"]["stdout"]
-    if quick.count("-> recovered") != 2:
+
+def check_examples(out: dict) -> None:
+    """Every example exited 0 (run_chains holds that); the quickstart must
+    recover with both methods."""
+    if out["torch_quickstart.py"][0].count("-> recovered") != 2:
         fail("examples: the quickstart did not recover with both methods")
-    return out
 
 
 # -- Paths G4, G5: sharded training on four gloo ranks sharing the card ------
@@ -3812,7 +3966,9 @@ def _serve(cfg, params, prompt, steps_n, frames=None, prefill=True):
     if frames is not None:
         with torch.no_grad():
             cross_kv = lm.encoder_forward(params, cfg, frames)
-    state = lm.init_decode_state(cfg, prompt.shape[0], SERVE_FED + steps_n, cross_kv=cross_kv,
+    # zamba2's shared cache spends shared_invocations positions a token
+    max_len = (SERVE_FED + steps_n) * max(1, lm.shared_invocations(cfg))
+    state = lm.init_decode_state(cfg, prompt.shape[0], max_len, cross_kv=cross_kv,
                                  device=prompt.device)
     t0 = time.perf_counter()
     for i in range(SERVE_FED):
@@ -4150,7 +4306,7 @@ def _sharded_rank(name, cfg, seed, batch, seq, store):
                 coords=dict(zip(mesh.axis_names, mesh.coords)))
 
 
-def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
+def path_sharded(name, cfg, dev, seed, batch=4, seq=512):
     """Paths G4 / G5: ``cfg`` trained SHARDED_STEPS steps on one rank of the
     card, then on a data 2 x model 2 mesh of four gloo ranks sharing it
     (``spawn_fake_devices(4, ..., device="cuda:0")``: NCCL refuses two ranks
@@ -4164,12 +4320,12 @@ def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
     gradient check); the mma.sync
     flash kernel launched in every rank, 2 a layer a step (the remat); an
     MoE config's first routing equal to the one-rank run's on every token
-    decided by more than ROUTING_MARGIN, and some choices dropped."""
+    decided by more than ROUTING_MARGIN, and some choices dropped.  A rank
+    path (:func:`run_on_ranks`): the baseline stays on the host's disk until
+    the ranks have read it."""
     import shutil
 
     import torch
-
-    from repro_torch.dist.compat import spawn_fake_devices
 
     print(f"Path {name}: before the baseline this process holds "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({torch.cuda.memory_reserved() / 2**30:.2f}"
@@ -4180,10 +4336,7 @@ def path_sharded(name, cfg, dev, seed, batch=4, seq=512) -> dict:
         t0 = time.perf_counter()
         base = sharded_baseline(name, cfg, dev, seed, batch, seq, store)
         base_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ranks = spawn_fake_devices(4, _sharded_rank, name, cfg, seed, batch, seq, store,
-                                   device=str(dev))
-        ranks_s = time.perf_counter() - t0
+        ranks, ranks_s = yield _sharded_rank, (name, cfg, seed, batch, seq, store)
         disk_gb = sum(f.stat().st_size for f in Path(store).iterdir()) / 1e9
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -4376,9 +4529,15 @@ def _serve_launches(cfg, variants: int) -> dict:
     attention without a sliding window runs the mma.sync kernel, once a
     layer in a prefill (an encoder-decoder's encoder, decoder and cross
     layers), once an encoder layer in the decode state's ``encoder_forward``,
-    once a cross layer a decode step (Sq = 1); MLA none (plain code)."""
+    once a cross layer a decode step (Sq = 1); once an invocation of
+    zamba2's shared block in a prefill (its decode attends in plain code);
+    MLA and xLSTM none (plain code)."""
+    from repro_torch.models.lm import shared_invocations
+
     want = dict.fromkeys(_wrappers(), 0)
-    if cfg.attn_type != "mla":
+    if cfg.block_type == "mamba2":
+        want["flash_attention_mma"] = shared_invocations(cfg)
+    elif cfg.attn_type != "mla" and cfg.block_type != "xlstm":
         steps = variants * (SERVE_FED + SERVE_TOKENS - 1)
         n = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.is_encdec else 0)
         if cfg.is_encdec:
@@ -4387,7 +4546,7 @@ def _serve_launches(cfg, variants: int) -> dict:
     return want
 
 
-def path_sharded_serve(name, cfgs, dev, seed) -> dict:
+def path_sharded_serve(name, cfgs, dev, seed):
     """Paths G6 / G7: ``cfgs[0]`` (the others the same model under another
     decode setting) from ``seed`` served on one rank of the card, then on a
     data 2 x model 2 mesh of four gloo ranks sharing it
@@ -4396,10 +4555,10 @@ def path_sharded_serve(name, cfgs, dev, seed) -> dict:
     through the decode step and SERVE_TOKENS greedy tokens under each
     config. Gates: every prefill's and every greedy token's logits within
     TOL_CARD_CPU of the one-rank run's largest, the tokens equal, and the
-    launches of :func:`_serve_launches` on one rank and in every rank."""
+    launches of :func:`_serve_launches` on one rank and in every rank.  A
+    rank path (:func:`run_on_ranks`)."""
     import torch
 
-    from repro_torch.dist.compat import spawn_fake_devices
     from repro_torch.models.lm import init_params, tree_items
 
     cfg = cfgs[0]
@@ -4420,13 +4579,12 @@ def path_sharded_serve(name, cfgs, dev, seed) -> dict:
     del params, inputs
     torch.cuda.empty_cache()
     base_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks = spawn_fake_devices(4, _serve_rank, cfgs, seed, device=str(dev))
-    ranks_s = time.perf_counter() - t0
+    ranks, ranks_s = yield _serve_rank, (cfgs, seed)
     card = card_line()
     r0 = ranks[0]
     shape = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers" if cfg.is_encdec
-             else f"{cfg.n_layers} layers {cfg.layer_kinds()}, {cfg.n_experts} experts")
+             else f"{cfg.n_layers} layers {cfg.layer_kinds()}"
+             + (f", {cfg.n_experts} experts" if cfg.block_type == "transformer" else ""))
     print(f"Path {name}: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads), "
           f"{shape}, {n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.2f} GB in float32), "
           f"{r0['local_params'] / 1e9:.3f} B on rank 0; inputs {shapes}; mesh data 2 x model 2 "
@@ -4474,26 +4632,37 @@ def sharded_paths(dev) -> tuple:
     layer and one MoE layer), each at full width cut to 2 layers; then G6
     (whisper-large-v3 cut to 2 encoder and 2 decoder layers) and G7
     (deepseek-v3-671b cut to one dense and one MoE layer of 16 of its 256
-    routed experts, decoding naive and absorbed), float32."""
+    routed experts, decoding naive and absorbed); then G8 (zamba2-1.2b cut
+    to 7 layers: the shared block twice) and G9 (xlstm-350m cut to 8: 7
+    mLSTM, 1 sLSTM), float32; their one-rank runs first, then their rank
+    tasks on one start of the four ranks.  A path's time is its one-rank
+    run's and its task's on rank 0."""
     import dataclasses
 
-    t0 = time.perf_counter()
-    g4 = path_sharded("G4", lm_config("minitron-4b", n_layers=2, dtype="float32"), dev, 16)
-    g5 = path_sharded("G5", lm_config("moonshot-v1-16b-a3b", n_layers=2, dtype="float32"), dev,
-                      17)
-    print(f"Paths G4-G5 took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    g6 = path_sharded_serve("G6", [lm_config("whisper-large-v3", n_layers=2, n_enc_layers=2,
-                                             dtype="float32")], dev, 18)
     ds = lm_config("deepseek-v3-671b", n_layers=2, first_k_dense=1, n_experts=16,
                    dtype="float32")
-    g7 = path_sharded_serve("G7", [dataclasses.replace(ds, mla_absorbed=a) for a in (False, True)],
-                            dev, 19)
-    g67_s = time.perf_counter() - t0
-    print(f"Paths G6-G7 took {g67_s:.1f} s; the cuts that pay for them, each's saving estimated "
-          f"at this run's rate: " + ", ".join(f"{k} {v:.1f} s" for k, v in CUTS.items())
+    g4, g5, g6, g7, g8, g9 = run_on_ranks(dev, [
+        path_sharded("G4", lm_config("minitron-4b", n_layers=2, dtype="float32"), dev, 16),
+        path_sharded("G5", lm_config("moonshot-v1-16b-a3b", n_layers=2, dtype="float32"), dev,
+                     17),
+        path_sharded_serve("G6", [lm_config("whisper-large-v3", n_layers=2, n_enc_layers=2,
+                                            dtype="float32")], dev, 18),
+        path_sharded_serve("G7", [dataclasses.replace(ds, mla_absorbed=a)
+                                  for a in (False, True)], dev, 19),
+        path_sharded_serve("G8", [lm_config("zamba2-1.2b", n_layers=7, dtype="float32")], dev,
+                           20),
+        path_sharded_serve("G9", [lm_config("xlstm-350m", n_layers=8, dtype="float32")], dev,
+                           21)], "G4-G9")
+    took = lambda *gs: sum(g["base_s"] + g["ranks_s"] for g in gs)
+    print(f"Paths G4-G5 took {took(g4, g5):.1f} s")
+    print(f"Paths G6-G7 took {took(g6, g7):.1f} s; the cuts that pay for them, each's saving "
+          f"estimated at this run's rate: " + ", ".join(f"{k} {v:.1f} s" for k, v in CUTS.items())
           + f" ({sum(CUTS.values()):.1f} s in all)")
-    return g4, g5, g6, g7
+    print(f"Paths G8-G9 took {took(g8, g9):.1f} s; the cuts that pay for them, each's saving "
+          f"estimated at this run's rate: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in CUTS_G8_G9.items())
+          + f" ({sum(CUTS_G8_G9.values()):.1f} s in all)")
+    return g4, g5, g6, g7, g8, g9
 
 
 # -- Path DR: the dry run (repro_torch.launch.dryrun / cs_dryrun) held against the card --
@@ -4547,7 +4716,35 @@ def dr_meta(knobs: dict) -> dict:
     return out
 
 
-def path_dr(dev) -> dict:
+def _dr_knob(pl) -> dict:
+    """What the meta walk of Path DR's CPADMM block needs of plan ``pl``."""
+    return dict(n1=pl.n1, n2=pl.n2, rfft=pl.rfft, overlap=pl.overlap, fused=pl.fused,
+                wire_dtype=pl.wire_dtype, batch=4)
+
+
+def dr_knobs(dev) -> dict:
+    """The knobs of Path DR's two CPADMM blocks: D1's problem (4 x 1024^2
+    frames) planned on the one-rank NCCL mesh with fp32 and bf16 wires."""
+    from repro_torch.core.deblur import build_deblur_plan
+    from repro_torch.dist.compat import make_mesh
+
+    _, p = sec7_problem(dev, 1, 1024, 4)
+    mesh = make_mesh((1,), ("model",), device=dev)
+    knobs = {}
+    for wire in ("fp32", "bf16"):
+        pl = build_deblur_plan(p, mesh, rfft=True, tail="kernel", wire_dtype=wire)
+        knobs[wire] = _dr_knob(pl)
+    return knobs
+
+
+def dr_meta_chain(knobs: dict) -> dict:
+    """Path DR's meta walks (:func:`dr_meta`) as a chain of the process
+    batch: they need no card, only the knobs."""
+    return {"DR meta": [dict(argv=[str(Path(__file__).resolve()), "--dr-meta",
+                                   json.dumps(knobs)], env={})]}
+
+
+def path_dr(dev, meta_run=None) -> dict:
     """Path DR: the dry run held against the card.  In this process, on real
     CUDA tensors with the kernels launching, ``cost_walk.walk`` after one
     warm call of each: D1's problem (4 x 1024^2 frames, the one-rank NCCL
@@ -4556,7 +4753,9 @@ def path_dr(dev) -> dict:
     layers: one train step at 2 x 512 tokens (flash_attention_sm90, and
     FlashAttentionFn's plain recompute in the backward), one prefill of 2 x
     512 and one decode step against a 512-deep cache.  Then the same five on
-    ``meta`` by the dry run's walkers in a subprocess (:func:`dr_meta`).
+    ``meta`` by the dry run's walkers in a subprocess (:func:`dr_meta`), or
+    ``meta_run``: (the knobs it walked, its output, its seconds), run in the
+    process batch; its knobs must be this run's.
     Gate: launches, kernel launches, flops, bytes and collective bytes equal,
     walk for walk; the card's decode also runs ``lm._cache_room``'s host
     check, which a dry run skips (a static bound), so its decode is held
@@ -4592,8 +4791,7 @@ def path_dr(dev) -> dict:
     for wire in ("fp32", "bf16"):
         pl = build_deblur_plan(p, mesh, rfft=True, tail="kernel", wire_dtype=wire)
         walked(f"cs_{wire}", pl.cpadmm_block(DR_CS_ITERS), *tune._block_operands(pl, 4))
-        knobs[wire] = dict(n1=pl.n1, n2=pl.n2, rfft=pl.rfft, overlap=pl.overlap, fused=pl.fused,
-                           wire_dtype=pl.wire_dtype, batch=4)
+        knobs[wire] = _dr_knob(pl)
     del prob, p
     cfg = _dr_lm()
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -4612,14 +4810,18 @@ def path_dr(dev) -> dict:
     del state, cache
     torch.cuda.empty_cache()
 
-    t1 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dr-meta",
-                           json.dumps(knobs)], capture_output=True, text=True, timeout=300,
-                          cwd=str(ROOT))
-    if proc.returncode != 0:
-        fail(f"Path DR: the meta walks failed:\n{proc.stderr[-3000:]}")
-    meta = json.loads(proc.stdout.strip().splitlines()[-1])
-    meta_s = time.perf_counter() - t1
+    if meta_run is None:
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dr-meta",
+                               json.dumps(knobs)], capture_output=True, text=True, timeout=300,
+                              cwd=str(ROOT))
+        if proc.returncode != 0:
+            fail(f"Path DR: the meta walks failed:\n{proc.stderr[-3000:]}")
+        meta_run = (knobs, proc.stdout, time.perf_counter() - t1)
+    meta_knobs, meta_out, meta_s = meta_run
+    if meta_knobs != knobs:
+        fail(f"Path DR: the meta walks ran the knobs {meta_knobs}, the card's are {knobs}")
+    meta = json.loads(meta_out.strip().splitlines()[-1])
     for key in ("launches", "flops", "bytes"):  # the card's decode less its host room check
         card["decode"][key] -= getattr(room, key)
     bad = []
@@ -4726,69 +4928,89 @@ def main() -> int:
     if sys.argv[1:2] == ["--dr"]:
         path_dr(dev)
         return 0
+    laps, lap_t = {}, [time.perf_counter()]
+
+    def lap(name):  # host seconds of each phase, printed as it ends and all at the end
+        now = time.perf_counter()
+        laps[name] = round(now - lap_t[0], 1)
+        lap_t[0] = now
+        print(f"phase {name}: {laps[name]} s (at {now - t_start:.1f} s)", flush=True)
+
     gen = torch.Generator(device=dev).manual_seed(0)
     launch_floors(dev)
     checks = check_kernels(dev, gen)
+    lap("kernels")
     a = path_a(dev, 1)
+    lap("A")
     below = below_crossover()
     b = path_b(dev, torch.Generator().manual_seed(2))
     b_below = path_b(dev, torch.Generator().manual_seed(2), n=below, name=f"B{below}")
+    lap("B")
     c = path_c(dev, torch.Generator().manual_seed(3))
     c_below = path_c(dev, torch.Generator().manual_seed(3), n=below, name=f"C{below}")
+    lap("C")
     f = path_f(dev, b)
+    lap("F")
     d1 = path_d1(dev, 1, a["kernel"]["x"])
-    t_tune = time.perf_counter()
+    lap("D1")
     t = path_t(dev, 1, a["kernel"]["x"], d1)
-    t_d2 = path_t_d2(dev, 1)
-    tune_cli_phase()
-    print(f"Paths T, T-D2 and the --tune CLIs took {time.perf_counter() - t_tune:.1f} s")
+    lap("T")
     m = path_m(dev, 6)
+    lap("M")
     md1 = path_md1(dev, m.pop("problem"))
-    d2 = path_d2(dev, 1)
-    t_serve = time.perf_counter()
+    lap("MD1")
+    d2, t_d2, h = run_on_ranks(dev, [path_d2(dev, 1), path_t_d2(dev, 1), path_h(dev, 1)],
+                               "D2, T-D2, H")
+    lap("D2, T-D2, H")
     s = path_s(dev)
-    s_below = path_s(dev, n=below, requests=32, method="ista", name=f"S{below}")
+    lap("S")
+    s_below = path_s(dev, n=below, requests=16, method="ista", name=f"S{below}")
+    lap(f"S{below}")
     sd1 = path_s_d1(dev)
-    h = path_h(dev, 1)
-    serve_cli_phase()
-    print(f"Paths S, S{below}, S-D1, H and the serve CLI took "
-          f"{time.perf_counter() - t_serve:.1f} s")
+    lap("S-D1")
     cli = cli_phase()
     cli_priors = cli_priors_phase()
-    examples_phase()
+    lap("CLI")
+    knobs = dr_knobs(dev)
+    procs, walls = process_phase(dr_meta_chain(knobs))
+    lap("processes")
     e1 = path_e1(dev, 4)
     e2 = path_e2(e1)
     e4 = path_e4(e1)
     del e1["params"], e1["prefill"]
     torch.cuda.empty_cache()
+    lap("E1-E4")
     e3 = path_e3(dev, 5)
-    t_train = time.perf_counter()
     g3 = path_g3(dev, e3, 5)
     del e3["params"], e3["params_dev"]
     torch.cuda.empty_cache()
+    lap("E3-G3")
     g1 = path_train("G1", lm_config("minitron-4b", n_layers=4), dev, 7)
     del g1["state"]
     torch.cuda.empty_cache()
+    lap("G1")
     g2 = path_train("G2", lm_config("moonshot-v1-16b-a3b", n_layers=3), dev, 8)
     e5 = path_e5(g2, dev, 9)
     del g2["state"]
     torch.cuda.empty_cache()
-    train_cli_phase()
-    print(f"Paths G3, G1, G2, E5 and the train CLI took {time.perf_counter() - t_train:.1f} s")
-    g4, g5, g6, g7 = sharded_paths(dev)
-    dr = path_dr(dev)
-    print(f"Path DR took {dr['seconds']:.1f} s")
-    t_lm = time.perf_counter()
+    lap("G2-E5")
+    g4, g5, g6, g7, g8, g9 = sharded_paths(dev)
+    lap("G4-G9")
+    dr = path_dr(dev, (knobs, procs["DR meta"][0], walls["DR meta"][0]))
+    lap("DR")
     e6 = path_e6(dev, 10)
     torch.cuda.empty_cache()
+    lap("E6")
     e7 = path_e7(dev, 11)
+    lap("E7")
     e8 = path_e8(dev, 12)
+    lap("E8")
     e9 = path_e9(dev, 13)
-    print(f"Paths E6-E9 took {time.perf_counter() - t_lm:.1f} s")
-    t_encdec = time.perf_counter()
+    lap("E9")
     e10 = path_e10(dev, 14)
+    lap("E10")
     e11 = path_e11(dev, 15)
-    print(f"Paths E10-E11 took {time.perf_counter() - t_encdec:.1f} s")
+    lap("E11")
     d1_counts = {k: d1["fp32"]["counts"][k] + d1["bf16"]["counts"][k] for k in d1["fp32"]["counts"]}
     m_counts = {k: m["l1"]["counts"][k] + m["tv"]["counts"][k] for k in m["l1"]["counts"]}
     md1_counts = {k: md1["fp32"]["counts"][k] + md1["bf16"]["counts"][k]
@@ -4805,7 +5027,7 @@ def main() -> int:
                "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
                "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"], "E10": e10["counts"],
                "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"], "G6": g6["counts"],
-               "G7": g7["counts"], "DR": dr["counts"]}
+               "G7": g7["counts"], "G8": g8["counts"], "G9": g9["counts"], "DR": dr["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
@@ -4830,7 +5052,8 @@ def main() -> int:
                 "library_ms": None if r["library_ms"] is None else r["library_ms"][0],
             } for r in checks[name]],
         })
-    print(f"chip_smoke: every phase done in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: every phase done in {time.perf_counter() - t_start:.1f} s; "
+          f"seconds by phase {json.dumps(laps)}")
     print(json.dumps({"kernels": kernels}))
     torch.distributed.destroy_process_group()  # Path D1's world of one
     print(card)

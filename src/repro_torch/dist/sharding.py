@@ -37,6 +37,12 @@ it at each block's input, after the norm.  Both are the identity when no
 rules are active or when the model axis has one rank, as the reference's
 annotations are (``sharding.py:138-146`` there).
 
+Mamba-2 and xLSTM (the ``ssm_inner`` rule) add two: :func:`model_sum`, an
+all-reduce both ways (a norm's sum of squares over a dimension the ranks
+split), and :func:`tp_gather`, an all-gather over ``model`` whose backward
+cuts this rank's block of the cotangent, summed over the ranks first when
+each rank's use of the whole tensor is a part of it.
+
 The data axis: :func:`fsdp_gather` gathers a weight sharded over ``data``
 (the MoE experts' ``d_model``) for use and returns its gradient summed over
 the data ranks and cut back to this rank's block (all-reduce and slice:
@@ -263,6 +269,55 @@ def grad_reduce_boundary(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceBackward.apply(x, _group("model"))
 
 
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model axis, an all-reduce of its bytes over the
+    ``model`` group in the forward and of its cotangent's in the backward
+    (:func:`constrain`, then :func:`grad_reduce_boundary`): the sum is
+    replicated, but each rank's use of it is a per-rank part of its
+    cotangent (the sum of squares of a norm over a dimension the ranks
+    split, ``ssm_inner``).  The identity on one model rank."""
+    return grad_reduce_boundary(constrain(x))
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, partial, group, index, *ts):
+        from .compat import gather_cat
+
+        ctx.dim, ctx.partial, ctx.group, ctx.index = dim, partial, group, index
+        ctx.sizes = [t.shape[dim] for t in ts]
+        return tuple(gather_cat(t, group, dim) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = []
+        for g, size in zip(gs, ctx.sizes):
+            g = g.contiguous()
+            if ctx.partial:
+                g = g.clone()
+                dist.all_reduce(g, group=ctx.group)
+            out.append(g.narrow(ctx.dim, ctx.index * size, size))
+        return (None, None, None, None, *out)
+
+
+def tp_gather(ts, dim: int, partial: bool):
+    """Every model rank's block of each tensor of ``ts`` (a tensor, or a
+    tuple of them) concatenated along ``dim`` in model order: one all-gather
+    over the ``model`` group a tensor, of its block's bytes times the ranks.
+    The backward returns this rank's block of the cotangent: summed over the
+    model ranks first (an all-reduce of the gathered tensor's bytes) when
+    ``partial``, for a consumer whose use on each rank gives a part of the
+    cotangent (a rank's columns of a product, its heads); as it is when the
+    consumer is replicated, every rank computing the same function of the
+    whole tensor.  The identity on one model rank."""
+    single = isinstance(ts, torch.Tensor)
+    ts = (ts,) if single else tuple(ts)
+    if model_ranks() == 1:
+        return ts[0] if single else ts
+    out = _GatherCat.apply(dim, partial, _group("model"), current_rules()[1].index("model"), *ts)
+    return out[0] if single else out
+
+
 def reduce_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     """The elementwise max over ``axis``'s ranks, without a gradient."""
     out = x.detach().clone()
@@ -299,21 +354,6 @@ def data_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return gather_cat(t.detach(), _group(batch_axes()), dim)
 
 
-class _FsdpGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, w, dim, group, index):
-        from .compat import gather_cat
-
-        ctx.dim, ctx.group, ctx.index, ctx.size = dim, group, index, w.shape[dim]
-        return gather_cat(w, group, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None
-
-
 def fsdp_gather(w: torch.Tensor, dim: int) -> torch.Tensor:
     """A weight sharded along ``dim`` by the ``fsdp`` rule, gathered whole
     over the data axis; its gradient comes back summed over the data ranks
@@ -321,4 +361,4 @@ def fsdp_gather(w: torch.Tensor, dim: int) -> torch.Tensor:
     n, i = split("fsdp")
     if n == 1:
         return w
-    return _FsdpGather.apply(w, dim, _group("data"), i)
+    return _GatherCat.apply(dim, True, _group("data"), i, w)[0]

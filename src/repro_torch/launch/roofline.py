@@ -218,8 +218,7 @@ def main(argv=None):
         if r.get("error") is not None:
             mem = r.get("memory") or {}
             need = mem.get("argument", 0) + mem.get("output", 0) - mem.get("alias", 0)
-            why = "11.7c-b" if "11.7c-b" in r["error"] else "ERROR"
-            print(f"| {r['arch']} | {r['shape']} | {r['mesh']} | {why} | | | | | | "
+            print(f"| {r['arch']} | {r['shape']} | {r['mesh']} | ERROR | | | | | | "
                   f"{need/1e9:.1f}GB (no temp) | |")
             continue
         print(

@@ -13,9 +13,9 @@ reference's partition specs (:mod:`repro_torch.launch.partition`) and the
 rules of :func:`repro_torch.dist.sharding.rules_for_arch`, and trains on
 its data rows of the global batch.  ``--mesh single|multipod`` asks for
 the production meshes, (16, 16) and (2, 16, 16), and raises ``ValueError``
-on a world without their 256 or 512 ranks.  Mamba-2 (zamba2) and xLSTM
-configs raise ``NotImplementedError`` on a mesh of more than one rank
-(ROADMAP.md Queue 1 item 11.7c-b).
+on a world without their 256 or 512 ranks.  Every family the CLI trains
+shards: the dense and MoE stacks, MLA (deepseek-v3), the Mamba-2 hybrid
+(zamba2) and xLSTM.
 
 The parameters are drawn from ``--seed`` on the device, and each step's
 global batch from a generator seeded by ``(seed, step, host)``
@@ -44,7 +44,6 @@ from ..data.synthetic import step_generator, token_batch
 from ..device import resolve_device
 from ..dist.compat import world_size
 from ..dist.sharding import activate_rules, rules_for_arch
-from ..models import lm
 from ..models import steps as steps_mod
 from ..optim.adamw import AdamWConfig
 from . import partition
@@ -99,7 +98,6 @@ def main(argv=None):
         return _train(args, cfg, opt_cfg, state, device)
     rules = rules_for_arch(cfg, mesh)
     with activate_rules(rules, mesh):
-        lm.check_sharded(cfg)
         state = partition.init_sharded_train_state(gen, cfg, opt_cfg, mesh, rules,
                                                    device=device)
         layout = partition.ShardedLayout(mesh,

@@ -72,6 +72,18 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x * params["scale"].float()).to(dtype)
 
 
+def rmsnorm_split(scale: torch.Tensor, x: torch.Tensor, dim: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rmsnorm` over a last dimension of ``dim`` whose columns the
+    model ranks split: ``x`` and ``scale`` are this rank's columns, and the
+    sum of squares is summed over the model axis (``sharding.model_sum``)."""
+    dtype = x.dtype
+    x = x.float()
+    var = sharding.model_sum(torch.sum(x * x, dim=-1, keepdim=True)) / dim
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
 def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()

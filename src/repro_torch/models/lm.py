@@ -29,7 +29,8 @@ and the RoPE positions run over image plus text.
 
 Sharded runs (:mod:`repro_torch.dist.sharding`): under active rules over a
 mesh of more than one rank, the dense GQA stacks, the MoE layer, MLA
-(deepseek-v3), Whisper's encoder-decoder and pixtral's text stack train,
+(deepseek-v3), Whisper's encoder-decoder, pixtral's text stack, the
+Mamba-2 hybrid (zamba2) and xLSTM train,
 prefill and decode on this rank's parameter blocks and batch rows, with the
 collectives where the reference's ``constrain`` / ``grad_reduce_boundary``
 sit (each tensor-parallel block: :func:`.layers.mlp`,
@@ -44,8 +45,13 @@ vocabulary-sharded ``unembed`` and are gathered whole over the model axis
 argmax over them breaks ties as one rank's does.  A decode cache holds the
 rank's rows and its kv heads (all of them where ``kv_heads`` is not split:
 ``launch.partition.cache_shardings``); an MLA cache holds the rank's rows of
-the whole latent.  Mamba-2 (zamba2) and xLSTM raise
-``NotImplementedError`` there (ROADMAP.md Queue 1 item 11.7c-b).
+the whole latent.  Mamba-2 runs the rank's SSM heads
+(:func:`.ssm.mamba2_forward`), and zamba2's shared block is the GQA
+block's tensor parallelism on the shared parameters (its KV cache the
+rank's kv heads); mLSTM runs the rank's column block of its heads and
+sLSTM its recurrence whole on every model rank (:mod:`.xlstm`).  Their
+recurrent caches are whole on every model rank (each the one-rank
+cache), their rows the rank's data rows.
 
 Two behaviours of the reference are kept, faults of the reference
 (ROADMAP.md Queue 3), so the port's decode does not agree with its prefill
@@ -166,20 +172,6 @@ def _ffn(params: dict, kind: str, cfg: ModelConfig,
     if kind == "dense":
         return mlp(params["mlp"], h, cfg.act), _zero(h)
     return moe_mod.moe_ffn(params["moe"], cfg, h, cfg.act)
-
-
-def check_sharded(cfg: ModelConfig, what: str = "training") -> None:
-    """Raise ``NotImplementedError`` for a family the port does not shard
-    yet when rules are active over a mesh of more than one rank."""
-    if not sharding.is_sharded_run():
-        return
-    family = ("Mamba-2" if cfg.block_type == "mamba2" else
-              "xLSTM" if cfg.block_type == "xlstm" else None)
-    if family is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} on a mesh of more than one rank is ported for the dense GQA, "
-            f"MoE, MLA and encoder-decoder stacks; {family} is not sharded yet (ROADMAP.md "
-            f"Queue 1 item 11.7c-b)")
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -480,7 +472,6 @@ def forward_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     img_embeds: Optional[torch.Tensor] = None,
                     frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward` on parameters already cast by :func:`cast_params`."""
-    check_sharded(cfg)
     dt = _dtype(cfg)
     x = _embed_scaled(params, cfg, tokens)
     if img_embeds is not None:  # unscaled, before the text
@@ -596,13 +587,23 @@ def decode_step_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     An encoder-decoder's dense layers each attend to ``state.cross_kv``
     after their own block, the cross K / V projected anew every step, and
     its token gets no position, as the reference's decode does."""
-    check_sharded(cfg, "decode")
     if cfg.is_encdec and state.cross_kv is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: build its decode state with "
                          "init_decode_state(..., cross_kv=encoder_forward(params, cfg, frames))")
     _cache_room(cfg, state)
     x = _embed_scaled(params, cfg, tokens)
     shared, shared_cache = params.get("shared_attn"), state.shared_attn
+    whole = None
+    if shared_cache is not None and shared_cache.length.shape[0] != tokens.shape[0]:
+        # the shared cache's (B,) length is replicated over the data ranks in the
+        # reference's layout (launch.partition.cache_shardings): a state cut from the
+        # global one holds every row's, and this rank reads its own rows of it
+        whole, (n, i) = shared_cache.length, sharding.split("batch")
+        if whole.shape[0] != n * tokens.shape[0]:
+            raise ValueError(f"the shared KV cache's length holds {whole.shape[0]} rows for "
+                             f"{tokens.shape[0]} tokens on {n} data rank(s)")
+        shared_cache = shared_cache._replace(
+            length=whole.narrow(0, i * tokens.shape[0], tokens.shape[0]))
     cross = params.get("cross")
     new_seg_caches = []
     for si, seg in enumerate(segments_of(cfg)):
@@ -618,6 +619,8 @@ def decode_step_precast(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             if cross is not None and seg.kind in ("dense", "moe"):
                 x = _cross_one(_layer(cross, seg.start + i), cfg, x, state.cross_kv)
         new_seg_caches.append(seg_cache._replace(length=seg_cache.length + 1))
+    if whole is not None:
+        shared_cache = shared_cache._replace(length=whole + shared_invocations(cfg))
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = logits_for(params, cfg, x)[:, 0]
     return logits, DecodeState(segments=tuple(new_seg_caches), shared_attn=shared_cache,

@@ -10,9 +10,8 @@ against the reference's.
   reference's compiled cell takes as arguments.
 * The records: the SMOKE cells walked on rank 0 of a fake world of 8 (one
   subprocess), and one FULL production cell on the 512-rank multi-pod mesh,
-  hold the reference's ``test_dryrun_artifacts.py`` properties; the cells
-  whose families are not sharded yet (Mamba-2 and xLSTM, ROADMAP item
-  11.7c-b) are listed here, each ``ok: false`` naming 11.7c-b.
+  hold the reference's ``test_dryrun_artifacts.py`` properties; every
+  family is sharded, so no cell is listed as blocked.
 * The roofline: ``derive`` and the command line over those records.
 
 Every fake world and every reference run on 8 placeholder devices runs in
@@ -33,18 +32,24 @@ from torch_dryrun_programs import start
 
 ARCHS = port_registry.all_arch_ids()
 # the SMOKE cells walked on (2, 4): every cell, but the dense train cells of
-# the four archs whose train step is the same code as minitron's (7 s each)
+# the four archs whose train step is the same code as minitron's (7 s each), and
+# xlstm-350m's train and prefill cells, whose sLSTM layers loop over 4096 / 32768
+# positions in Python (~6 / ~8 min of the walk's dispatch on meta; the CLI's
+# `--all` walks them, PERF.md section 6)
 SMOKE_CELLS = [(a, s, "single") for a in ARCHS for s in port_registry.cells_for(a)
                if not (s == "train_4k" and a in ("codeqwen15_7b", "granite_34b", "gemma_7b",
-                                                 "pixtral_12b"))]
-# the cells whose family has no sharded step yet (ROADMAP Queue 1 item 11.7c-b)
-BLOCKED_BY_11_7C = {(a, s) for a in ("zamba2_1p2b", "xlstm_350m")
-                    for s in port_registry.cells_for(a)}
-# deepseek-v3's and whisper's decode cells: the MLA latent cache and cross_kv on the
-# data rows, whose reference argument bytes cost no train-step compile
+                                                 "pixtral_12b"))
+               and not (a == "xlstm_350m" and s in ("train_4k", "prefill_32k"))]
+# the cells whose family has no sharded step yet: none since Mamba-2 and xLSTM
+# (ROADMAP Queue 1 item 11.7c-b) shard
+BLOCKED_BY_11_7C = set()
+# deepseek-v3's, whisper's, zamba2's and xlstm-350m's decode cells: the MLA latent
+# cache, cross_kv and the Mamba-2 / mLSTM / sLSTM caches whole on the model ranks
+# (their rows on data), whose reference argument bytes cost no train-step compile
 ARG_CELLS = [(a, s) for a in ("minitron_4b", "moonshot_v1_16b_a3b")
              for s in ("train_4k", "prefill_32k", "decode_32k")] + [
-    ("deepseek_v3_671b", "decode_32k"), ("whisper_large_v3", "decode_32k")]
+    (a, "decode_32k") for a in ("deepseek_v3_671b", "whisper_large_v3", "zamba2_1p2b",
+                                "xlstm_350m")]
 FULL_CELL = ("minitron_4b", "prefill_32k", "multipod")
 
 
@@ -176,9 +181,9 @@ def test_argument_bytes_equal_the_references(smoke_records, ref_argument_bytes, 
 
 
 def test_all_cells_recorded_and_ok_but_the_listed_ones(smoke_records):
-    """Every walked cell is recorded; the dense, MoE, MLA and encoder-decoder
-    archs' are ok, each listed one is ``ok: false`` naming 11.7c-b and still
-    records its memory."""
+    """Every walked cell is recorded and ok, the Mamba-2 hybrid's and
+    xLSTM's among them: no cell is listed as blocked (a listed one would be
+    ``ok: false`` naming 11.7c-b and still record its memory)."""
     recs = smoke_records[1]
     for arch, shape, mesh in SMOKE_CELLS:
         rec = recs[arch, shape, mesh]
@@ -188,7 +193,7 @@ def test_all_cells_recorded_and_ok_but_the_listed_ones(smoke_records):
         else:
             assert rec["ok"], (arch, shape, rec.get("error"))
     blocked = {(a, s) for a, s, _ in SMOKE_CELLS} & BLOCKED_BY_11_7C
-    assert blocked == BLOCKED_BY_11_7C and len(BLOCKED_BY_11_7C) == 8
+    assert blocked == BLOCKED_BY_11_7C and len(BLOCKED_BY_11_7C) == 0
 
 
 def test_cost_numbers_sane(smoke_records):
@@ -221,7 +226,9 @@ def test_meshes_and_ranks(smoke_records):
 
 def test_train_cells_have_collectives(smoke_records):
     """Every sharded train cell communicates (gradient and TP reductions),
-    by kind and by group; an MoE cell gathers the routing too."""
+    by kind and by group; an MoE cell gathers the routing too, Mamba-2 its
+    FSDP blocks, and xLSTM's decode its up-projection, q, k, v and sLSTM
+    weights."""
     recs = smoke_records[1]
     for key, rec in recs.items():
         if rec["ok"] and rec["shape"] == "train_4k":
@@ -232,13 +239,17 @@ def test_train_cells_have_collectives(smoke_records):
             assert {"data", "model"} <= axes, (key, axes)
     moe = recs["moonshot_v1_16b_a3b", "train_4k", "single"]
     assert moe["walk"]["collective_bytes"]["all-gather"] > 0
+    # fsdp_gather / tp_gather: all-gathers (xlstm-350m's decode: its train cell is
+    # not walked here)
+    for key in (("zamba2_1p2b", "train_4k", "single"), ("xlstm_350m", "decode_32k", "single")):
+        assert recs[key]["walk"]["collective_bytes"]["all-gather"] > 0, key
     assert "models/moe.py:rebase_slots" in moe["static_bounds"]
 
 
 def test_roofline_derive_and_table(smoke_records, tmp_path, capsys):
     """``derive`` prices every ok record (the terms, the bound, the useful
     ratio, ``fits_hbm`` against 80 GB); the command line writes one row per
-    record and a table naming 11.7c-b for the blocked cells."""
+    record and prices every cell in its table (no ERROR row)."""
     out_dir, recs = smoke_records
     rec = recs[FULL_CELL]
     row = roofline.derive(rec)
@@ -258,7 +269,11 @@ def test_roofline_derive_and_table(smoke_records, tmp_path, capsys):
     rows = json.loads(json_out.read_text())
     assert len(rows) == len(recs)
     table = capsys.readouterr().out
-    assert "not measured" in table and "| 11.7c-b |" in table
+    assert "not measured" in table and "| ERROR |" not in table
+    priced = [line for line in table.splitlines() if line.startswith("| ")
+              and line.split(" | ")[3:4] != ["compute"]]
+    assert len(priced) == len(recs) and all("**" in line for line in priced)
+    assert {r["arch"] for r in rows} >= {"zamba2_1p2b", "xlstm_350m"}
 
 
 def test_group_tier_by_node():

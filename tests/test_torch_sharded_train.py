@@ -64,33 +64,64 @@ S = 24
 OPT = {}
 # arch -> global batch rows (one set of parameters and one batch an arch)
 ROWS = {"minitron-4b": 4, "granite-34b": 2, "gemma-7b": 2, "pixtral-12b": 4,
-        "moonshot-v1-16b-a3b": 8, "deepseek-v3-671b": 4, "whisper-large-v3": 4}
+        "moonshot-v1-16b-a3b": 8, "deepseek-v3-671b": 4, "whisper-large-v3": 4,
+        "zamba2-1.2b": 4, "xlstm-350m": 4}
+# arch -> config fields over its f32 SMOKE config, on both sides: zamba2's 8 SSM
+# heads in one group (two model ranks share its B and C, as two of zamba2-1.2b's
+# 16 do), xLSTM's one head of 128 (split over two model ranks, as each of
+# xlstm-350m's 4 heads of 512 is over 16); sLSTM's gates i | f | z | o and g | u
+# straddle the model ranks at its SMOKE width as they do at full width
+CFG = {"zamba2-1.2b": {"ssm_groups": 1}, "xlstm-350m": {"n_heads": 1, "n_kv_heads": 1}}
 S_ENC = 12  # whisper's frames a row
 # mesh -> {case: (arch, microbatches)}
 MESHES = {
     (2, 2): {"minitron-m1": ("minitron-4b", 1), "minitron-m2": ("minitron-4b", 2),
              "pixtral": ("pixtral-12b", 1), "moonshot": ("moonshot-v1-16b-a3b", 1),
-             "deepseek": ("deepseek-v3-671b", 1), "whisper": ("whisper-large-v3", 1)},
+             "deepseek": ("deepseek-v3-671b", 1), "whisper": ("whisper-large-v3", 1),
+             "zamba2": ("zamba2-1.2b", 1), "xlstm": ("xlstm-350m", 1)},
     (1, 2): {"granite": ("granite-34b", 1), "gemma": ("gemma-7b", 1),
-             "deepseek": ("deepseek-v3-671b", 1), "whisper": ("whisper-large-v3", 1)},
+             "deepseek": ("deepseek-v3-671b", 1), "whisper": ("whisper-large-v3", 1),
+             "zamba2": ("zamba2-1.2b", 1), "xlstm": ("xlstm-350m", 1)},
     (1, 3): {"minitron-tp3": ("minitron-4b", 1), "deepseek": ("deepseek-v3-671b", 1),
-             "whisper": ("whisper-large-v3", 1)},
+             "whisper": ("whisper-large-v3", 1), "zamba2": ("zamba2-1.2b", 1),
+             "xlstm": ("xlstm-350m", 1)},
 }
 # the archs held against the reference's step (its compile dominates this
 # file's time, so each runs once, at 1 microbatch: a dense model's 2
 # microbatches are the same arithmetic, within 1e-5 on either side); the
 # port's one-rank pixtral is held against the reference in test_torch_encdec.py
 REFERENCE = ("minitron-4b", "granite-34b", "gemma-7b", "moonshot-v1-16b-a3b",
-             "deepseek-v3-671b", "whisper-large-v3")
+             "deepseek-v3-671b", "whisper-large-v3", "zamba2-1.2b", "xlstm-350m")
+# Mamba-2 and xLSTM (RECURRENT).  float32 alone puts their gradients on these
+# inputs up to 7.0e-5 (the port) and 3.6e-5 (the reference) of a leaf's largest from
+# a float64 run of the port's step (xLSTM's one head of 128: mLSTM's w_v), and 0.65e-5
+# / 1.9e-5 (zamba2: Mamba-2's a_log), so their gradients are held against the
+# reference at tests/test_torch_train.py's tolerance for these families' gradients
+# against jax.grad, TOL_REF_GRAD, and at TOL against the port's one rank.
+RECURRENT = ("zamba2-1.2b", "xlstm-350m")
+TOL_REF_GRAD = 1e-4
+# A zero-initialised leaf (Mamba-2's conv_b and dt_bias, sLSTM's b) takes Adam's
+# first step as lr * g / (|g| + eps), so where |g| is small its step follows the
+# gradient's rounding; sLSTM's input-gate bias has a gradient of zero in exact
+# arithmetic (exp(b_i) scales c and n alike), its float32 value rounding alone.
+# As chip_smoke.py's sharded training does (ADAM_RHO_SCALE there), RECURRENT's
+# updated parameters are held at TOL over the weights whose gradients agree within
+# rho = TOL * (the leaf's largest |w|) / (ADAM_RHO_SCALE * lr) of the other side's
+# (or are 0 on both), and every other weight within two of Adam's first steps,
+# 2 lr (1 + weight_decay |w|), of the other side's.
+ADAM_RHO_SCALE = 4
 # serve key -> (arch, config fields over its f32 SMOKE config)
 SERVE_KEYS = {"minitron-4b": ("minitron-4b", {}),
               "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}),
               "deepseek-naive": ("deepseek-v3-671b", {"mla_absorbed": False}),
               "deepseek-absorbed": ("deepseek-v3-671b", {"mla_absorbed": True}),
-              "whisper-large-v3": ("whisper-large-v3", {})}
+              "whisper-large-v3": ("whisper-large-v3", {}),
+              "zamba2-1.2b": ("zamba2-1.2b", CFG["zamba2-1.2b"]),
+              "xlstm-350m": ("xlstm-350m", CFG["xlstm-350m"])}
 _MLA_WHISPER = {"serve-deepseek-naive": "deepseek-naive",
                 "serve-deepseek-absorbed": "deepseek-absorbed",
-                "serve-whisper": "whisper-large-v3"}
+                "serve-whisper": "whisper-large-v3", "serve-zamba2": "zamba2-1.2b",
+                "serve-xlstm": "xlstm-350m"}
 # mesh -> {serve case: serve key}: sharded prefill and decode from the initial parameters
 SERVES = {
     (2, 2): {"serve-minitron": "minitron-4b", "serve-moonshot": "moonshot-v1-16b-a3b",
@@ -111,9 +142,32 @@ def rel_err(got, want) -> float:
     return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
 
 
-def close(got, want, what):
+def close(got, want, what, tol=TOL):
     err = rel_err(got, want)
-    assert err <= TOL, f"{what}: norm-relative error {err:.3e} > {TOL:.0e}"
+    assert err <= tol, f"{what}: norm-relative error {err:.3e} > {tol:.0e}"
+
+
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().numpy() if isinstance(t, torch.Tensor) else t, np.float64)
+
+
+def close_updated(got, want, g_got, g_want, w0, lr, what):
+    """A RECURRENT case's updated parameter ``got`` against ``want``: at TOL
+    of the leaf's largest over the weights whose gradients agree within rho
+    (ADAM_RHO_SCALE), every other weight within two of Adam's first steps
+    of ``want`` (its initial value ``w0``); -> the share of decided weights."""
+    got, want, g_got, g_want, w0 = map(_np, (got, want, g_got, g_want, w0))
+    assert got.shape == want.shape == g_got.shape == g_want.shape == w0.shape, what
+    scale = max(float(np.max(np.abs(want))), 1e-30)
+    rho = TOL * scale / (ADAM_RHO_SCALE * lr)
+    decided = (np.abs(g_got - g_want) <= rho * np.abs(g_want)) | ((g_got == 0) & (g_want == 0))
+    err = np.abs(got - want)
+    worst = float(np.max(err[decided], initial=0.0)) / scale
+    assert worst <= TOL, f"{what}: norm-relative error {worst:.3e} > {TOL:.0e} (decided weights)"
+    step = lr * (1.0 + port_adamw.AdamWConfig(**OPT).weight_decay * np.abs(w0))
+    assert np.all(err[~decided] <= 2.0 * step[~decided] * (1.0 + 1e-6)), \
+        f"{what}: an undecided weight moved by more than two of Adam's steps"
+    return float(decided.mean())
 
 
 @pytest.fixture(scope="module")
@@ -128,10 +182,16 @@ def ref():
                                  adamw=adamw)
 
 
+def _max_len(cfg) -> int:
+    """MAX_LEN tokens of a decode cache: zamba2's shared cache spends
+    ``shared_invocations`` positions a token, on both sides."""
+    return MAX_LEN * max(1, port_lm.shared_invocations(cfg))
+
+
 def _inputs(arch, seed):
     """An arch's float32 parameters (the port's init, from ``seed``) and its
     global batch, drawn by numpy from ``seed``, as numpy arrays."""
-    cfg = f32_smoke(arch)
+    cfg = f32_smoke(arch, **CFG.get(arch, {}))
     params = port_lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
     tree = port_lm.tree_map(lambda a: a.numpy(), params)
     rng = np.random.default_rng(seed)
@@ -151,7 +211,8 @@ def _reference(ref, arch, tree, batch, micro):
     averaged over the microbatches as its train step does, then its AdamW
     update -> (the gradient, the updated parameters, the metrics)."""
     jax, jnp = ref.jax, ref.jnp
-    cfg = dataclasses.replace(ref.registry.smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(ref.registry.smoke_config(arch), dtype="float32",
+                              **CFG.get(arch, {}))
     opt = ref.adamw.AdamWConfig(**OPT)
 
     @jax.jit
@@ -178,7 +239,7 @@ def _reference(ref, arch, tree, batch, micro):
 
 def _one_rank(arch, tree, batch, micro):
     """The port's one-rank step on the same numbers."""
-    cfg = f32_smoke(arch)
+    cfg = f32_smoke(arch, **CFG.get(arch, {}))
     opt = port_adamw.AdamWConfig(**OPT)
     params = lm_params_from_numpy(tree, cfg, "cpu")
     state = port_steps.TrainState(params, port_adamw.init(params, opt),
@@ -186,17 +247,18 @@ def _one_rank(arch, tree, batch, micro):
     step = port_steps.make_train_step(cfg, opt, microbatches=micro)
     with drop_counter() as kept, routing_ids() as ids:
         metrics, grads = step.gradient(state, {k: torch.as_tensor(v) for k, v in batch.items()})
+    init = {k: v.clone() for k, v in path_dict(state.params).items()}
     state, after = step.apply(state, metrics, grads)
     paths = list(path_dict(state.params))
     return dict(grads=dict(zip(paths, grads)), params=path_dict(state.params),
                 metrics={k: float(v) for k, v in after.items()}, kept=kept,
-                ids=ids[0] if ids else None)
+                ids=ids[0] if ids else None, init=init)
 
 
 def _serve_case(key, tree, batch):
     arch, kw = SERVE_KEYS[key]
     return dict(arch=arch, cfg=kw, tree=tree, prompt=batch["tokens"][:, :PROMPT],
-                frames=batch.get("frames"), max_len=MAX_LEN, steps=GEN)
+                frames=batch.get("frames"), max_len=_max_len(f32_smoke(arch, **kw)), steps=GEN)
 
 
 def _reference_serve(ref, key, tree, batch):
@@ -215,7 +277,7 @@ def _reference_serve(ref, key, tree, batch):
                                                                           inputs["frames"])
     prefill = jax.jit(ref.steps.make_prefill_step(cfg))(tree, inputs)
     decode = jax.jit(ref.steps.make_decode_step(cfg))
-    state = ref.lm.init_decode_state(cfg, prompt.shape[0], MAX_LEN, cross_kv=cross_kv)
+    state = ref.lm.init_decode_state(cfg, prompt.shape[0], _max_len(cfg), cross_kv=cross_kv)
     logits = []
     for i in range(PROMPT):
         step_logits, state = decode(tree, prompt[:, i:i + 1], state)
@@ -229,8 +291,8 @@ def _one_rank_serve(key, tree, batch):
     cfg = f32_smoke(arch, **kw)
     params = lm_params_from_numpy(tree, cfg, "cpu")
     frames = batch.get("frames")
-    return serve_run(cfg, params, torch.as_tensor(batch["tokens"][:, :PROMPT]), MAX_LEN, GEN,
-                     None if frames is None else torch.as_tensor(frames))
+    return serve_run(cfg, params, torch.as_tensor(batch["tokens"][:, :PROMPT]), _max_len(cfg),
+                     GEN, None if frames is None else torch.as_tensor(frames))
 
 
 @pytest.fixture(scope="module")
@@ -256,8 +318,9 @@ def spawned(ref, launched):
 
     def spawn_all():
         for shape, cases in MESHES.items():
-            args = {name: dict(arch=arch, tree=inputs[arch][0], batch=inputs[arch][1],
-                               micro=micro, opt=OPT) for name, (arch, micro) in cases.items()}
+            args = {name: dict(arch=arch, cfg=CFG.get(arch, {}), tree=inputs[arch][0],
+                               batch=inputs[arch][1], micro=micro, opt=OPT)
+                    for name, (arch, micro) in cases.items()}
             runs = launched.runs if shape == (2, 2) else ()
             serves = {name: _serve_case(key, *inputs[SERVE_KEYS[key][0]])
                       for name, key in SERVES[shape].items()}
@@ -291,6 +354,7 @@ def test_sharded_step_matches_reference_and_one_rank(spawned, shape, name):
     got_all, want_all = spawned[shape]
     got = got_all[name]
     reference, one = want_all[name]
+    recurrent = MESHES[shape][name][0] in RECURRENT
     sides = [("one rank", one["metrics"], {k: v for k, v in one["grads"].items()},
               {k: v.numpy() for k, v in one["params"].items()})]
     if reference is not None:
@@ -305,10 +369,15 @@ def test_sharded_step_matches_reference_and_one_rank(spawned, shape, name):
             if path.endswith("router_bias"):  # reaches the loss through topk's indices alone
                 assert g is None and (want is None or not np.any(want))
                 continue
+            tol = TOL_REF_GRAD if recurrent and side == "the reference" else TOL
             close(g, want if isinstance(want, np.ndarray) else want.numpy(),
-                  f"grad {path} vs {side}")
+                  f"grad {path} vs {side}", tol)
         for path, want in params.items():
-            close(got["params"][path], want, f"param {path} vs {side}")
+            if recurrent:
+                close_updated(got["params"][path], want, got["grads"][path], grads[path],
+                              one["init"][path], metrics["lr"], f"param {path} vs {side}")
+            else:
+                close(got["params"][path], want, f"param {path} vs {side}")
     assert got["kept"] == one["kept"]
 
 
@@ -345,6 +414,33 @@ def test_sharding_is_real(spawned):
             == "model"
     assert one_by_three["whisper"]["rules"]["heads"] is None
     assert one_by_three["deepseek"]["rules"]["heads"] is None
+    # Mamba-2 on 2 x 2: in_proj's rows over data (fsdp), out_proj's columns; xLSTM:
+    # mLSTM's and sLSTM's projections' columns over model (ssm_inner), w_down's rows;
+    # at TP 3 their ssm_inner (128) replicates, as do zamba2's heads and both vocabularies
+    z = f32_smoke("zamba2-1.2b", **CFG["zamba2-1.2b"])
+    assert two["zamba2"]["rules"]["ssm_inner"] == "model" == two["zamba2"]["rules"]["heads"]
+    assert two["zamba2"]["rules"]["fsdp"] == "data"
+    cols = 2 * z.d_ssm_inner + 2 * z.ssm_groups * z.ssm_state + z.n_ssm_heads
+    blocks = two["zamba2"]["blocks"]
+    assert blocks["segments/0/mamba/in_proj"] == (z.n_layers, z.d_model // 2, cols)
+    assert blocks["segments/0/mamba/out_proj"] == (z.n_layers, z.d_ssm_inner, z.d_model // 2)
+    assert blocks["shared_attn/attn/wq"] == (z.d_model, z.d_model // 2)
+    xl = f32_smoke("xlstm-350m", **CFG["xlstm-350m"])
+    d, din = xl.d_model, 2 * xl.d_model
+    blocks = two["xlstm"]["blocks"]
+    assert two["xlstm"]["rules"]["ssm_inner"] == "model"
+    for path, want in (("segments/0/mlstm/w_q", (1, din, din // 2)),
+                       ("segments/0/mlstm/w_up", (1, d, din)),
+                       ("segments/0/mlstm/w_down", (1, din // 2, d)),
+                       ("segments/0/mlstm/w_i", (1, din, xl.n_heads)),
+                       ("segments/1/slstm/w_x", (1, d, 2 * d)),
+                       ("segments/1/slstm/w_up", (1, d, d)),
+                       ("segments/1/slstm/w_down", (1, d // 2, d))):
+        assert blocks[path] == want, (path, blocks[path], want)
+    for arch in ("zamba2", "xlstm"):
+        assert one_by_three[arch]["rules"]["ssm_inner"] is None
+        assert one_by_three[arch]["rules"]["vocab"] is None
+    assert one_by_three["zamba2"]["rules"]["heads"] is None
 
 
 def test_moe_routing_is_global_and_drops(spawned):
@@ -418,3 +514,20 @@ def test_sharded_mla_cache_holds_the_whole_latent(spawned, shape):
         assert got["cache_shape"] == (cfg.first_k_dense, rows, MAX_LEN, cfg.kv_lora_rank), name
         assert got["cache_heads"] is None
         close(got["latent"], one["cache"].c_kv.numpy(), f"{name} latent cache")
+
+
+@pytest.mark.parametrize("shape", list(SERVES), ids=[f"{s[0]}x{s[1]}" for s in SERVES])
+def test_sharded_recurrent_caches_are_whole(spawned, shape):
+    """zamba2's Mamba-2 caches and xLSTM's mLSTM and sLSTM caches after the fed
+    prompt: rank 0's are whole (the one-rank run's shapes over its data
+    rows), every rank's equals its data row's model rank 0's, and gathered
+    over the data ranks they hold the one-rank run's within TOL."""
+    got_all, want_all = spawned[shape]
+    for name in ("serve-zamba2", "serve-xlstm"):
+        got, (_, one) = got_all[name], want_all[name]
+        want = [t for c in one["caches"] if not hasattr(c, "k") for t in c[:-1]]
+        assert len(got["recurrent"]) == len(want) > 0, name
+        for local, g, w in zip(got["recurrent_shapes"], got["recurrent"], want):
+            assert local == (w.shape[0], w.shape[1] // shape[0]) + tuple(w.shape[2:]), name
+            close(g, w.numpy(), f"{name} cache {tuple(w.shape)}")
+        assert got["recurrent_spread"] == 0.0, (name, got["recurrent_spread"])

@@ -75,7 +75,7 @@ def sharded_step(mesh, case: dict) -> dict:
     gathered gradient (``None`` where autograd gives none), every gathered
     parameter after the update, the (kept, total) choices of each routing
     and the expert ids of the first MoE layer's routing on this rank."""
-    cfg = f32_smoke(case["arch"])
+    cfg = f32_smoke(case["arch"], **case.get("cfg", {}))
     rules = rules_for_arch(cfg, mesh)
     opt_cfg = adamw.AdamWConfig(**case["opt"])
     with activate_rules(rules, mesh):
@@ -99,7 +99,8 @@ def sharded_step(mesh, case: dict) -> dict:
                 grads=dict(zip(paths, grads_global)), params=path_dict(params_after),
                 kept=kept, rules=dict(rules),
                 ids=partition.gather_leaf(ids[0], ("data",), mesh) if ids else None,
-                local=[tuple(t.shape) for t in lm.tree_leaves(state.params)])
+                local=[tuple(t.shape) for t in lm.tree_leaves(state.params)],
+                blocks={k: tuple(t.shape) for k, t in path_dict(state.params).items()})
 
 
 def serve_run(cfg, params, prompt, max_len, steps_n, frames=None) -> dict:
@@ -123,7 +124,7 @@ def serve_run(cfg, params, prompt, max_len, steps_n, frames=None) -> dict:
     for i in range(prompt.shape[1]):
         step_logits, state = decode(params, prompt[:, i:i + 1], state)
         logits.append(step_logits)
-    cache = state.segments[0]
+    cache, caches = state.segments[0], state.segments
     if cfg.is_encdec:
         out = [torch.argmax(step_logits[:, :cfg.vocab], dim=-1)]
         for _ in range(steps_n - 1):
@@ -132,7 +133,29 @@ def serve_run(cfg, params, prompt, max_len, steps_n, frames=None) -> dict:
         tokens = torch.stack(out, dim=1)
     else:
         tokens = steps.greedy_generate(params, cfg, prompt, steps_n, max_len)
-    return dict(prefill=prefill, decode=torch.stack(logits, dim=1), tokens=tokens, cache=cache)
+    return dict(prefill=prefill, decode=torch.stack(logits, dim=1), tokens=tokens, cache=cache,
+                caches=caches)
+
+
+def _recurrent_caches(caches, mesh) -> tuple:
+    """Mamba-2's, mLSTM's and sLSTM's caches (every field but the length):
+    each as this rank holds it (its shape), gathered over the data ranks,
+    and the largest difference between any rank's and its data row's model
+    rank 0's (a broadcast over the model group)."""
+    group = mesh.group("model")
+    src = torch.distributed.get_global_rank(group, 0)
+    shapes, rows, spread = [], [], torch.zeros(())
+    for cache in caches:
+        if hasattr(cache, "k") or hasattr(cache, "c_kv"):
+            continue
+        for t in cache[:-1]:
+            first = t.clone()
+            torch.distributed.broadcast(first, src=src, group=group)
+            spread = torch.maximum(spread, (t - first).abs().max())
+            shapes.append(tuple(t.shape))
+            rows.append(partition.gather_leaf(t, (None, "data"), mesh))
+    torch.distributed.all_reduce(spread, op=torch.distributed.ReduceOp.MAX)
+    return shapes, rows, float(spread)
 
 
 def sharded_serve(mesh, case: dict) -> dict:
@@ -140,7 +163,8 @@ def sharded_serve(mesh, case: dict) -> dict:
     this rank's blocks and batch rows (its kv heads' cache, or the whole MLA
     latent), each result gathered over the data ranks; the first layer's
     cache as this rank holds it (its shape) and, for MLA, its latent
-    gathered over the data ranks."""
+    gathered over the data ranks; the recurrent caches of Mamba-2 and xLSTM
+    (:func:`_recurrent_caches`)."""
     cfg = f32_smoke(case["arch"], **case.get("cfg", {}))
     rules = rules_for_arch(cfg, mesh)
     with activate_rules(rules, mesh):
@@ -155,7 +179,9 @@ def sharded_serve(mesh, case: dict) -> dict:
                         inputs.get("frames"))
     rows = lambda t, dim=0: partition.gather_leaf(t, (None,) * dim + ("data",), mesh)
     cache = out["cache"]
+    shapes, caches, spread = _recurrent_caches(out["caches"], mesh)
     return dict(prefill=rows(out["prefill"]), decode=rows(out["decode"]),
+                recurrent_shapes=shapes, recurrent=caches, recurrent_spread=spread,
                 tokens=rows(out["tokens"]), cache_shape=tuple(cache[0].shape),
                 cache_heads=cache.k.shape[3] if hasattr(cache, "k") else None,
                 latent=rows(cache.c_kv, 1) if hasattr(cache, "c_kv") else None)
