@@ -5,11 +5,13 @@
     python3 chip_smoke.py --flash-times [CHECKOUT]
     python3 chip_smoke.py --sharded
     python3 chip_smoke.py --dr
+    python3 chip_smoke.py --train
 
 The second form only times a checkout's flash attention at phase 2's cases
 that do not route to the wgmma kernel, to compare two checkouts on one card;
 the third builds the kernels and runs Paths G4 to G9 alone, the fourth
-Path DR alone (neither prints a result line).
+Path DR alone, the fifth Paths E9 with G11 and G10 (none of the three prints
+a result line).
 
 Phases, each unguarded (any failure ends the run with a non-zero code and
 no result line):
@@ -93,28 +95,28 @@ no result line):
    model) mesh, the same problem at 200 iterations with ``overlap=2``, fp32
    and bf16 wires, held against a local kernel-step solve;
 7b. Path S — Sec. 6 serving at the serve CLI's defaults: n = 16384, m =
-   n/2, k = n/10, 32 requests (64 until Paths G8 / G9) from a seeded
-   Poisson stream at 200/s, slots 8, round_iters 32, tolerances 3:1 from
-   1e-3 and 1e-6, max_iters 2000,
-   min_iters 50, CPADMM (alpha 1e-4, rho = sigma = 0.01) on a WallClock:
-   ``warmup`` (the engine captures its round as a CUDA graph), the
-   continuous run (spectral_pointwise and cpadmm_tail counted: once a
+   n/2, k = n/10, 16 requests from a seeded Poisson stream at 200/s,
+   slots 8, round_iters 32, tolerances 3:1 from 1e-3 and 1e-6, max_iters
+   2000, min_iters 50, CPADMM (alpha 1e-4, rho = sigma = 0.01) on a
+   WallClock: ``warmup`` (the engine captures its round as a CUDA graph),
+   the continuous run (spectral_pointwise and cpadmm_tail counted: once a
    replayed step each), then ``static_batch_serve`` on the same stream;
    signals/s, p50/p99, host against device ms a round, the device's idle
-   share; every result against a solo eager ``solve_until`` (x within
-   TOL_PATHS, equal iteration counts), every request converged with MSE <=
-   1e-4; Path S4096: 16 requests (32 until G8 / G9) of the stream at n =
-   4096 with ``method="ista"`` (circulant_matvec twice a step,
-   soft_threshold_ista once), held the same way against its solo solves (CPISTA at these
-   settings stops short of 1e-4 in MSE, alone as in the engine, and the
-   reference's does too: printed, not gated); Path S-D1: 16 requests on
-   the one-rank NCCL mesh, an fp32-wire and a bf16-wire bucket (rfft, the
-   kernel tail, eager rounds: cpadmm_tail and both wire_pack kernels
-   counted), fp32 lanes against their solo solve under the same plan, bf16
-   lanes within twice the wire bound;
+   share; a lane recycled (here and in S4096, S-D1 and the serve CLI's
+   runs, each more requests than a bucket's slots); every result against
+   a solo eager ``solve_until`` (x within TOL_PATHS, equal iteration
+   counts), every request converged with MSE <= 1e-4; Path S4096: 16
+   requests of the stream at n = 4096 with ``method="ista"``
+   (circulant_matvec twice a step, soft_threshold_ista once), held the
+   same way against its solo solves (CPISTA at these settings stops short
+   of 1e-4 in MSE, alone as in the engine, and the reference's does too:
+   printed, not gated); Path S-D1: 16 requests on the one-rank NCCL mesh,
+   an fp32-wire and a bf16-wire bucket of 4 slots each (rfft, the kernel
+   tail, eager rounds: cpadmm_tail and both wire_pack kernels counted),
+   fp32 lanes against their solo solve under the same plan, bf16 lanes
+   within twice the wire bound;
 7c. Path H — D2's problem on four gloo ranks sharing the card on
-   ``make_hier_mesh(1, 2, 2)`` at ``overlap=2``, 50 iterations (200 until
-   G8 / G9): the flat
+   ``make_hier_mesh(1, 2, 2)`` at ``overlap=2``, 25 iterations: the flat
    exchange over the factored axis, the two-stage exchange (bit-equal to
    it) and the two-stage exchange with bf16 inter-host hops (within the
    wire bound); ms/iter on rank 0 and the bytes a transpose hands each
@@ -141,7 +143,7 @@ no result line):
    ``torch_train_lm.py`` among them: 200 steps of a ~40M parameter widened
    codeqwen), and the distributed one again with ``--fake-devices 4``: the
    quickstart must recover with both methods; Path DR's meta walks (below);
-   the training CLI
+   Path G10's meta walks (below); the training CLI
    (``python -m repro_torch.launch.train --arch minitron-4b --smoke
    --steps 20 --ckpt-every 10``, the SMOKE head D = 8 on the mma.sync
    kernel), then again: the second run must resume from step 20; every
@@ -171,12 +173,12 @@ no result line):
    (1.90 B parameters, ~34 GB of state), initialised on the card from a
    seed, 10 steps of ``make_train_step`` at 4 x 2048 tokens (AdamW warmup 3,
    total 10), each step's batch from (seed, step) as the launcher draws it;
-   step 1's gradient taken first must reach every leaf; device and host ms a
+   step 1's gradient must reach every leaf; device and host ms a
    step, tokens/s, peak memory, the bound (operations at 989 TFLOP/s plus the
-   optimizer's bytes at 3.35 TB/s); an 11th step under torch.profiler, cut
-   by CUDA events between the train step's own two halves
-   (``train_step.gradient``, ``train_step.apply``) into gradient and
-   optimizer (the kernel's share from the profile), and, as an isolated
+   optimizer's bytes at 3.35 TB/s); every step cut by CUDA events between
+   the train step's own two halves (``train_step.gradient``,
+   ``train_step.apply``) into gradient and optimizer; an 11th step under
+   torch.profiler (the kernel's share of it), and, as an isolated
    estimate, ``FlashAttentionFn``'s backward at a layer's shape alone (the
    plain recompute); gated on finite losses and gradient norms, the loss at
    step 10 below step 1's, 80 sm90 launches (4 layers x 2 x 10 steps);
@@ -195,6 +197,24 @@ no result line):
    gated on finiteness, shapes and launches only (an MoE decode routes B
    tokens a step under capacity 1: it does not agree with a prefill, on the
    reference either);
+15b. Path G10 — the five later families trained at full width, cut in
+   depth (and experts) only, as Paths G7-G9 cut them: zamba2-1.2b to 7
+   layers (the shared block twice) and xlstm-350m to 8 (7 mLSTM, 1 sLSTM) at
+   4 x 2048 tokens, whisper-large-v3 uncut (32 + 32 layers) at 4 x (1500
+   frames + 448 tokens), pixtral-12b to 4 layers at 4 x (1024 image
+   embeddings + 1024 tokens), deepseek-v3 to 2 layers (one dense, one MoE of
+   16 routed experts top-8 and the shared one) at 2 x 2048; frames and image
+   embeddings drawn on the card N(0, 0.02^2); each ``init_train_state`` from a
+   seed (bf16 compute over float32 master weights and Adam state), step 1's
+   gradient (every leaf but router_bias), 4 steps of ``make_train_step`` on
+   one batch repeated (AdamW warmup 1, total 4), each cut into gradient and
+   optimizer, as G1 / G2, and a 5th profiled where row 9a runs; its bound
+   the dry run's meta walk
+   of the same step (phase 8b; xlstm-350m walked at S = 256 and 512 and
+   extrapolated); deepseek-v3's drops and its routing card vs CPU; gated on
+   finite, falling losses, every gradient and row 9a's launches (zamba2 4,
+   whisper 192, pixtral 8 a step, none for MLA and xLSTM); each family freed
+   before the next;
 16b. Paths G4 and G5 — sharded training at full width: minitron-4b FULL
    (24 / 8 heads, d_model 3072, d_ff 9216, vocab 256000) and
    moonshot-v1-16b-a3b FULL (its dense first layer, then one layer of 64
@@ -230,10 +250,7 @@ no result line):
    the ranks draw the global parameters one at a time and keep their blocks;
    every prefill's and greedy token's logits within TOL_CARD_CPU of one
    rank's, the tokens equal; each rank's host ms, its ms in gloo
-   collectives and its peak memory printed beside the card; then G6 + G7's
-   time beside what the cuts that pay for them save (E2 128 -> 32 tokens,
-   G4 / G5's serving 8 -> 2 greedy tokens, S-D1 32 -> 16 requests),
-   estimated at this run's rates;
+   collectives and its peak memory printed beside the card;
 16e. Paths G8 and G9 — the same serving of the recurrent families at full
    width from a seed, float32, TF32 off: zamba2-1.2b FULL (64 SSM heads of
    64 in 8 groups, 32 a rank, so the rank's heads read their groups' B and
@@ -246,9 +263,7 @@ no result line):
    recurrence run on every rank), no kernel; every prefill's and greedy
    token's logits within TOL_CARD_CPU of one rank's, the tokens equal; each
    rank's host ms, its ms in gloo collectives and its peak memory printed
-   beside the card; then G8 + G9's time beside what the cuts that pay for
-   them save (S 64 -> 32 requests, S4096 32 -> 16, H 200 -> 50
-   iterations), estimated at this run's rates;
+   beside the card;
 16c. Path DR — the dry run held against the card: ``cost_walk.walk`` on
    real CUDA tensors, after one warm call each, of D1's CPADMM block (2
    iterations, fp32 and bf16 wires: cpadmm_tail, pack_wire, unpack_wire)
@@ -294,7 +309,13 @@ no result line):
    prefill of 2 x 16 tokens, whisper's ``encoder_forward`` and 8 decode
    steps at TOL_CARD_CPU (zamba2's shared block and every attention of
    whisper and pixtral on the mma.sync kernel, whisper's non-causal and at
-   Sq != Sk);
+   Sq != Sk); Path G11 — on the same parameters and tokens, ``loss_fn``'s
+   loss and every gradient leaf (``grads_of``) card against CPU, cuBLAS's
+   TF32 off: the loss within TOL_CARD_CPU, each leaf within
+   TOL_CARD_CPU_GRAD, or, for a family with a leaf past it, within
+   TOL_CARD_F64_FACTOR times the CPU float32's own error against a float64
+   step plus TOL_CARD_CPU_GRAD; row 9b twice an attention (zamba2 4,
+   whisper 12, pixtral 4);
 21. Path E10 — whisper-large-v3 FULL (32 + 32 layers, d_model 1280, 20
    heads of 64; float32 parameters, bf16 compute): a prefill of 4 x 448
    tokens against 4 x 1500 frames (the wgmma kernel 96 times: encoder,
@@ -391,6 +412,21 @@ TOL_CARD_CPU = 1e-4
 # sqrt(n) ~ 6e-6 at n = 9216.  So 2e-5 (5.3e-6 measured at the worst leaf, the
 # embedding table, on an H100 80GB HBM3 at 700 W).
 TOL_CARD_CPU_GRAD = 2e-5
+# Path G11: the same gate for the five families of Path E9.  Where a family's
+# leaf misses TOL_CARD_CPU_GRAD, float32 itself may be the cause: it puts
+# Mamba-2's a_log up to 1.9e-5 and mLSTM's w_v up to 7.0e-5 of their largest
+# values from a float64 step on the CPU (their long recurrences sum many
+# terms of both signs), so two float32 runs that sum in other orders (cuBLAS
+# against MKL) may sit twice that apart.  Such a family's step runs once more
+# on the CPU in float64, from a float64 copy of the same parameters, and each
+# leaf's card error against it must be at most TOL_CARD_F64_FACTOR times the
+# CPU float32's own error against it, plus TOL_CARD_CPU_GRAD: the card is as
+# far from exact as the CPU's float32 is (the factor 2 for its other order of
+# sums), plus the forward's attention difference that TOL_CARD_CPU_GRAD
+# bounds.  A leaf within TOL_CARD_CPU_GRAD of the CPU meets this too (the
+# triangle inequality), so the rule only widens the gate where float32's own
+# rounding is larger than it.
+TOL_CARD_F64_FACTOR = 2.0
 PAPER_TARGET_MSE = 1e-4
 # a bf16-wire solve against its fp32 twin: the plan layer's own guard bound
 # (repro_torch.ops.plan.WIRE_ERROR_BOUND), as the reference's
@@ -410,7 +446,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-SPIN_CYCLES = 400_000_000  # ~0.2 s of device spin at H100 clocks
+SPIN_CYCLES = 400_000_000  # ~0.2 s of device spin at H100 clocks: the longest a timing queues
+SPIN_MIN_CYCLES = 100_000_000  # ~0.05 s: the shortest
+SPIN_CYCLES_PER_S = 2e9  # the H100's boost clock, ~1.98 GHz
+SPIN_MARGIN = 4  # the spin's length over the enqueue the warm-up calls predict
 
 
 def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
@@ -419,19 +458,28 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     A device spin is queued first, so the host enqueues every call before
     the first one runs: the CUDA events then time the device alone, back to
     back, and the host clock times the launch path alone (wrapper checks,
-    Triton / ctypes launch, torch dispatch).  Fails if the host took longer
-    than the spin, which would let host gaps into the device time; keep
-    ``iters`` x launches per call well under the CUDA launch queue's depth, or
-    the host blocks on the full queue until the spin ends.
+    Triton / ctypes launch, torch dispatch).  The spin lasts SPIN_MARGIN
+    times the enqueue of ``iters`` calls at the slowest warm-up call's host
+    time after the first (which may compile), between SPIN_MIN_CYCLES and
+    SPIN_CYCLES.  Fails if the host took longer than the spin, which would
+    let host gaps into the device time; keep ``iters`` x launches per call
+    well under the CUDA launch queue's depth, or the host blocks on the full
+    queue until the spin ends.
     """
     import torch
 
-    for _ in range(warmup):
+    per_call = 0.0
+    for i in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        if i or warmup == 1:
+            per_call = max(per_call, time.perf_counter() - t0)
     torch.cuda.synchronize()
+    cycles = int(min(SPIN_CYCLES, max(SPIN_MIN_CYCLES,
+                                      SPIN_MARGIN * iters * per_call * SPIN_CYCLES_PER_S)))
     spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     spin.record()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(cycles)
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -440,7 +488,8 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     if host_ms >= 0.9 * spin.elapsed_time(start):
-        fail(f"host enqueue ({host_ms:.1f} ms) outlasted the device spin; raise SPIN_CYCLES")
+        fail(f"host enqueue ({host_ms:.1f} ms) outlasted the device spin "
+             f"({spin.elapsed_time(start):.1f} ms); raise SPIN_MIN_CYCLES or SPIN_MARGIN")
     return start.elapsed_time(end) / iters, host_ms / iters
 
 
@@ -1392,17 +1441,21 @@ def profile_steps(prob, plan, label, steps=5, method="cpadmm", **kw) -> dict:
     return profile_window(one, label, steps)
 
 
-def profile_window(fn, label, steps=5) -> dict:
+def profile_window(fn, label, steps=5, host=True) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``fn``: prints the device's
-    busy share of the window, device time by kernel name and the host ops
-    that cost most, per call; returns {"wall_ms", "busy_ms", "kernels":
-    {name: device ms}, "launches": device operations} per call."""
+    busy share of the window, device time by kernel name and (``host``) the
+    host ops that cost most, per call; returns {"wall_ms", "busy_ms",
+    "kernels": {name: device ms}, "launches": device operations} per call.
+    Without ``host`` the profiler records the device's activity alone, which
+    a window of ~10^4 launches needs: their host ops take tens of seconds to
+    read back."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -1420,8 +1473,8 @@ def profile_window(fn, label, steps=5) -> dict:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         print(f"  device {e.self_device_time_total / 1e3 / steps:.4f} ms  "
               f"x{e.count / steps:g}  {e.key[:90]}")
-    host = [e for e in events if e.device_type != DeviceType.CUDA]
-    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+    host_ops = [e for e in events if host and e.device_type != DeviceType.CUDA]
+    for e in sorted(host_ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  host {e.self_cpu_time_total / 1e3 / steps:.4f} ms  x{e.count / steps:g}  "
               f"{e.key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy, launches=launches,
@@ -2113,7 +2166,9 @@ def _hold_against_solo(name, results, reqs, method, plan=None, bf16=None):
 
 def _serve_report(name, srv, results, reqs, window_s, host_ms, engines):
     """Print and check a continuous run: the summary line, the recycling
-    counters, host against device ms a round and the device's idle share."""
+    counters (a lane freed mid-run must take a queued request: the stream
+    holds more requests than a bucket has slots), host against device ms a
+    round and the device's idle share."""
     import torch
 
     from repro_torch.serve import summarize
@@ -2131,6 +2186,9 @@ def _serve_report(name, srv, results, reqs, window_s, host_ms, engines):
           f"{s['converged']}/{s['count']}, expired {s['expired']}; buckets {stats['buckets']}, "
           f"admitted {t['admitted']}, recycled {t['recycled']}, rounds {t['rounds']}, "
           f"slot-iterations {t['slot_iters']}, serve window {window_s * 1e3:.2f} ms")
+    if not t["recycled"] > 0:
+        fail(f"Path {name}: no lane was recycled ({t['admitted']} admitted into "
+             f"{stats['buckets']} bucket(s) of {engines[0].slots} slots)")
     host = sorted(host_ms)
     line = (f"Path {name} rounds: host ms a round (clock around run_round) median "
             f"{host[len(host) // 2]:.4f}, mean {sum(host) / len(host):.4f}, max {host[-1]:.4f}")
@@ -2147,21 +2205,12 @@ def _serve_report(name, srv, results, reqs, window_s, host_ms, engines):
     return s, stats, dev_ms
 
 
-# S's (CPADMM) and S4096's (CPISTA) streams until Paths G8 / G9 came, 64 and 32
-# requests: their cuts, with H's 200 -> 50 iterations, pay for G8 / G9
-# (CUTS_G8_G9, printed by them)
-S_REQUESTS_BEFORE = {"cpadmm": 64, "ista": 32}
-CUTS_G8_G9: dict = {}  # cut -> seconds it saves, estimated at this run's rate
-
-
-def path_s(dev, n=16384, requests=32, method="cpadmm", name="S") -> dict:
+def path_s(dev, n=16384, requests=16, method="cpadmm", name="S") -> dict:
     """Sec. 6 serving at the serve CLI's defaults on the card: slots 8,
     round_iters 32, a WallClock; warmup first (it captures the engine's
     round), then the continuous run with its launches counted, then the
     static baseline on the same stream and engine; every result against a
-    solo eager solve_until.  The stream, the baseline and the solo solves
-    scale with the requests: their time, scaled to the requests before the
-    cut (S_REQUESTS_BEFORE), is the cut's saving."""
+    solo eager solve_until."""
     from repro_torch.serve import RecoveryServer, WallClock, static_batch_serve, summarize
 
     op, reqs = serve_stream(dev, n, requests, method)
@@ -2198,9 +2247,7 @@ def path_s(dev, n=16384, requests=32, method="cpadmm", name="S") -> dict:
     eng.replay_events.clear()
     host_ms.clear()
     srv.clock = WallClock()
-    t0 = time.perf_counter()
     static = summarize(static_batch_serve(reqs, server=srv, clock=WallClock()))
-    static_s = time.perf_counter() - t0
     ratio = s["signals_per_sec"] / static["signals_per_sec"]
     print(f"Path {name} static baseline: {static['signals_per_sec']:.4f} signals/s, p50 "
           f"{static['p50_latency_s'] * 1e3:.2f} ms, p99 {static['p99_latency_s'] * 1e3:.2f} ms; "
@@ -2208,9 +2255,6 @@ def path_s(dev, n=16384, requests=32, method="cpadmm", name="S") -> dict:
     t0 = time.perf_counter()
     worst, gap, mse = _hold_against_solo(name, results, reqs, method)
     solo_s = time.perf_counter() - t0
-    before = S_REQUESTS_BEFORE[method]
-    CUTS_G8_G9[f"{name}, {before} -> {requests} requests"] = \
-        (window + static_s + solo_s) * (before - requests) / requests
     print(f"Path {name}: every result against its solo eager solve_until "
           f"({solo_s:.1f} s): x within {worst:.3e} relative, largest "
           f"iteration-count gap {gap}; MSE against x_true by tol: "
@@ -2224,27 +2268,24 @@ def path_s(dev, n=16384, requests=32, method="cpadmm", name="S") -> dict:
                 dev_ms=dev_ms, worst=worst, gap=gap)
 
 
-S_D1_REQUESTS_BEFORE = 32  # S-D1's stream until Paths G6 / G7 came: its cut pays for them
-
-
-def path_s_d1(dev, requests=16) -> dict:
+def path_s_d1(dev, requests=16, slots=4) -> dict:
     """S's stream (n = 16384) on the one-rank NCCL mesh: an fp32-wire bucket
-    and a bf16-wire bucket (rfft, the kernel tail), eager rounds; fp32 lanes
-    against their solo solve under the same plan (TOL_PATHS, equal counts),
-    bf16 lanes within twice the wire bound."""
+    and a bf16-wire bucket (rfft, the kernel tail), eager rounds, each
+    bucket's ``requests / 2`` more than its ``slots``, so that it recycles
+    lanes; fp32 lanes against their solo solve under the same plan
+    (TOL_PATHS, equal counts), bf16 lanes within twice the wire bound."""
     import dataclasses
 
     from repro_torch.dist.compat import make_mesh
     from repro_torch.ops.plan import PlanConfig, plan
     from repro_torch.serve import RecoveryServer, WallClock
 
-    t_path = time.perf_counter()
     mesh = make_mesh((1,), ("model",))
     op, base = serve_stream(dev, 16384, requests, "cpadmm")
     cfgs = [PlanConfig(rfft=True, tail="kernel"),
             PlanConfig(rfft=True, tail="kernel", wire_dtype="bf16")]
     reqs = [dataclasses.replace(r, plan_config=cfgs[i % 2]) for i, r in enumerate(base)]
-    srv = RecoveryServer(mesh=mesh, slots=8, round_iters=32, clock=WallClock(), **SERVE_KW)
+    srv = RecoveryServer(mesh=mesh, slots=slots, round_iters=32, clock=WallClock(), **SERVE_KW)
     srv.warmup(reqs[0])
     srv.warmup(reqs[1])
     engines = list(srv.engines.values())
@@ -2282,9 +2323,6 @@ def path_s_d1(dev, requests=16) -> dict:
              "does not must run to max_iters")
     if max(max(v) for v in mse.values()) > PAPER_TARGET_MSE:
         fail("Path S-D1: a request's MSE is above 1e-4")
-    # the stream's rounds and its solo solves scale with the requests
-    CUTS[f"S-D1, {S_D1_REQUESTS_BEFORE} -> {requests} requests"] = \
-        (time.perf_counter() - t_path) * (S_D1_REQUESTS_BEFORE - requests) / requests
     return dict(counts=counts, summary=s, host_ms=host_ms)
 
 
@@ -2322,13 +2360,9 @@ def _h_rank(seed, size, frames, iters):
     return out
 
 
-H_ITERS_BEFORE = 200  # H's solves until Paths G8 / G9 came: its cut pays for them
-
-
-def path_h(dev, seed, size=1024, frames=4, iters=50):
-    """Four gloo ranks sharing the card on a (1, 2, 2) hierarchical mesh;
-    the cut's saving is the three solves' iterations left out at rank 0's
-    ms/iter.  A rank path (:func:`run_on_ranks`)."""
+def path_h(dev, seed, size=1024, frames=4, iters=25):
+    """Four gloo ranks sharing the card on a (1, 2, 2) hierarchical mesh.
+    A rank path (:func:`run_on_ranks`)."""
     import torch
 
     ranks, wall = yield _h_rank, (seed, size, frames, iters)
@@ -2351,8 +2385,6 @@ def path_h(dev, seed, size=1024, frames=4, iters=50):
           f"norm-rel {rel:.3e} (bound {WIRE_ERROR_BOUND}); the ranks ran it in {wall:.2f} s")
     if r0["hier-inter-bf16"]["wires"] != ("fp32", "bf16") or not 0 < rel <= WIRE_ERROR_BOUND:
         fail(f"Path H: the bf16 inter-host run is {rel} from fp32 or fell back")
-    CUTS_G8_G9[f"H, {H_ITERS_BEFORE} -> {iters} iterations"] = \
-        sum(v["ms_iter"] for v in r0.values()) * (H_ITERS_BEFORE - iters) / 1e3
     flat_b, hier_b = r0["flat"]["bytes"], r0["hier"]["bytes"]
     if hier_b["intra"] != flat_b["flat"] or 2 * hier_b["inter"] != flat_b["flat"]:
         fail(f"Path H: tier bytes {hier_b} against the flat exchange's {flat_b}")
@@ -2360,10 +2392,14 @@ def path_h(dev, seed, size=1024, frames=4, iters=50):
 
 
 def check_serve_out(out: str) -> None:
-    """The serve CLI's report lines, which the reference's also prints."""
+    """The serve CLI's report lines, which the reference's also prints; its
+    16 requests into 8 slots must recycle a lane."""
     for line in ("serving ", "continuous: ", "signals/s", "buckets ", "recycled "):
         if line not in out:
             fail(f"serve CLI: no {line!r} in its output")
+    recycled = [int(v) for v in re.findall(r"\brecycled (\d+)", out)]
+    if not recycled or min(recycled) <= 0:
+        fail(f"serve CLI: no lane was recycled (recycled {recycled})")
 
 
 def serve_cli_chains() -> dict:
@@ -2471,7 +2507,6 @@ def path_e1(dev, seed, batch=4, seq=2048) -> dict:
 PROFILED_STEPS = 5  # Path E2's last decode steps, run under torch.profiler
 
 
-E2_TOKENS_BEFORE = 128  # E2 decoded 128 tokens until Paths G6 / G7 came: its cut pays for them
 
 
 def path_e2(e1, seq=32) -> dict:
@@ -2530,8 +2565,6 @@ def path_e2(e1, seq=32) -> dict:
     want.update(flash_attention_sm90=cfg.n_layers)
     if counts != want:
         fail(f"Path E2 launch counts {counts}; expected {want}")
-    CUTS[f"E2 decode, {E2_TOKENS_BEFORE} -> {seq} tokens"] = \
-        (E2_TOKENS_BEFORE - seq) * decode_s / n_timed
     return dict(counts=counts, err=err, agree=agree, ms_step=1e3 * decode_s / n_timed,
                 busy_ms=prof["busy_ms"])
 
@@ -2710,7 +2743,7 @@ def moe_ffn_ms(cfg, params, dev, batch, seq) -> tuple[float, float]:
 ROUTING_MARGIN = 1e-4  # card against CPU: ids compared where the choice is decided by more
 
 
-def routing_card_vs_cpu(cfg, params, dev, tokens) -> dict:
+def routing_card_vs_cpu(name, cfg, params, dev, tokens) -> dict:
     """One MoE layer's routing of ``tokens`` random inputs on the card and on
     the CPU (float32 router logits, cuBLAS with TF32 off against MKL): the
     expert ids must agree on every token whose k-th and (k+1)-th selection
@@ -2735,126 +2768,206 @@ def routing_card_vs_cpu(cfg, params, dev, tokens) -> dict:
     decided = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]) > ROUTING_MARGIN
     same = (idx.cpu() == cidx).all(dim=-1)
     gate_err = rel_err(gates.float().cpu()[decided], cgates.float()[decided])
-    print(f"Path G2 routing of {tokens} tokens, card vs CPU: {int((~decided).sum())} tokens "
+    print(f"Path {name} routing of {tokens} tokens, card vs CPU: {int((~decided).sum())} tokens "
           f"within {ROUTING_MARGIN:.0e} of a tie at the k-th choice (not compared), "
           f"{int((~same & decided).sum())} of the other {int(decided.sum())} with other ids, "
           f"gates there norm-rel {gate_err[1]:.3e}")
     if bool((~same & decided).any()):
-        fail(f"Path G2: the card routes {int((~same & decided).sum())} decided tokens elsewhere")
+        fail(f"Path {name}: the card routes {int((~same & decided).sum())} decided tokens "
+             "elsewhere")
     return dict(undecided=int((~decided).sum()), gate_err=gate_err[1])
 
 
 TRAIN_STEPS = 10  # Paths G1 and G2
 
+# Path G10: the five families after minitron and moonshot trained at full
+# width, cut in depth (and experts) only, as Paths G7-G9 and E9 cut them:
+# (arch, cut, batch).  whisper-large-v3 is uncut (32 + 32 layers).
+G10_CASES = (("zamba2-1.2b", dict(n_layers=7), 4),
+             ("xlstm-350m", dict(n_layers=8), 4),
+             ("whisper-large-v3", {}, 4),
+             ("pixtral-12b", dict(n_layers=4), 4),
+             ("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1, n_experts=16), 2))
+G10_SEQ = 2048  # positions an example (pixtral: 1024 image + 1024 text; whisper 1500 + 448)
+G10_STEPS = 4  # AdamW warmup 1, total 4, one batch repeated: two moving updates
+XLSTM_WALK_SEQ = (256, 512)  # the lengths xlstm-350m's bound is walked at
 
-def path_train(name, cfg, dev, seed, batch=4, seq=2048) -> dict:
-    """Paths G1 / G2: ``cfg`` initialised on the card from a seed, 10 steps
-    of make_train_step at batch x seq positions (AdamW warmup 3, total 10),
+
+def g10_shapes(cfg, batch: int, seq: int = G10_SEQ) -> dict:
+    """{key: shape} of a G10 batch: tokens (batch, text + 1); whisper's
+    ``frames`` (batch, enc_seq_len, d_model) before its 448 text tokens,
+    pixtral's ``img_embeds`` (batch, n_img_tokens, d_model) before seq -
+    n_img_tokens text tokens."""
+    if cfg.is_encdec:
+        return {"tokens": (batch, WHISPER_TEXT_LEN + 1),
+                "frames": (batch, cfg.enc_seq_len, cfg.d_model)}
+    if cfg.n_img_tokens:
+        return {"tokens": (batch, seq - cfg.n_img_tokens + 1),
+                "img_embeds": (batch, cfg.n_img_tokens, cfg.d_model)}
+    return {"tokens": (batch, seq + 1)}
+
+
+def g10_batch(cfg, gen, batch: int, dev) -> dict:
+    """A G10 batch drawn on the card from ``gen``: tokens as the launcher
+    draws them, frames and image embeddings N(0, 0.02^2) as Paths E10 / E11
+    draw them (the stubbed front ends' outputs)."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batch
+
+    out = {}
+    for k, shape in g10_shapes(cfg, batch).items():
+        out[k] = (token_batch(gen, shape[0], shape[1] - 1, cfg.vocab, device=dev) if k == "tokens"
+                  else torch.randn(shape, generator=gen, device=dev) * 0.02)
+    return out
+
+
+def attention_calls(cfg) -> int:
+    """The flash attentions one forward of ``cfg`` runs: one a layer, zamba2's
+    shared block once an invocation, whisper's encoder, decoder and cross
+    layers; MLA (plain code, as the reference's) and xLSTM none."""
+    from repro_torch.models.lm import shared_invocations
+
+    if cfg.attn_type == "mla" or cfg.block_type == "xlstm":
+        return 0
+    if cfg.block_type == "mamba2":
+        return shared_invocations(cfg)
+    return cfg.n_enc_layers + 2 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
+
+
+def path_train(name, cfg, dev, seed, batch=4, seq=2048, steps=TRAIN_STEPS, warmup=3,
+               batches=None, flops=None, estimates=True, profiled="full") -> dict:
+    """Paths G1 / G2 / G10: ``cfg`` initialised on the card from a seed,
+    ``steps`` steps of make_train_step (AdamW ``warmup``, total ``steps``),
+    on ``batches`` (steps of them, and one more if ``profiled``; by default
     each step's batch of seq + 1 tokens drawn from (seed, step) as the
-    launcher does at ``--seq seq``.  The gradient of step 1 is taken first
-    (the same batch and parameters) and every leaf but router_bias must have
-    one; the losses and gradient norms must be finite, the loss at step 10
-    below step 1's.  Then one more step under torch.profiler, cut by CUDA
-    events between its two halves (``train_step.gradient``,
-    ``train_step.apply``) into gradient and optimizer."""
+    launcher does at ``--seq seq``).  Each step runs as its two halves
+    (``train_step.gradient``, ``train_step.apply``), cut by CUDA events
+    into gradient and optimizer; step 1's gradient, between its halves,
+    must reach every leaf but router_bias.  The losses and gradient norms
+    must be finite, the last loss below step 1's, the flash kernel launched
+    twice an attention a step (remat).  ``profiled`` ("full", "device" or
+    ""): one more step under torch.profiler (:func:`profile_window`, with
+    the host's ops or the device's alone), for the device's busy share and
+    the kernel's time.  The bound is ``flops`` (by default
+    :func:`train_flops`) at 989 TFLOP/s plus the optimizer's bytes at 3.35
+    TB/s; ``estimates`` adds the isolated estimates of FlashAttentionFn's
+    backward and the MoE FFN at a layer's shape (G1, G2)."""
     import torch
 
     from repro_torch.data.synthetic import step_generator, token_batch
     from repro_torch.models.lm import tree_leaves
-    from repro_torch.models.steps import grads_of, init_train_state, make_train_step
+    from repro_torch.models.steps import init_train_state, make_train_step
     from repro_torch.optim.adamw import AdamWConfig
 
-    opt_cfg = AdamWConfig(warmup_steps=3, total_steps=TRAIN_STEPS)
+    t_path = time.perf_counter()
+    opt_cfg = AdamWConfig(warmup_steps=warmup, total_steps=steps)
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     state = init_train_state(gen, cfg, opt_cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(state.params))
-    batches = [{"tokens": token_batch(step_generator(seed, s, 0), batch, seq, cfg.vocab,
-                                      device=dev)} for s in range(TRAIN_STEPS + 1)]
+    if batches is None:
+        batches = [{"tokens": token_batch(step_generator(seed, s, 0), batch, seq, cfg.vocab,
+                                          device=dev)} for s in range(steps + bool(profiled))]
+    tokens = batches[0]["tokens"]
+    targets = tokens.shape[0] * (tokens.shape[1] - 1)  # the loss's positions
+    positions = sum(b.shape[0] * b.shape[1] for k, b in batches[0].items() if k != "tokens")
+    positions += targets  # every position the model runs: frames and image embeddings too
     n_moe = cfg.layer_kinds().count("moe")
-    drop_before = drop_shares(cfg, state.params, batches[0]["tokens"]) if n_moe else []
-    _, grads = grads_of(state.params, cfg, batches[0])
-    missing = missing_gradients(state.params, grads)
-    n_grads, n_leaves = sum(g is not None for g in grads), len(grads)
-    del grads
+    drop_before = drop_shares(cfg, state.params, tokens) if n_moe else []
     train_step = make_train_step(cfg, opt_cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    metrics, dev_ms, host_ms = [], [], []
-    for s in range(TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics, dev_ms, host_ms, split = [], [], [], []
+    for s in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         h0 = time.perf_counter()
-        start.record()
-        state, m = train_step(state, batches[s])
-        end.record()
+        ev[0].record()
+        m, g = train_step.gradient(state, batches[s])
+        ev[1].record()
+        if s == 0:  # step 1's gradient (a host sync a leaf, between the events)
+            missing = missing_gradients(state.params, g)
+            n_grads, n_leaves = sum(x is not None for x in g), len(g)
+        state, m = train_step.apply(state, m, g)
+        ev[2].record()
+        del g
         metrics.append({k: float(v) for k, v in m.items()})  # syncs
         host_ms.append((time.perf_counter() - h0) * 1e3)
-        dev_ms.append(start.elapsed_time(end))
+        dev_ms.append(ev[0].elapsed_time(ev[2]))
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    box = [state]
+    median = lambda v: sorted(v[1:])[len(v[1:]) // 2]  # the median after the first
+    steady, steady_host = median(dev_ms), median(host_ms)
+    grad_ms, opt_ms = median([a for a, _ in split]), median([b for _, b in split])
+    prof = None
+    if profiled:
+        box = [state]
 
-    def one():  # the step's own halves, cut by events
-        ev[0].record()
-        m, g = train_step.gradient(box[0], batches[TRAIN_STEPS])
-        ev[1].record()
-        box[0], _ = train_step.apply(box[0], m, g)
-        ev[2].record()
+        def one():
+            box[0], _ = train_step(box[0], batches[steps])
 
-    prof = profile_window(one, f"Path {name} train step", steps=1)
-    grad_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-    flash_ms = sum(ms for k, ms in prof["kernels"].items() if "flash_fwd" in k)
-    attn_fwd_ms, attn_both_ms = attention_backward_ms(cfg, dev, batch, seq)
-    recompute_ms = cfg.n_layers * (attn_both_ms - attn_fwd_ms)
-    flops = train_flops(cfg, batch, seq)
+        prof = profile_window(one, f"Path {name} train step", steps=1,
+                              host=profiled == "full")
+        state = box[0]
+    flash_ms = sum(ms for k, ms in prof["kernels"].items() if "flash_fwd" in k) if prof else 0.0
+    if flops is None:
+        flops = train_flops(cfg, batch, seq)
     opt_bytes = 28 * n_params  # read p, g, m, v; write p, m, v: 7 float32 each
     bound_ms = flops / BF16_FLOPS_PER_S * 1e3 + opt_bytes / HBM_BYTES_PER_S * 1e3
-    steady = sorted(dev_ms[1:])[len(dev_ms[1:]) // 2]  # the median after the first
-    steady_host = sorted(host_ms[1:])[len(host_ms[1:]) // 2]
     out = dict(cfg=cfg, state=state, counts=counts, metrics=metrics, dev_ms=dev_ms,
                host_ms=host_ms, steady_ms=steady, steady_host_ms=steady_host,
-               tok_s=batch * seq / (steady_host / 1e3), peak_gib=peak_gib, bound_ms=bound_ms,
-               flops=flops, grad_ms=grad_ms, opt_ms=opt_ms, flash_ms=flash_ms,
-               recompute_ms=recompute_ms, busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
-               n_params=n_params)
+               tok_s=targets / (steady_host / 1e3), pos_s=positions / (steady_host / 1e3),
+               peak_gib=peak_gib, bound_ms=bound_ms, flops=flops, grad_ms=grad_ms,
+               opt_ms=opt_ms, flash_ms=flash_ms, busy_ms=prof and prof["busy_ms"],
+               wall_ms=prof and prof["wall_ms"], n_params=n_params, init_s=init_s)
     split_ms = grad_ms + opt_ms
-    print(f"Path {name}: {cfg.name}, {cfg.n_layers} layers {cfg.layer_kinds()}, "
-          f"{n_params / 1e9:.3f} B parameters, init {init_s:.2f} s; {TRAIN_STEPS} steps of "
-          f"{batch} x {seq} positions: device ms a step {[round(v, 2) for v in dev_ms]}, host "
-          f"clock ms {[round(v, 2) for v in host_ms]} (median after the first: device "
-          f"{steady:.2f}, host {steady_host:.2f}, {out['tok_s']:.0f} tokens/s); peak memory "
-          f"{peak_gib:.2f} GiB; bound {bound_ms:.2f} ms ({flops:.3e} FLOP at 989 TFLOP/s + "
-          f"{opt_bytes / 1e9:.1f} GB of optimizer traffic at 3.35 TB/s)")
+    shapes = {k: tuple(v.shape) for k, v in batches[0].items()}
+    print(f"Path {name}: {cfg.name}, {len(cfg.layer_kinds())} layers {cfg.layer_kinds()}, "
+          f"{n_params / 1e9:.3f} B parameters, init {init_s:.2f} s; {steps} steps of {shapes}: "
+          f"device ms a step {[round(v, 2) for v in dev_ms]}, host clock ms "
+          f"{[round(v, 2) for v in host_ms]} (median after the first: device {steady:.2f}, host "
+          f"{steady_host:.2f}, {out['tok_s']:.0f} tokens/s, {out['pos_s']:.0f} positions/s); peak "
+          f"memory {peak_gib:.2f} GiB; bound {bound_ms:.2f} ms ({flops:.3e} FLOP at 989 TFLOP/s "
+          f"+ {opt_bytes / 1e9:.1f} GB of optimizer traffic at 3.35 TB/s)")
     print(f"Path {name} losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
           f"{[round(m['grad_norm'], 3) for m in metrics]}, lr "
           f"{[round(m['lr'], 7) for m in metrics]}, aux {[round(m['aux'], 4) for m in metrics]}"
           f"; step-1 gradients: {n_grads} of {n_leaves} leaves non-None, missing or zero "
-          f"{missing}")
+          f"{missing}; cut by CUDA events between train_step.gradient and train_step.apply "
+          f"(median after the first): gradient {grad_ms:.2f} ms, optimizer {opt_ms:.2f} ms "
+          f"({100 * opt_ms / split_ms:.1f}%)")
     if n_moe:
-        out["routing"] = routing_card_vs_cpu(cfg, state.params, dev, batch * seq)
-        moe_fwd_ms, moe_both_ms = moe_ffn_ms(cfg, state.params, dev, batch, seq)
-        out["moe_ms"] = n_moe * (moe_fwd_ms + moe_both_ms)  # forward, then remat + backward
-        out["drop"] = (drop_before,
-                       drop_shares(cfg, state.params, batches[TRAIN_STEPS]["tokens"]))
+        out["routing"] = routing_card_vs_cpu(name, cfg, state.params, dev, targets)
+        out["drop"] = (drop_before, drop_shares(cfg, state.params, batches[-1]["tokens"]))
         print(f"Path {name} dropped share of (token, choice) pairs in each MoE layer's routing "
               f"(a forward without a gradient, outside the timed steps): step 1's batch before "
-              f"training {[round(v, 4) for v in out['drop'][0]]}, step {TRAIN_STEPS + 1}'s after "
-              f"{[round(v, 4) for v in out['drop'][1]]}; isolated estimate, MoE FFN at a layer's "
-              f"shape alone: forward {moe_fwd_ms:.2f} ms, forward + backward {moe_both_ms:.2f} ms,"
-              f" x {n_moe} layers (forward, then the remat's forward and the backward) "
-              f"{out['moe_ms']:.2f} ms ({100 * out['moe_ms'] / split_ms:.1f}% of the cut step)")
-    print(f"Path {name} step {TRAIN_STEPS + 1} (profiled), cut by CUDA events between "
-          f"train_step.gradient and train_step.apply: gradient {grad_ms:.2f} ms, optimizer "
-          f"{opt_ms:.2f} ms ({100 * opt_ms / split_ms:.1f}%); device busy {prof['busy_ms']:.2f} "
-          f"of {prof['wall_ms']:.2f} ms; flash_attention_sm90 in the profile {flash_ms:.2f} ms "
-          f"({100 * flash_ms / split_ms:.1f}%); isolated estimate, the plain attention recompute "
-          f"(FlashAttentionFn's backward at a layer's shape alone, {attn_both_ms - attn_fwd_ms:.2f}"
-          f" ms, x {cfg.n_layers} layers) {recompute_ms:.2f} ms "
-          f"({100 * recompute_ms / split_ms:.1f}% of the cut step); launches {counts}")
+              f"training {[round(v, 4) for v in out['drop'][0]]}, the last step's after "
+              f"{[round(v, 4) for v in out['drop'][1]]}")
+    if estimates:
+        attn_fwd_ms, attn_both_ms = attention_backward_ms(cfg, dev, batch, seq)
+        out["recompute_ms"] = cfg.n_layers * (attn_both_ms - attn_fwd_ms)
+        print(f"Path {name} isolated estimate, the plain attention recompute "
+              f"(FlashAttentionFn's backward at a layer's shape alone, "
+              f"{attn_both_ms - attn_fwd_ms:.2f} ms, x {cfg.n_layers} layers) "
+              f"{out['recompute_ms']:.2f} ms ({100 * out['recompute_ms'] / split_ms:.1f}% of a "
+              f"step)")
+        if n_moe:
+            moe_fwd_ms, moe_both_ms = moe_ffn_ms(cfg, state.params, dev, batch, seq)
+            out["moe_ms"] = n_moe * (moe_fwd_ms + moe_both_ms)  # forward, then remat + backward
+            print(f"Path {name} isolated estimate, MoE FFN at a layer's shape alone: forward "
+                  f"{moe_fwd_ms:.2f} ms, forward + backward {moe_both_ms:.2f} ms, x {n_moe} "
+                  f"layers (forward, then the remat's forward and the backward) "
+                  f"{out['moe_ms']:.2f} ms ({100 * out['moe_ms'] / split_ms:.1f}% of a step)")
+    if prof:
+        print(f"Path {name} step {steps + 1} (profiled): device busy {prof['busy_ms']:.2f} of "
+              f"{prof['wall_ms']:.2f} ms; flash_attention_sm90 in the profile {flash_ms:.2f} ms "
+              f"({100 * flash_ms / prof['busy_ms']:.1f}% of the busy time)")
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"Path {name}: launches {counts}; {out['seconds']:.1f} s [{card_line()}]")
     if any(not math.isfinite(m["loss"]) or not math.isfinite(m["grad_norm"]) for m in metrics):
         fail(f"Path {name}: a non-finite loss or gradient norm")
     if not metrics[-1]["loss"] < metrics[0]["loss"]:
@@ -2862,9 +2975,99 @@ def path_train(name, cfg, dev, seed, batch=4, seq=2048) -> dict:
     if missing:
         fail(f"Path {name}: leaves without a gradient on the card: {missing}")
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_sm90=2 * cfg.n_layers * TRAIN_STEPS)
+    want.update(flash_attention_sm90=2 * attention_calls(cfg) * steps)
     if counts != want:
-        fail(f"Path {name} launch counts {counts}; expected {want} (2 a layer a step: remat)")
+        fail(f"Path {name} launch counts {counts}; expected {want} (2 an attention a step: remat)")
+    return out
+
+
+def g10_attention_ms(cfg, dev, batch: int) -> tuple[float, str]:
+    """An isolated estimate of the plain attention's device ms in a G10 step
+    (each piece timed alone at a layer's shape in the compute dtype, times
+    its layers): deepseek-v3's MLA, ``_attend_chunked`` at 128 heads of 192
+    / 128 forward twice (the forward, the layer remat's) and backward;
+    whisper-large-v3's ``FlashAttentionFn`` backward (the plain recompute
+    and its vector-Jacobian product) non-causal over 1500 frames, causal over
+    448 tokens and the cross-attention 448 x 1500.  -> (ms, what was timed)."""
+    import torch
+
+    from repro_torch.models.attention import FlashAttentionFn, _attend_chunked
+
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def operands(sq, sk, dqk, dv):
+        q, k, v = (torch.randn(batch, n, cfg.n_heads, d, generator=gen, device=dev).to(dt)
+                   .requires_grad_(True) for n, d in ((sq, dqk), (sk, dqk), (sk, dv)))
+        return q, k, v, torch.randn(batch, sq, cfg.n_heads, dv, generator=gen, device=dev).to(dt)
+
+    def fwd_and_both(fn, q, k, v, dout):
+        with torch.no_grad():
+            fwd_ms = timed_calls(lambda: fn(q, k, v), iters=3)[0]
+        both = lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), dout)
+        both()
+        return fwd_ms, timed_calls(both, iters=3)[0]
+
+    if cfg.attn_type == "mla":
+        dqk = cfg.nope_head_dim + cfg.rope_head_dim
+        fwd, both = fwd_and_both(lambda q, k, v: _attend_chunked(
+            q, k, v, causal=True, chunk=cfg.attn_chunk, scale=dqk ** -0.5),
+            *operands(G10_SEQ, G10_SEQ, dqk, cfg.v_head_dim))
+        return (cfg.n_layers * (fwd + both),
+                f"MLA's _attend_chunked ({batch} x {G10_SEQ}, {cfg.n_heads} heads of {dqk} / "
+                f"{cfg.v_head_dim}): forward {fwd:.2f} ms, forward + backward {both:.2f} ms, x "
+                f"{cfg.n_layers} layers (forward, then the remat's forward and the backward)")
+    hd, total, parts = cfg.resolved_head_dim, 0.0, []
+    for what, sq, sk, causal, n in (("encoder", cfg.enc_seq_len, cfg.enc_seq_len, False,
+                                     cfg.n_enc_layers),
+                                    ("decoder", WHISPER_TEXT_LEN, WHISPER_TEXT_LEN, True,
+                                     cfg.n_layers),
+                                    ("cross", WHISPER_TEXT_LEN, cfg.enc_seq_len, False,
+                                     cfg.n_layers)):
+        fwd, both = fwd_and_both(lambda q, k, v, c=causal: FlashAttentionFn.apply(
+            q, k, v, cfg.attn_chunk, c), *operands(sq, sk, hd, hd))
+        total += n * (both - fwd)
+        parts.append(f"{what} {sq} x {sk} {both - fwd:.2f} ms x {n}")
+    return total, "FlashAttentionFn's backward (the plain recompute) " + ", ".join(parts)
+
+
+def path_g10(dev, seed, walks: dict) -> dict:
+    """Path G10: the five families of G10_CASES trained on the card, each
+    through :func:`path_train` on one batch (:func:`g10_batch`) repeated for
+    G10_STEPS steps and the profiled one, its bound from ``walks`` (the
+    dry run's meta walk of the same step, :func:`g10_walks`); each family
+    freed before the next.  -> {arch: path_train's figures, "counts": the
+    launches summed}."""
+    import torch
+
+    out, total = {}, dict.fromkeys(_wrappers(), 0)
+    for i, (arch, cut, batch) in enumerate(G10_CASES):
+        cfg = lm_config(arch, **cut)
+        gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        b = g10_batch(cfg, gen, batch, dev)
+        w = walks[arch]
+        print(f"Path G10 {arch}: bound's operations {w['flops']:.4e} FLOP from the dry run's meta "
+              f"walk of this step at S = {w['walked_at']}"
+              + (f", extrapolated linearly to {G10_SEQ} (xlstm's sLSTM loops over the positions"
+                 f" in Python: a walk at {G10_SEQ} takes minutes)"
+                 if len(w["walked_at"]) > 1 else "") + f" ({w['walk_s']:.1f} s)")
+        # the device's busy share and row 9a's of a step; xlstm-350m's sLSTM
+        # issues ~2.6e5 launches a step, which take minutes to profile
+        profiled = "" if cfg.block_type == "xlstm" else "device"
+        r = path_train(f"G10 {arch}", cfg, dev, seed + i, batch=batch, steps=G10_STEPS,
+                       warmup=1, batches=[b] * (G10_STEPS + bool(profiled)), flops=w["flops"],
+                       estimates=False, profiled=profiled)
+        del r["state"], b
+        torch.cuda.empty_cache()
+        if cfg.attn_type == "mla" or cfg.is_encdec:
+            r["attn_ms"], what = g10_attention_ms(cfg, dev, batch)
+            step = r["grad_ms"] + r["opt_ms"]
+            print(f"Path G10 {arch} isolated estimate, the plain attention: {what}: "
+                  f"{r['attn_ms']:.2f} ms ({100 * r['attn_ms'] / step:.1f}% of a step)")
+            torch.cuda.empty_cache()
+        total = {k: total[k] + r["counts"][k] for k in total}
+        out[arch] = r
+    out["counts"] = total
     return out
 
 
@@ -3437,6 +3640,122 @@ def path_e8(dev, seed, batch=4, seq=2048, decode_tokens=64) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def float64_step():
+    """Inside, every aten op the step runs, its backward's included, is
+    asked for float64 wherever it is asked for a narrower float (the model
+    code's upcasts ``.float()`` and ``.to(torch.float32)``, the reference's
+    ``astype(float32)`` before a recurrence or a softmax, the float32
+    buffers its recurrences start from, a reduction's ``dtype``), and the
+    default dtype is float64 (RoPE's and the sinusoids' ``arange``, a
+    ``torch.tensor`` constant), so that a step on float64 parameters and
+    inputs runs in float64 throughout: Path G11's exact reference.  An op
+    that still gives a narrower float (a float32 tensor made before the
+    step) fails it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves, tree_map as map_leaves
+
+    narrow_dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    widen = lambda a: torch.float64 if isinstance(a, torch.dtype) and a in narrow_dtypes else a
+    narrow = set()
+
+    class Float64(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*map_leaves(widen, args), **map_leaves(widen, kwargs or {}))
+            narrow.update(f"{func} -> {t.dtype}" for t in tree_leaves(out)
+                          if isinstance(t, torch.Tensor) and t.dtype in narrow_dtypes)
+            return out
+
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with Float64():
+            yield
+    finally:
+        torch.set_default_dtype(default)
+    if narrow:
+        fail(f"float64_step: the step ran ops below float64: {sorted(narrow)[:8]}")
+
+
+def grads_card_vs_cpu(cfg, params, cpu_params, batch, dev) -> dict:
+    """Path G11 for one family: ``loss_fn``'s loss and every gradient leaf
+    (``grads_of``) on the CPU and on the card in float32, cuBLAS with TF32
+    off; the card's launches counted alone.  The loss within TOL_CARD_CPU;
+    each leaf within TOL_CARD_CPU_GRAD, norm-relative, or, for a family with
+    a leaf that misses it, within TOL_CARD_F64_FACTOR times the CPU's own
+    error against a float64 step plus TOL_CARD_CPU_GRAD."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.lm import tree_map
+    from repro_torch.models.steps import grads_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = f"Path G11 {cfg.name}"
+    t0 = time.perf_counter()
+    cpu_m, cpu_g = grads_of(cpu_params, cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    dev_m, dev_g = grads_of(params, cfg, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    counts = read_counts()
+    loss_err = abs(float(dev_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+    paths = list(grad_leaves(cpu_params, cpu_g))
+    unreached = [p for p, c, d in zip(paths, cpu_g, dev_g) if c is None or d is None]
+    if any((c is None) != (d is None) for c, d in zip(cpu_g, dev_g)):
+        fail(f"{name}: the loss reaches other leaves on the card and the CPU: {unreached}")
+    # router_bias reaches the loss only through topk's indices: no gradient on either side
+    keep = [i for i, c in enumerate(cpu_g) if c is not None]
+    paths, cpu_g = [paths[i] for i in keep], [cpu_g[i] for i in keep]
+    dev_g = [dev_g[i].cpu() for i in keep]
+    errs = {p: rel_err(d.float(), c.float())[1] for p, c, d in zip(paths, cpu_g, dev_g)}
+    worst = sorted(errs.items(), key=lambda kv: kv[1], reverse=True)
+    print(f"{name}: loss CPU {float(cpu_m['loss']):.6f} ({cpu_s:.2f} s with its gradient), card "
+          f"{float(dev_m['loss']):.6f} ({dev_s:.2f} s), relative {loss_err:.3e} (tol "
+          f"{TOL_CARD_CPU:.0e}); {len(errs)} gradient leaves, norm-relative card vs CPU: worst "
+          f"{[(p, f'{e:.3e}') for p, e in worst[:4]]}, median {worst[len(worst) // 2][1]:.3e} "
+          f"(tol {TOL_CARD_CPU_GRAD:.0e}); no gradient on either side {unreached}; launches "
+          f"{counts}")
+    if not loss_err <= TOL_CARD_CPU or not all(math.isfinite(e) for e in errs.values()):
+        fail(f"{name}: the card's loss disagrees with the CPU's: {loss_err}")
+    out = dict(counts=counts, loss_err=loss_err, worst=worst[0], f64=None)
+    missed = [p for p, e in worst if e > TOL_CARD_CPU_GRAD]
+    if not missed:
+        return out
+    t0 = time.perf_counter()
+    cfg64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+    with float64_step():
+        _, exact = grads_of(tree_map(lambda a: a.double() if a.is_floating_point() else a,
+                                     cpu_params), cfg64,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in batch.items()})
+    exact = [exact[i] for i in keep]
+    if any(x.dtype != torch.float64 for x in exact):
+        fail(f"{name}: the float64 step gave gradients {sorted({str(x.dtype) for x in exact})}")
+    rows = []
+    for p, c, d, x in zip(paths, cpu_g, dev_g, exact):
+        cpu_x, dev_x = rel_err(c.double(), x)[1], rel_err(d.double(), x)[1]
+        rows.append((p, dev_x, cpu_x, dev_x <= TOL_CARD_F64_FACTOR * cpu_x + TOL_CARD_CPU_GRAD))
+    bad = [r for r in rows if not r[3]]
+    print(f"{name}: {len(missed)} leaves past {TOL_CARD_CPU_GRAD:.0e} ({missed[:6]}); a float64 "
+          f"step on the CPU ({time.perf_counter() - t0:.2f} s): card and CPU float32 against it, "
+          f"norm-relative, where the card's is largest "
+          + str([(p, f"card {a:.3e}", f"CPU {b:.3e}") for p, a, b, _ in
+                 sorted(rows, key=lambda r: r[1], reverse=True)[:4]])
+          + f"; gate card <= {TOL_CARD_F64_FACTOR:g} x CPU + {TOL_CARD_CPU_GRAD:.0e}: "
+          f"{len(rows) - len(bad)} of {len(rows)} leaves meet it")
+    if bad:
+        fail(f"{name}: gradients {[(p, a, b) for p, a, b, _ in bad[:6]]} past "
+             f"{TOL_CARD_F64_FACTOR:g} x the CPU's float32 error against float64 + "
+             f"{TOL_CARD_CPU_GRAD:.0e}")
+    out["f64"] = dict(missed=missed, worst=max(rows, key=lambda r: r[1])[:3])
+    return out
+
+
 def path_e9(dev, seed, batch=2, seq=16, steps=8, enc_seq=64) -> dict:
     """The five families at full width in float32, the card against the
     CPU (as Path E3 for minitron): deepseek-v3 cut to 2 layers (one dense,
@@ -3450,7 +3769,8 @@ def path_e9(dev, seed, batch=2, seq=16, steps=8, enc_seq=64) -> dict:
     card, whisper's non-causal and at Sq != Sk; the plain version on the
     CPU), whisper's ``encoder_forward``, and 8 decode steps from an empty
     state (whisper's against the encoder's output, the cross-attention on
-    the kernel at Sq = 1), every output held at TOL_CARD_CPU."""
+    the kernel at Sq = 1), every output held at TOL_CARD_CPU.  Then Path
+    G11 on the same parameters and tokens (:func:`grads_card_vs_cpu`)."""
     import torch
 
     from repro_torch.data.synthetic import token_batch
@@ -3462,7 +3782,8 @@ def path_e9(dev, seed, batch=2, seq=16, steps=8, enc_seq=64) -> dict:
              ("whisper-large-v3", dict(n_layers=2, n_enc_layers=2)),
              ("pixtral-12b", dict(n_layers=2, n_img_tokens=8)))
     total = dict.fromkeys(_wrappers(), 0)
-    errs = {}
+    g11_total, g11_s = dict.fromkeys(_wrappers(), 0), 0.0
+    errs, g11 = {}, {}
     for arch, cut in cases:
         cfg = lm_config(arch, dtype="float32", **cut)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3517,9 +3838,20 @@ def path_e9(dev, seed, batch=2, seq=16, steps=8, enc_seq=64) -> dict:
         if counts != want_counts:
             fail(f"Path E9 {arch} launch counts {counts}; expected {want_counts}")
         total = {k: total[k] + counts[k] for k in total}
+        # Path G11: loss_fn's gradient on the same parameters and tokens
+        t0 = time.perf_counter()
+        g11[arch] = grads_card_vs_cpu(cfg, params, cpu_params,
+                                      {"tokens": tokens.cpu(),
+                                       **{k: v.cpu() for k, v in inputs.items()}}, dev)
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts.update(flash_attention_mma=2 * attention_calls(cfg))  # remat: twice
+        if g11[arch]["counts"] != want_counts:
+            fail(f"Path G11 {arch} launch counts {g11[arch]['counts']}; expected {want_counts}")
+        g11_total = {k: g11_total[k] + g11[arch]["counts"][k] for k in g11_total}
+        g11_s += time.perf_counter() - t0
         del params, cpu_params
         torch.cuda.empty_cache()
-    return dict(counts=total, errs=errs)
+    return dict(counts=total, errs=errs, g11=dict(g11, counts=g11_total, seconds=g11_s))
 
 
 WHISPER_TEXT_LEN = 448  # whisper's decoder horizon (the reference's launch/specs.py)
@@ -3930,10 +4262,8 @@ def _sharded_batches(cfg, seed, batch, seq) -> list:
 # Paths G4 / G5 after training, and G6 / G7: a prefill of SERVE_PROMPT tokens, then
 # the first SERVE_FED of them fed through the decode step and SERVE_TOKENS greedy
 # tokens (G5's and G7's decode steps gather their experts' FSDP blocks through gloo:
-# ~1.6 s a step). SERVE_TOKENS was 8 until G6 / G7 came: its cut pays for them.
+# ~1.6 s a step).
 SERVE_PROMPT, SERVE_FED, SERVE_TOKENS = 32, 2, 2
-SERVE_TOKENS_BEFORE = 8
-CUTS: dict = {}  # cut -> seconds it saves, estimated at this run's rate (printed by G6 / G7)
 LAST_SERVE: dict = {}  # the last _serve's host ms a decode step (to a synchronize)
 
 
@@ -4085,7 +4415,7 @@ def sharded_baseline(name, cfg, dev, seed, batch, seq, store) -> dict:
     serve = tuple(t.cpu() for t in _serve(cfg, state.params, _serve_prompt(cfg, seed).to(dev),
                                           SERVE_TOKENS))
     out.update(serve=serve, serve_counts=read_counts(),
-               serve_ms=(time.perf_counter() - t0) * 1e3, serve_step_ms=LAST_SERVE["step_ms"])
+               serve_ms=(time.perf_counter() - t0) * 1e3)
     torch.save({p: t.cpu() for p, t in zip(paths, (t for _, t in tree_items(state.params)))},
                f"{store}/params.pt")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4293,8 +4623,7 @@ def _sharded_rank(name, cfg, seed, batch, seq, store):
         zero_counts()
         served = _serve(cfg, state.params, prompt, SERVE_TOKENS)
         torch.cuda.synchronize()
-        out.update(serve_counts=read_counts(), serve_ms=(time.perf_counter() - t0) * 1e3,
-                   serve_step_ms=LAST_SERVE["step_ms"])
+        out.update(serve_counts=read_counts(), serve_ms=(time.perf_counter() - t0) * 1e3)
         served = [partition.gather_leaf(t, ("data",), mesh) for t in served]
         out["serve"] = tuple(t.cpu() for t in served) if dist.get_rank() == 0 else None
     del state, step, batches
@@ -4431,9 +4760,6 @@ def path_sharded(name, cfg, dev, seed, batch=4, seq=512):
              f"expected {want_serve} in every rank")
     counts = {k: sum(r["counts"][k] + r["serve_counts"][k] for r in ranks) for k in r0["counts"]}
     print(f"Path {name}: flash_attention_mma launched {mma} times by rank")
-    step_ms = max(r["serve_step_ms"] for r in ranks) + base["serve_step_ms"]
-    CUTS[f"{name} serving, {SERVE_TOKENS_BEFORE} -> {SERVE_TOKENS} greedy tokens"] = \
-        (SERVE_TOKENS_BEFORE - SERVE_TOKENS) * step_ms / 1e3
     return dict(counts=counts, loss_errs=loss_errs, norm_errs=norm_errs,
                 grad_worst=grad_worst[0], sign_flip=flip, later_grads=later,
                 param_worst=param_worst, undecided=n_undecided, ranks_s=ranks_s,
@@ -4655,13 +4981,8 @@ def sharded_paths(dev) -> tuple:
                            21)], "G4-G9")
     took = lambda *gs: sum(g["base_s"] + g["ranks_s"] for g in gs)
     print(f"Paths G4-G5 took {took(g4, g5):.1f} s")
-    print(f"Paths G6-G7 took {took(g6, g7):.1f} s; the cuts that pay for them, each's saving "
-          f"estimated at this run's rate: " + ", ".join(f"{k} {v:.1f} s" for k, v in CUTS.items())
-          + f" ({sum(CUTS.values()):.1f} s in all)")
-    print(f"Paths G8-G9 took {took(g8, g9):.1f} s; the cuts that pay for them, each's saving "
-          f"estimated at this run's rate: "
-          + ", ".join(f"{k} {v:.1f} s" for k, v in CUTS_G8_G9.items())
-          + f" ({sum(CUTS_G8_G9.values()):.1f} s in all)")
+    print(f"Paths G6-G7 took {took(g6, g7):.1f} s")
+    print(f"Paths G8-G9 took {took(g8, g9):.1f} s")
     return g4, g5, g6, g7, g8, g9
 
 
@@ -4716,6 +5037,52 @@ def dr_meta(knobs: dict) -> dict:
     return out
 
 
+def g10_walks(archs=None) -> dict:
+    """The operations of each Path G10 train step, for its bound: the step
+    walked on ``meta`` by the dry run's walker (``dryrun.walk_step``, cold,
+    as :func:`dr_meta` walks minitron's, which Path DR holds to the card's)
+    at G10's config, batch and shapes, on rank 0 of a fake world of one.
+    xlstm-350m's sLSTM loops over the positions in Python, so its walk at S
+    = 2048 takes minutes: it is walked at S = 256 and 512 and extrapolated
+    linearly to 2048.  Its operations are affine in S: the products of every
+    position (the sLSTM's loop, the projections, the head) and of each
+    256-position mLSTM chunk, less one chunk's state update in the backward
+    (the last chunk's carried state reaches no output).
+    ``archs``: those of G10_CASES alone.  -> {arch: {"flops", "walked_at",
+    "walk_s"}}."""
+    import torch
+
+    from repro_torch.dist.compat import init_dry_run, make_mesh
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import steps
+
+    init_dry_run(1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    for arch, cut, batch in G10_CASES:
+        if archs and arch not in archs:
+            continue
+        cfg = lm_config(arch, **cut)
+
+        def walk(seq):
+            b = {k: torch.empty(shape, dtype=torch.int32 if k == "tokens" else torch.float32,
+                                device="meta") for k, shape in g10_shapes(cfg, batch, seq).items()}
+            rec = dryrun.walk_step(cfg, "train", steps.make_train_step(cfg, specs.opt_config()),
+                                   (specs.train_state_specs(cfg), b), mesh)
+            if not rec["ok"]:
+                raise RuntimeError(f"Path G10 meta walk of {arch} at S = {seq}: {rec['error']}")
+            return rec["walk"]["flops"]
+
+        t0 = time.perf_counter()
+        if cfg.block_type == "xlstm":
+            (s0, f0), (s1, f1) = ((s, walk(s)) for s in XLSTM_WALK_SEQ)
+            flops, walked = f0 + (G10_SEQ - s0) * (f1 - f0) / (s1 - s0), list(XLSTM_WALK_SEQ)
+        else:
+            flops, walked = walk(G10_SEQ), [G10_SEQ]
+        out[arch] = dict(flops=flops, walked_at=walked, walk_s=time.perf_counter() - t0)
+    return out
+
+
 def _dr_knob(pl) -> dict:
     """What the meta walk of Path DR's CPADMM block needs of plan ``pl``."""
     return dict(n1=pl.n1, n2=pl.n2, rfft=pl.rfft, overlap=pl.overlap, fused=pl.fused,
@@ -4742,6 +5109,24 @@ def dr_meta_chain(knobs: dict) -> dict:
     batch: they need no card, only the knobs."""
     return {"DR meta": [dict(argv=[str(Path(__file__).resolve()), "--dr-meta",
                                    json.dumps(knobs)], env={})]}
+
+
+def g10_meta_chains() -> dict:
+    """Path G10's meta walks (:func:`g10_walks`) as two chains of the process
+    batch, beside DR's (they need no card): xlstm-350m's two walks (~45 s
+    alone on the CPU) and the other four."""
+    script = str(Path(__file__).resolve())
+    rest = ",".join(a for a, _, _ in G10_CASES if a != "xlstm-350m")
+    return {name: [dict(argv=[script, "--g10-meta", archs], env={})]
+            for name, archs in (("G10 meta xlstm-350m", "xlstm-350m"), ("G10 meta", rest))}
+
+
+def g10_meta_results(procs: dict) -> dict:
+    """{arch: walk} from the output of :func:`g10_meta_chains`' commands."""
+    out = {}
+    for name in g10_meta_chains():
+        out.update(json.loads(procs[name][0].strip().splitlines()[-1]))
+    return out
 
 
 def path_dr(dev, meta_run=None) -> dict:
@@ -4899,6 +5284,10 @@ def main() -> int:
         sys.path.insert(0, str(ROOT / "src"))
         print(json.dumps(dr_meta(json.loads(sys.argv[2]))))
         return 0
+    if sys.argv[1:2] == ["--g10-meta"]:  # Path G10's meta walks: no card needed
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(g10_walks(sys.argv[2].split(",") if len(sys.argv) > 2 else None)))
+        return 0
     if sys.argv[1:2] == ["--flash-times"]:
         flash_times(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT)
         return 0
@@ -4927,6 +5316,17 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--dr"]:
         path_dr(dev)
+        return 0
+    if sys.argv[1:2] == ["--train"]:  # Paths E9 + G11 and G10 alone
+        t0 = time.perf_counter()
+        procs, _ = run_chains(g10_meta_chains())
+        print(f"Path G10 meta walks: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        path_e9(dev, 13)
+        print(f"phase E9-G11: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        path_g10(dev, 16, g10_meta_results(procs))
+        print(f"phase G10: {time.perf_counter() - t0:.1f} s")
         return 0
     laps, lap_t = {}, [time.perf_counter()]
 
@@ -4964,7 +5364,7 @@ def main() -> int:
     lap("D2, T-D2, H")
     s = path_s(dev)
     lap("S")
-    s_below = path_s(dev, n=below, requests=16, method="ista", name=f"S{below}")
+    s_below = path_s(dev, n=below, method="ista", name=f"S{below}")
     lap(f"S{below}")
     sd1 = path_s_d1(dev)
     lap("S-D1")
@@ -4972,7 +5372,7 @@ def main() -> int:
     cli_priors = cli_priors_phase()
     lap("CLI")
     knobs = dr_knobs(dev)
-    procs, walls = process_phase(dr_meta_chain(knobs))
+    procs, walls = process_phase({**g10_meta_chains(), **dr_meta_chain(knobs)})
     lap("processes")
     e1 = path_e1(dev, 4)
     e2 = path_e2(e1)
@@ -4994,6 +5394,8 @@ def main() -> int:
     del g2["state"]
     torch.cuda.empty_cache()
     lap("G2-E5")
+    g10 = path_g10(dev, 16, g10_meta_results(procs))
+    lap("G10")
     g4, g5, g6, g7, g8, g9 = sharded_paths(dev)
     lap("G4-G9")
     dr = path_dr(dev, (knobs, procs["DR meta"][0], walls["DR meta"][0]))
@@ -5006,7 +5408,9 @@ def main() -> int:
     e8 = path_e8(dev, 12)
     lap("E8")
     e9 = path_e9(dev, 13)
-    lap("E9")
+    lap("E9-G11")
+    print(f"Paths G10 and G11 took {laps['G10'] + e9['g11']['seconds']:.1f} s (G10 "
+          f"{laps['G10']:.1f}, G11 {e9['g11']['seconds']:.1f})")
     e10 = path_e10(dev, 14)
     lap("E10")
     e11 = path_e11(dev, 15)
@@ -5027,7 +5431,8 @@ def main() -> int:
                "G2": g2["counts"], "G3": g3["counts"], "E5": e5["counts"], "E6": e6["counts"],
                "E7": e7["counts"], "E8": e8["counts"], "E9": e9["counts"], "E10": e10["counts"],
                "E11": e11["counts"], "G4": g4["counts"], "G5": g5["counts"], "G6": g6["counts"],
-               "G7": g7["counts"], "G8": g8["counts"], "G9": g9["counts"], "DR": dr["counts"]}
+               "G7": g7["counts"], "G8": g8["counts"], "G9": g9["counts"], "DR": dr["counts"],
+               "G10": g10["counts"], "G11": e9["g11"]["counts"]}
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():

@@ -426,24 +426,64 @@ def test_param_counts_positive(arch):
     assert 0 < counts["active"] <= counts["total"]
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "moonshot-v1-16b-a3b"])
+# The SMOKE configs widened to head_dim 64, so that the card runs the bf16
+# wgmma kernel (row 9a) in every attention that has one; deepseek-v3's MLA and
+# xlstm-350m have none (MLA is plain code, as the reference's) and stay as
+# they are.
+LEAF_WIDTHS = {
+    "minitron-4b": dict(d_model=256, n_heads=4, n_kv_heads=2),
+    "moonshot-v1-16b-a3b": dict(d_model=256, n_heads=4, n_kv_heads=4),
+    "deepseek-v3-671b": {},
+    "zamba2-1.2b": dict(d_model=256, n_heads=4, n_kv_heads=4),
+    "xlstm-350m": {},
+    "whisper-large-v3": dict(d_model=256, n_heads=4, n_kv_heads=4),
+    "pixtral-12b": dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64),
+}
+
+
+@pytest.mark.parametrize("arch", list(LEAF_WIDTHS))
 def test_every_leaf_but_router_bias_gets_a_gradient(arch):
     _every_leaf_gets_a_gradient(arch, "cpu")
 
 
+def _leaf_config(arch):
+    return dataclasses.replace(port_registry.smoke_config(arch), **LEAF_WIDTHS[arch])
+
+
+def _attention_calls(cfg) -> int:
+    """The flash attentions one forward of ``cfg`` runs: zamba2's shared
+    block once an invocation, whisper's encoder, decoder and cross layers,
+    one a layer otherwise; none for MLA and xLSTM."""
+    if cfg.attn_type == "mla" or cfg.block_type == "xlstm":
+        return 0
+    if cfg.block_type == "mamba2":
+        return port_lm.shared_invocations(cfg)
+    return cfg.n_enc_layers + 2 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
+
+
 def _every_leaf_gets_a_gradient(arch, device):
     """One train step's gradient: every leaf but ``router_bias`` non-None and
-    non-zero.  Widened to head_dim 64 so that the card runs the kernel."""
-    cfg = dataclasses.replace(port_registry.smoke_config(arch), d_model=256, n_heads=4,
-                              n_kv_heads=2 if arch == "minitron-4b" else 4)
+    non-zero; whisper's batch holds 24 frames, pixtral's its image
+    embeddings.  ``router_bias`` (deepseek-v3, moonshot) reaches the loss
+    only through topk's indices, so it has no gradient in the reference
+    either.  zamba2's shared block is one set of weights reached from two
+    invocations: its gradient is their sum.  The inputs (frames, image
+    embeddings) are not leaves and are asked no gradient."""
+    cfg = _leaf_config(arch)
     gen = torch.Generator(device=device).manual_seed(0)
     params = port_lm.init_params(gen, cfg, device=device)
-    tokens = torch.randint(0, cfg.vocab, (2, 65), generator=gen, device=device)
-    _, grads = port_steps.grads_of(params, cfg, {"tokens": tokens})
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 65), generator=gen, device=device)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, 24, cfg.d_model, generator=gen, device=device) * 0.02
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = torch.randn(2, cfg.n_img_tokens, cfg.d_model, generator=gen,
+                                          device=device) * 0.02
+    _, grads = port_steps.grads_of(params, cfg, batch)
     it = iter(grads)
     missing = [path for path, g in _paths(port_lm.tree_map(lambda _: next(it), params))
                if path[-1] != "router_bias" and (g is None or not bool(g.abs().amax() > 0))]
     assert missing == []
+    assert not any(v.requires_grad for v in batch.values())
     return grads
 
 
@@ -489,11 +529,11 @@ def test_flash_function_gradients_on_card(cuda_device, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["minitron-4b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", list(LEAF_WIDTHS))
 def test_every_leaf_gets_a_gradient_on_card(cuda_device, arch):
     from repro_torch.kernels.flash_attention import ops
 
     before = ops.flash_attention_sm90.launches
     _every_leaf_gets_a_gradient(arch, cuda_device)
-    cfg = port_registry.smoke_config(arch)
-    assert ops.flash_attention_sm90.launches - before == 2 * cfg.n_layers  # remat: twice
+    calls = _attention_calls(_leaf_config(arch))
+    assert ops.flash_attention_sm90.launches - before == 2 * calls  # remat: twice
